@@ -1,0 +1,238 @@
+"""A2C — synchronous advantage actor-critic (counterpart of
+`actor_critic_tpu/algos/a2c.py`).
+
+One train step is
+
+    rollout: T × [policy forward → categorical sample → batched env step]
+    update:  truncation bootstrap → GAE (CUDA kernel) → policy-gradient +
+             value-MSE + entropy loss → clip-by-global-norm + Adam
+
+with `rollout` and `update` split, so a test can drive the update half
+with another rollout's output. Everything but GAE is plain PyTorch on the
+card, as the JAX package leaves it to XLA.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from actor_critic_tpu_torch import resolve_device
+from actor_critic_tpu_torch.algos.common import (
+    TrainState,
+    Transition,
+    anneal_fraction,
+    episode_metrics_update,
+    gae_targets,
+    init_rollout,
+    linear_anneal,
+    make_mode_eval,
+    rollout_loop,
+    truncation_bootstrap_rewards,
+)
+from actor_critic_tpu_torch.algos.metrics import aggregate_metrics
+from actor_critic_tpu_torch.envs.env import TorchEnv
+from actor_critic_tpu_torch.models.networks import ActorCriticDiscrete
+from actor_critic_tpu_torch.ops.returns import normalize_advantages
+from actor_critic_tpu_torch.optim import ClippedAdam, linear_schedule
+
+
+@dataclasses.dataclass(frozen=True)
+class A2CConfig:
+    """Same fields and defaults as the JAX `A2CConfig` (a test holds them
+    equal); see that class for the reasoning behind each."""
+
+    num_envs: int = 64
+    rollout_steps: int = 16  # T
+    gamma: float = 0.99
+    gae_lambda: float = 0.95
+    lr: float = 3e-4
+    value_coef: float = 0.5
+    entropy_coef: float = 0.01
+    max_grad_norm: float = 0.5
+    hidden: tuple[int, ...] = (64, 64)
+    normalize_adv: bool = False
+    # Huber value loss with this delta (<=0 keeps plain MSE).
+    value_huber_delta: float = 0.0
+    # bfloat16 activations: not ported yet (make_network raises).
+    bf16_compute: bool = False
+    # Linear annealing of lr → lr_final and entropy_coef →
+    # entropy_coef_final over the first `anneal_iters` train steps (0 = off).
+    anneal_iters: int = 0
+    lr_final: Optional[float] = None
+    entropy_coef_final: Optional[float] = None
+
+
+def make_network(
+    env: TorchEnv, cfg: A2CConfig, generator: Optional[torch.Generator] = None
+) -> ActorCriticDiscrete:
+    if cfg.bf16_compute:
+        raise NotImplementedError("bf16_compute is not ported yet")
+    if not env.spec.discrete or len(env.spec.obs_shape) != 1:
+        raise NotImplementedError("only discrete actions on vector observations are ported")
+    return ActorCriticDiscrete(
+        env.spec.obs_shape[0], env.spec.action_dim, cfg.hidden, generator
+    )
+
+
+def make_eval_fn(env: TorchEnv, cfg: A2CConfig):
+    """Greedy (mode-action) eval: `eval_fn(state, generator, num_envs, num_steps)`."""
+    return make_mode_eval(env)
+
+
+def make_optimizer(cfg: A2CConfig) -> ClippedAdam:
+    lr = cfg.lr
+    if cfg.anneal_iters > 0 and cfg.lr_final is not None:
+        # One optimizer step per train iteration: the schedule's count IS
+        # the iteration count.
+        lr = linear_schedule(cfg.lr, cfg.lr_final, cfg.anneal_iters)
+    return ClippedAdam(lr, cfg.max_grad_norm)
+
+
+def entropy_coef_at(cfg: A2CConfig, update_step: int) -> float:
+    """Current entropy coefficient under the linear anneal."""
+    return linear_anneal(
+        cfg.entropy_coef,
+        cfg.entropy_coef_final,
+        anneal_fraction(update_step, cfg.anneal_iters),
+    )
+
+
+def init_state(env: TorchEnv, cfg: A2CConfig, seed: int = 0, device="cuda") -> TrainState:
+    """Fresh train state on `device`. The weights are drawn on the CPU from
+    a generator seeded with `seed` (so they do not depend on the device);
+    actions and resets come from a generator on `device`, seeded likewise."""
+    device = resolve_device(device)
+    net = make_network(env, cfg, torch.Generator().manual_seed(seed)).to(device)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    E = cfg.num_envs
+    return TrainState(
+        net=net,
+        opt_state=make_optimizer(cfg).init(dict(net.named_parameters())),
+        rollout=init_rollout(env, generator, E),
+        generator=generator,
+        update_step=0,
+        ep_return=torch.zeros(E, device=device),
+        ep_length=torch.zeros(E, device=device),
+        avg_return=torch.zeros((), device=device),
+    )
+
+
+def _huber(pred: torch.Tensor, target: torch.Tensor, delta: float) -> torch.Tensor:
+    """optax.losses.huber_loss."""
+    abs_err = torch.abs(pred - target)
+    quadratic = torch.clamp(abs_err, max=delta)
+    linear = abs_err - quadratic
+    return 0.5 * quadratic**2 + delta * linear
+
+
+def a2c_loss(
+    net: torch.nn.Module,
+    traj: Transition,
+    advantages: torch.Tensor,
+    returns: torch.Tensor,
+    cfg: A2CConfig,
+    entropy_coef: Optional[float] = None,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Policy-gradient + value-MSE (or Huber) + entropy-bonus loss on a
+    [T, E] batch, float32 reductions; advantages and returns are
+    gradient constants."""
+    if entropy_coef is None:
+        entropy_coef = cfg.entropy_coef
+    obs = traj.obs.reshape(-1, *traj.obs.shape[2:])
+    actions = traj.action.reshape(-1, *traj.action.shape[2:])
+    adv = advantages.detach().reshape(-1)
+    ret = returns.detach().reshape(-1)
+    if cfg.normalize_adv:
+        adv = normalize_advantages(adv)
+
+    dist, value = net(obs)
+    log_prob = dist.log_prob(actions)
+    entropy = torch.mean(dist.entropy(), dtype=torch.float32)
+    pg_loss = -torch.mean(adv * log_prob, dtype=torch.float32)
+    if cfg.value_huber_delta > 0:
+        v_loss = torch.mean(_huber(value, ret, cfg.value_huber_delta), dtype=torch.float32)
+    else:
+        v_loss = 0.5 * torch.mean((value - ret) ** 2, dtype=torch.float32)
+    loss = pg_loss + cfg.value_coef * v_loss - entropy_coef * entropy
+    aux = {"loss": loss, "pg_loss": pg_loss, "v_loss": v_loss, "entropy": entropy}
+    return loss, {k: v.detach() for k, v in aux.items()}
+
+
+def rollout(env: TorchEnv, cfg: A2CConfig, state: TrainState) -> Transition:
+    """Collect T steps with the current policy; advances `state.rollout`."""
+    state.rollout, traj = rollout_loop(
+        env, state.net, state.rollout, state.generator, cfg.rollout_steps
+    )
+    return traj
+
+
+def update(
+    env: TorchEnv,
+    cfg: A2CConfig,
+    opt: ClippedAdam,
+    state: TrainState,
+    traj: Transition,
+) -> dict[str, torch.Tensor]:
+    """Targets, one clipped-Adam step on `a2c_loss`, and episode accounting
+    for a rollout `traj` whose next obs is `state.rollout.obs`. Updates
+    `state` in place; returns the metrics as device tensors."""
+    net = state.net
+    with torch.no_grad():
+        _, bootstrap_value = net(state.rollout.obs)
+        if env.spec.can_truncate:
+            T, E = traj.reward.shape
+            _, final_values = net(traj.final_obs.reshape(T * E, *traj.final_obs.shape[2:]))
+            rewards = truncation_bootstrap_rewards(traj, final_values.reshape(T, E), cfg.gamma)
+        else:
+            rewards = traj.reward
+    advantages, returns = gae_targets(
+        rewards, traj.value, traj.done, bootstrap_value, cfg.gamma, cfg.gae_lambda
+    )
+
+    params = dict(net.named_parameters())
+    loss, metrics = a2c_loss(
+        net, traj, advantages, returns, cfg, entropy_coef_at(cfg, state.update_step)
+    )
+    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    opt.step(params, grads, state.opt_state)
+
+    state.ep_return, state.ep_length, state.avg_return, ep_metrics = episode_metrics_update(
+        state.ep_return, state.ep_length, state.avg_return, traj
+    )
+    state.update_step += 1
+    return aggregate_metrics(metrics, ep_metrics)
+
+
+def make_train_step(
+    env: TorchEnv, cfg: A2CConfig
+) -> Callable[[TrainState], tuple[TrainState, dict[str, torch.Tensor]]]:
+    """`train_step(state) -> (state, metrics)`: rollout then update."""
+    opt = make_optimizer(cfg)
+
+    def train_step(state: TrainState) -> tuple[TrainState, dict[str, torch.Tensor]]:
+        traj = rollout(env, cfg, state)
+        return state, update(env, cfg, opt, state, traj)
+
+    return train_step
+
+
+def train(
+    env: TorchEnv,
+    cfg: A2CConfig,
+    num_iterations: int,
+    seed: int = 0,
+    device="cuda",
+    state: Optional[TrainState] = None,
+    log_every: int = 0,
+    log_fn: Optional[Callable[[int, dict], None]] = None,
+) -> tuple[TrainState, dict[str, torch.Tensor]]:
+    """The host loop around the train step (single device)."""
+    from actor_critic_tpu_torch.algos.loop import fused_train_loop
+
+    return fused_train_loop(
+        make_train_step, init_state, env, cfg, num_iterations,
+        seed=seed, device=device, state=state, log_every=log_every, log_fn=log_fn,
+    )

@@ -1,0 +1,96 @@
+"""Guards on the PyTorch port as a whole: it imports nothing of JAX, it
+does not run on the CPU unless asked to, its configuration cannot drift
+from the JAX package's, and it learns CartPole (slow-marked)."""
+
+import ast
+import dataclasses
+from pathlib import Path
+
+import pytest
+import torch
+
+from actor_critic_tpu import config as jconfig
+from actor_critic_tpu.algos import a2c as ja2c
+from actor_critic_tpu_torch import config as tconfig
+from actor_critic_tpu_torch import resolve_device, train
+from actor_critic_tpu_torch.algos import a2c as ta2c
+from actor_critic_tpu_torch.envs import make_cartpole
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "actor_critic_tpu"}
+PORT_FILES = sorted((ROOT / "actor_critic_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant) and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr", getattr(node.func, "id", None))
+              in ("import_module", "__import__")):
+            roots.add(node.args[0].value.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_nothing_of_jax(path):
+    assert not (_imported_roots(path) & FORBIDDEN), path
+
+
+def test_import_scan_sees_the_forbidden_forms(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text(
+        "import jax.numpy as jnp\nfrom flax import linen\n"
+        "from actor_critic_tpu.ops import returns\nimport importlib\n"
+        "importlib.import_module('optax')\nimport actor_critic_tpu_torch\n")
+    assert _imported_roots(probe) & FORBIDDEN == {"jax", "flax", "actor_critic_tpu", "optax"}
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_raises_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--preset", "a2c_cartpole", "--iterations", "1"])
+    cfg = ta2c.A2CConfig(num_envs=4, rollout_steps=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ta2c.init_state(make_cartpole(), cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ta2c.train(make_cartpole(), cfg, 1)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_a2c_config_fields_and_defaults_match_jax():
+    jf = [(f.name, f.default) for f in dataclasses.fields(ja2c.A2CConfig)]
+    tf = [(f.name, f.default) for f in dataclasses.fields(ta2c.A2CConfig)]
+    assert tf == jf
+
+
+def test_a2c_cartpole_preset_matches_jax():
+    j, t = jconfig.PRESETS["a2c_cartpole"], tconfig.PRESETS["a2c_cartpole"]
+    assert (t.algo, t.iterations) == (j.algo, j.iterations)
+    assert dataclasses.asdict(t.config) == dataclasses.asdict(j.config)
+    assert j.env == "jax:cartpole" and t.env == "cartpole"
+
+
+@pytest.mark.slow
+def test_a2c_learns_cartpole_annealed():
+    """tests/test_a2c.py's shape (E=256, T=64, lr=1e-3, lr and entropy
+    annealed to 0 over 400 iterations) on the CPU: greedy eval >= 400."""
+    env = make_cartpole()
+    cfg = ta2c.A2CConfig(
+        num_envs=256, rollout_steps=64, lr=1e-3,
+        anneal_iters=400, lr_final=0.0,
+        entropy_coef=0.01, entropy_coef_final=0.0,
+    )
+    state, _ = ta2c.train(env, cfg, num_iterations=400, seed=0, device="cpu")
+    ev = float(ta2c.make_eval_fn(env, cfg)(state, torch.Generator().manual_seed(1), 32, 512))
+    assert ev >= 400.0, f"annealed A2C failed CartPole: greedy eval {ev}"
