@@ -2,8 +2,10 @@
 
 The JAX package scans T steps of (policy forward → vmapped env step)
 inside one jitted program. Here the rollout is a Python loop over T of
-batched tensor ops on the card; the advantage seam `gae_targets` goes
-through the hand-written GAE kernel (`ops/gae_cuda.py`).
+batched tensor ops on the card; the advantage seams go through the
+hand-written kernels: `gae_targets` through the GAE kernel
+(`ops/gae_cuda.py`), `corrected_advantages` through the V-trace kernel
+(`ops/vtrace_cuda.py`) or GAE.
 
 Unlike JAX's immutable pytrees, `TrainState` is a mutable dataclass: the
 network's parameters and the optimizer moments are updated in place.
@@ -12,15 +14,15 @@ network's parameters and the optimizer moments are updated in place.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from actor_critic_tpu_torch.envs.env import TorchEnv
-from actor_critic_tpu_torch.ops import gae_cuda
-from actor_critic_tpu_torch.optim import AdamState
+from actor_critic_tpu_torch.ops import gae_cuda, vtrace_cuda
+from actor_critic_tpu_torch.optim import AdamState, RMSPropState
 
 
 class Transition(NamedTuple):
@@ -48,7 +50,7 @@ class TrainState:
     """On-policy trainer state. Total env steps = update_step · T · E."""
 
     net: nn.Module
-    opt_state: AdamState
+    opt_state: Union[AdamState, RMSPropState]
     rollout: RolloutState
     generator: torch.Generator  # on the trainer's device: actions and resets
     update_step: int  # number of train_step calls
@@ -106,6 +108,41 @@ def gae_targets(
     """THE on-policy advantage seam: (advantages, returns) through the GAE
     kernel on CUDA tensors, through its plain version on CPU tensors."""
     return gae_cuda.gae(rewards, values, dones, bootstrap_value, gamma, lam)
+
+
+def corrected_advantages(
+    target_log_probs: torch.Tensor,
+    behavior_log_probs: torch.Tensor,
+    rewards: torch.Tensor,
+    values: torch.Tensor,
+    dones: torch.Tensor,
+    bootstrap_value: torch.Tensor,
+    gamma: float,
+    lam: float,
+    rho_bar: float = 1.0,
+    c_bar: float = 1.0,
+    correction: str = "vtrace",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The staleness correction of the decoupled actor-learner trainer:
+    (pg_advantages, value_targets, mean_clipped_rho).
+
+    `"vtrace"`: V-trace through the V-trace kernel (`ops/vtrace_cuda.py`),
+    the behaviour log-probs recorded at rollout time correcting the actors'
+    lag. `"none"`: plain λ-return GAE under the learner's critic through
+    `gae_targets`, with no importance weighting (the A3C rule), and a mean
+    ρ of 1. Inputs are gradient constants."""
+    if correction == "vtrace":
+        vt = vtrace_cuda.vtrace(
+            target_log_probs, behavior_log_probs, rewards, values, dones,
+            bootstrap_value, gamma, rho_bar=rho_bar, c_bar=c_bar, lam=lam,
+        )
+        return vt.pg_advantages, vt.vs, torch.mean(vt.clipped_rhos)
+    if correction == "none":
+        pg_advantages, value_targets = gae_targets(
+            rewards, values, dones, bootstrap_value, gamma, lam
+        )
+        return pg_advantages, value_targets, torch.ones((), device=rewards.device)
+    raise ValueError(f"unknown correction: {correction!r}")
 
 
 def anneal_fraction(update_step: int, anneal_iters: int) -> Optional[float]:

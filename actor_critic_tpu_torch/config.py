@@ -1,7 +1,8 @@
 """Named presets (counterpart of `actor_critic_tpu/config.py`).
 
-Only `a2c_cartpole` is ported in this slice; its values are held equal to
-the JAX preset's by a test.
+The presets ported so far: `a2c_cartpole`, and the IMPALA/A3C trio on the
+Pong-like pixel env, `impala_pong`, `impala_pong_learn` and `a3c_pong`.
+Their values are held equal to the JAX presets' by a test.
 """
 
 from __future__ import annotations
@@ -9,18 +10,21 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-from actor_critic_tpu_torch.algos import a2c
+from actor_critic_tpu_torch.algos import a2c, impala
 
 
 @dataclasses.dataclass(frozen=True)
 class Preset:
     """A runnable training setup: algorithm + environment + config."""
 
-    algo: str        # a2c (the only algorithm ported so far)
+    algo: str        # a2c | impala | a3c
     env: str         # env name, see train.ENVS
     config: Any      # the algorithm's frozen config dataclass
     iterations: int  # default --iterations
     description: str
+    # Keyword arguments for the env maker: the difficulty and shape knobs
+    # that define a runnable result, e.g. pong's opp_skill / frame_skip.
+    env_kwargs: dict = dataclasses.field(default_factory=dict)
 
 
 PRESETS: dict[str, Preset] = {
@@ -36,5 +40,37 @@ PRESETS: dict[str, Preset] = {
         ),
         iterations=400,
         description="A2C on batched CartPole-v1, GAE through the CUDA kernel",
+    ),
+    # IMPALA with 64 actors, unroll 20 and a 4-step actor lag, Nature CNN
+    # on 84×84×2 uint8 Pong frames.
+    "impala_pong": Preset(
+        algo="impala",
+        env="pong",
+        config=impala.ImpalaConfig(num_envs=64, rollout_steps=20, actor_refresh_every=4),
+        iterations=2000,
+        description="IMPALA on the Pong-like pixel env, V-trace through the CUDA kernel",
+    ),
+    # The same learner at the difficulty where it learns in the JAX
+    # package's runs: opponent at half speed, frame_skip 4, 36 px frames.
+    "impala_pong_learn": Preset(
+        algo="impala",
+        env="pong",
+        config=impala.ImpalaConfig(num_envs=64, rollout_steps=20, actor_refresh_every=4),
+        iterations=40_000,
+        description="IMPALA on the Pong-like pixel env at the learnable difficulty "
+        "(opp_skill=0.5, frame_skip=4, 36px)",
+        env_kwargs={"opp_skill": 0.5, "frame_skip": 4, "size": 36},
+    ),
+    # The same trainer with no importance correction (the A3C rule): GAE
+    # through the CUDA kernel.
+    "a3c_pong": Preset(
+        algo="a3c",
+        env="pong",
+        config=impala.ImpalaConfig(
+            num_envs=64, rollout_steps=20, actor_refresh_every=4,
+            correction="none", lam=0.95,
+        ),
+        iterations=2000,
+        description="A3C-style (no importance correction) on the Pong-like pixel env",
     ),
 }

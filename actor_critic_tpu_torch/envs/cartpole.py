@@ -54,7 +54,8 @@ def reset(num_envs: int, generator: torch.Generator) -> tuple[CartPoleState, tor
     return state, _obs(state)
 
 
-def raw_step(state: CartPoleState, action: torch.Tensor):
+def raw_step(state: CartPoleState, action: torch.Tensor, generator: torch.Generator):
+    del generator  # deterministic dynamics
     force = torch.where(action == 1, FORCE_MAG, -FORCE_MAG).to(torch.float32)
     costheta = torch.cos(state.theta)
     sintheta = torch.sin(state.theta)

@@ -13,7 +13,8 @@ the whole batch at once. The contract is the JAX one:
   bootstrap through time-limit truncations;
 - `step` auto-resets: where an episode ended, the returned state/obs are
   from a fresh episode, and the pre-reset obs is in `info["final_obs"]`;
-- everything is float32 apart from integer step counters.
+- everything is float32 apart from integer step counters and pixel
+  observations, which are uint8 `[E, H, W, C]` as in the JAX package.
 """
 
 from __future__ import annotations
@@ -44,6 +45,12 @@ class EnvSpec:
     # Upper bound on episode length (the time limit), 0 = unknown.
     episode_horizon: int = 0
 
+    @property
+    def pixel_obs(self) -> bool:
+        """Image-shaped observations ([H, W, C]): the rule by which a
+        trainer picks the Nature CNN over the MLP torso."""
+        return len(self.obs_shape) == 3
+
 
 @dataclasses.dataclass(frozen=True)
 class TorchEnv:
@@ -56,15 +63,21 @@ class TorchEnv:
 
 def auto_reset(
     reset_fn: Callable[[int, torch.Generator], tuple[Any, torch.Tensor]],
-    raw_step: Callable[[Any, torch.Tensor], tuple[Any, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]],
+    raw_step: Callable[
+        [Any, torch.Tensor, torch.Generator],
+        tuple[Any, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor],
+    ],
 ) -> Callable[[Any, torch.Tensor, torch.Generator], StepOutput]:
     """Wrap a raw batched step (no reset logic) into the auto-resetting
-    protocol. `raw_step(state, action) -> (state, obs, reward, terminated,
-    truncated)`. A fresh reset is drawn for the whole batch and selected
-    where `done` with `torch.where`: branchless, no host sync."""
+    protocol. `raw_step(state, action, generator) -> (state, obs, reward,
+    terminated, truncated)`; an env whose dynamics draw random numbers
+    (Pong re-serves the ball after every point) takes them from
+    `generator`, the others ignore it. A fresh reset is drawn for the whole
+    batch and selected where `done` with `torch.where`: branchless, no host
+    sync."""
 
     def step(state, action: torch.Tensor, generator: torch.Generator) -> StepOutput:
-        nstate, obs, reward, terminated, truncated = raw_step(state, action)
+        nstate, obs, reward, terminated, truncated = raw_step(state, action, generator)
         done = torch.maximum(terminated, truncated)
         rstate, robs = reset_fn(done.shape[0], generator)
         d = done.to(torch.bool)

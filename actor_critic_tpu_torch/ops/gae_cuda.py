@@ -21,6 +21,7 @@ import ctypes
 import torch
 
 from actor_critic_tpu_torch.ops import returns as _returns
+from actor_critic_tpu_torch.ops._scan_args import check_scan_inputs
 
 _launches = 0
 
@@ -49,28 +50,6 @@ def _bind():
     return fn
 
 
-def _check(rewards, values, dones, bootstrap_value) -> None:
-    if rewards.dim() != 2:
-        raise ValueError(f"rewards must be [T, E], got shape {tuple(rewards.shape)}")
-    T, E = rewards.shape
-    for name, x, shape in (
-        ("rewards", rewards, (T, E)),
-        ("values", values, (T, E)),
-        ("dones", dones, (T, E)),
-        ("bootstrap_value", bootstrap_value, (E,)),
-    ):
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {x.dtype}")
-        if x.device != rewards.device:
-            raise ValueError(f"{name} is on {x.device}, rewards on {rewards.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if rewards.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {rewards.device}")
-
-
 def gae(
     rewards: torch.Tensor,
     values: torch.Tensor,
@@ -84,12 +63,13 @@ def gae(
     rewards, values, dones, bootstrap_value = (
         x.detach() for x in (rewards, values, dones, bootstrap_value)
     )
-    _check(rewards, values, dones, bootstrap_value)
+    T, E = check_scan_inputs(
+        {"rewards": rewards, "values": values, "dones": dones}, bootstrap_value
+    )
     if rewards.device.type == "cpu":
         return _returns.gae(rewards, values, dones, bootstrap_value, gamma, lam)
 
     global _launches
-    T, E = rewards.shape
     adv = torch.empty_like(rewards)
     ret = torch.empty_like(rewards)
     launch = _bind()

@@ -1,13 +1,14 @@
 """Return / advantage computations as plain reverse loops over T.
 
 Counterpart of `actor_critic_tpu/ops/returns.py` (`gae`, `lambda_returns`,
-`normalize_advantages`). These are the PLAIN versions of the GAE kernel in
-`ops/gae_cuda.py`: the wrapper uses them for CPU tensors, and
-`chip_smoke.py` holds the kernel against them on the card.
+`vtrace`, `normalize_advantages`). These are the PLAIN versions of the GAE
+kernel in `ops/gae_cuda.py` and of the V-trace kernel in
+`ops/vtrace_cuda.py`: the wrappers use them for CPU tensors, and
+`chip_smoke.py` holds the kernels against them on the card.
 
 Same conventions as the JAX module: time-major `[T, ...]` inputs, `dones`
 are terminations (they cut both the bootstrap and the trace), float32
-accumulation. The arithmetic is written in the kernel's order, with the
+accumulation. The arithmetic is written in the kernels' order, with the
 advantage carry as one fused multiply-add (`addcmul`) where XLA contracts
 it too, so the kernel, this version and the JAX reference agree bit for
 bit on 0/1 dones.
@@ -15,7 +16,15 @@ bit on 0/1 dones.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+
+# Cap on log importance ratios before the exp, the JAX package's
+# `ops.returns.LOG_RATIO_CAP`: exp(20) ≈ 4.9e8 is far above any ratio the
+# clips keep and far below float32 overflow, so a drifted behaviour policy
+# can never turn a ratio into inf (and inf · 0 into nan).
+LOG_RATIO_CAP = 20.0
 
 
 def gae(
@@ -53,6 +62,56 @@ def lambda_returns(
 ) -> torch.Tensor:
     """TD(λ) return targets; equals `gae(...)[1]`."""
     return gae(rewards, values, dones, bootstrap_value, gamma, lam)[1]
+
+
+class VTraceOutput(NamedTuple):
+    vs: torch.Tensor  # [T, ...] V-trace value targets
+    pg_advantages: torch.Tensor  # [T, ...] policy-gradient advantages
+    clipped_rhos: torch.Tensor  # [T, ...] min(rho_bar, π/μ)
+
+
+def vtrace(
+    target_log_probs: torch.Tensor,
+    behaviour_log_probs: torch.Tensor,
+    rewards: torch.Tensor,
+    values: torch.Tensor,
+    dones: torch.Tensor,
+    bootstrap_value: torch.Tensor,
+    gamma: float,
+    rho_bar: float = 1.0,
+    c_bar: float = 1.0,
+    lam: float = 1.0,
+) -> VTraceOutput:
+    """V-trace targets (IMPALA), as the TPU kernel computes them: in reverse
+    over t with carries acc_T = 0 and v_T = vs_T = bootstrap,
+
+        raw = exp(min(tlp − blp, LOG_RATIO_CAP)),  ρ = min(ρ̄, raw)
+        c   = λ·min(c̄, raw)   (c clips the RAW ratio, not ρ)
+        γ_t = γ·(1 − d),       δ = ρ·(r + γ_t·v_{t+1} − v)
+        acc = δ + γ_t·c·acc,   vs = acc + v
+        pg  = ρ·(r + γ_t·vs_{t+1} − v)
+    """
+    dones = dones.to(rewards.dtype)
+    vs = torch.empty_like(rewards)
+    pg = torch.empty_like(rewards)
+    rhos = torch.empty_like(rewards)
+    acc = torch.zeros_like(bootstrap_value)
+    v_next = vs_next = bootstrap_value
+    for t in range(rewards.shape[0] - 1, -1, -1):
+        raw = torch.exp(torch.clamp(target_log_probs[t] - behaviour_log_probs[t], max=LOG_RATIO_CAP))
+        rho = torch.clamp(raw, max=rho_bar)
+        c = lam * torch.clamp(raw, max=c_bar)
+        disc = gamma * (1.0 - dones[t])
+        r, v = rewards[t], values[t]
+        delta = rho * (r + disc * v_next - v)
+        # One fused multiply-add, as XLA contracts this line in the JAX
+        # reference and as the kernel computes it.
+        acc = torch.addcmul(delta, disc * c, acc)
+        vs[t] = acc + v
+        pg[t] = rho * (r + disc * vs_next - v)
+        rhos[t] = rho
+        v_next, vs_next = v, vs[t]
+    return VTraceOutput(vs=vs, pg_advantages=pg, clipped_rhos=rhos)
 
 
 def normalize_advantages(advantages: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

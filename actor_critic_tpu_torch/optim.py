@@ -1,14 +1,20 @@
-"""The A2C optimizer, written out by hand to match optax.
+"""The trainers' optimizers, written out by hand to match optax.
 
 `a2c.make_optimizer` in the JAX package builds
-`optax.chain(clip_by_global_norm(max_norm), adam(lr or linear_schedule))`.
-This module is that chain, step for step and in float32:
+`optax.chain(clip_by_global_norm(max_norm), adam(lr or linear_schedule))`,
+and `impala.make_optimizer` builds
+`optax.chain(clip_by_global_norm(max_norm), rmsprop(lr, decay, eps))`.
+This module is those chains, step for step and in float32:
 
 - clip: `t / g_norm * max_norm` only when `g_norm >= max_norm` (optax's
   rule; `torch.nn.utils.clip_grad_norm_` adds 1e-6 and would drift);
 - Adam: b1=0.9, b2=0.999, eps=1e-8 outside the square root, bias
   correction `1 - b**count` computed in float32 as optax does;
-- the learning-rate schedule is read at the count BEFORE the increment.
+- the learning-rate schedule is read at the count BEFORE the increment;
+- RMSProp as optax's `scale_by_rms` has it: nu starts at 0, no bias
+  correction, and eps INSIDE the root, `g · rsqrt(nu + eps)`.
+  `torch.optim.RMSprop` puts eps outside (`g / (sqrt(nu) + eps)`); at the
+  IMPALA setting eps = 0.1 that is a different optimizer.
 
 Parameters are updated in place under `torch.no_grad()`.
 """
@@ -61,6 +67,11 @@ def clip_by_global_norm(
     return {k: torch.where(keep, g, g / g_norm * max_norm) for k, g in grads.items()}
 
 
+def _zeros_like(params: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    return {k: torch.zeros_like(p, memory_format=torch.contiguous_format)
+            for k, p in params.items()}
+
+
 class ClippedAdam:
     """`chain(clip_by_global_norm(max_norm), adam(lr))`, lr a float or a
     schedule of the step count."""
@@ -70,9 +81,7 @@ class ClippedAdam:
         self.max_norm = max_norm
 
     def init(self, params: Mapping[str, torch.Tensor]) -> AdamState:
-        zeros = lambda: {k: torch.zeros_like(p, memory_format=torch.contiguous_format)
-                         for k, p in params.items()}
-        return AdamState(count=0, mu=zeros(), nu=zeros())
+        return AdamState(count=0, mu=_zeros_like(params), nu=_zeros_like(params))
 
     def step(
         self,
@@ -95,3 +104,35 @@ class ClippedAdam:
                 p.add_(update * -lr)
                 state.mu[k], state.nu[k] = mu, nu
         state.count = count
+
+
+@dataclasses.dataclass
+class RMSPropState:
+    nu: dict[str, torch.Tensor]  # running mean of squared (clipped) grads
+
+
+class ClippedRMSProp:
+    """`chain(clip_by_global_norm(max_norm), rmsprop(lr, decay, eps))` with
+    optax's defaults for the rest (initial_scale 0, eps_in_sqrt, no bias
+    correction, no momentum, not centered)."""
+
+    def __init__(self, lr: float, max_norm: float, decay: float, eps: float):
+        self.lr, self.max_norm, self.decay, self.eps = lr, max_norm, decay, eps
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> RMSPropState:
+        return RMSPropState(nu=_zeros_like(params))
+
+    def step(
+        self,
+        params: Mapping[str, torch.Tensor],
+        grads: Mapping[str, torch.Tensor],
+        state: RMSPropState,
+    ) -> None:
+        """Apply one update to `params` in place and advance `state`."""
+        grads = clip_by_global_norm(grads, self.max_norm)
+        with torch.no_grad():
+            for k, p in params.items():
+                g = grads[k]
+                nu = (1 - self.decay) * (g * g) + self.decay * state.nu[k]
+                p.add_(torch.rsqrt(nu + self.eps) * g * -self.lr)
+                state.nu[k] = nu

@@ -1,6 +1,6 @@
 """Training CLI of the port.
 
-    python -m actor_critic_tpu_torch.train --preset a2c_cartpole \
+    python -m actor_critic_tpu_torch.train --preset a2c_cartpole|impala_pong|... \
         [--iterations N] [--seed S] [--eval-every K] [--log-every K] \
         [--device cuda|cpu]
 
@@ -21,13 +21,13 @@ import time
 import torch
 
 from actor_critic_tpu_torch import resolve_device
-from actor_critic_tpu_torch.algos import a2c
+from actor_critic_tpu_torch.algos import a2c, impala
 from actor_critic_tpu_torch.algos.loop import fused_train_loop
 from actor_critic_tpu_torch.config import PRESETS
-from actor_critic_tpu_torch.envs import make_cartpole
+from actor_critic_tpu_torch.envs import make_cartpole, make_pong
 
-ENVS = {"cartpole": make_cartpole}
-ALGOS = {"a2c": a2c}
+ENVS = {"cartpole": make_cartpole, "pong": make_pong}
+ALGOS = {"a2c": a2c, "impala": impala, "a3c": impala}
 
 
 def _json_row(row: dict) -> str:
@@ -54,7 +54,7 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     preset = PRESETS[args.preset]
     mod = ALGOS[preset.algo]
-    env = ENVS[preset.env]()
+    env = ENVS[preset.env](**preset.env_kwargs)
     cfg = preset.config
     iterations = args.iterations or preset.iterations
     steps_per_iter = cfg.num_envs * cfg.rollout_steps

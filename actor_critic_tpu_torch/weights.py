@@ -2,9 +2,13 @@
 
 A flax `Dense` keeps `kernel [in, out]` and `bias [out]` under its module
 path; the port's `nn.Linear` keeps `weight [out, in]` and `bias [out]`
-under the same path with dots (`torso/dense_0` → `torso.dense_0`). Both
-sides are plain numpy / torch here, so this module needs neither JAX nor
-the JAX package: the caller hands it `jax.device_get(params)`.
+under the same path with dots (`torso/dense_0` → `torso.dense_0`). A flax
+`Conv` keeps `kernel [kh, kw, in, out]`; the port's `nn.Conv2d` keeps
+`weight [out, in, kh, kw]`, which is `permute(3, 2, 0, 1)` of it (a plain
+transpose would also swap kh and kw: invisible in the shapes of square
+kernels, wrong in the values). Both sides are plain numpy / torch here,
+so this module needs neither JAX nor the JAX package: the caller hands it
+`jax.device_get(params)`.
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from actor_critic_tpu_torch.optim import AdamState
+from actor_critic_tpu_torch.optim import AdamState, RMSPropState
 
 
 def _flat(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]:
@@ -36,7 +40,10 @@ def from_flax(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     state = {}
     for path, arr in _flat(params_np).items():
         module, _, leaf = path.rpartition(".")
-        if leaf == "kernel":
+        if leaf == "kernel" and arr.ndim == 4:
+            state[f"{module}.weight"] = torch.from_numpy(
+                np.ascontiguousarray(arr.transpose(3, 2, 0, 1)))
+        elif leaf == "kernel" and arr.ndim == 2:
             state[f"{module}.weight"] = torch.from_numpy(np.array(arr.T, order="C"))
         elif leaf == "bias":
             state[f"{module}.bias"] = torch.from_numpy(np.array(arr))
@@ -45,18 +52,30 @@ def from_flax(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     return state
 
 
-def adam_state_from_optax(opt_state: Any) -> AdamState:
-    """The Adam moments and count of an optax `chain(clip_by_global_norm,
-    adam)` state (numpy leaves) as the port's `AdamState`."""
+def _find_state(opt_state: Any, match) -> Any:
     stack = [opt_state]
     while stack:
         node = stack.pop()
-        if hasattr(node, "mu") and hasattr(node, "nu") and hasattr(node, "count"):
-            return AdamState(
-                count=int(np.asarray(node.count)),
-                mu=from_flax(node.mu),
-                nu=from_flax(node.nu),
-            )
+        if match(node):
+            return node
         if isinstance(node, (tuple, list)):
             stack.extend(node)
-    raise ValueError("no Adam state (mu, nu, count) in the optax state")
+    return None
+
+
+def adam_state_from_optax(opt_state: Any) -> AdamState:
+    """The Adam moments and count of an optax `chain(clip_by_global_norm,
+    adam)` state (numpy leaves) as the port's `AdamState`."""
+    node = _find_state(opt_state, lambda n: all(hasattr(n, a) for a in ("mu", "nu", "count")))
+    if node is None:
+        raise ValueError("no Adam state (mu, nu, count) in the optax state")
+    return AdamState(count=int(np.asarray(node.count)), mu=from_flax(node.mu), nu=from_flax(node.nu))
+
+
+def rmsprop_state_from_optax(opt_state: Any) -> RMSPropState:
+    """The second-moment tree `nu` of an optax `chain(clip_by_global_norm,
+    rmsprop)` state (numpy leaves) as the port's `RMSPropState`."""
+    node = _find_state(opt_state, lambda n: hasattr(n, "nu") and not hasattr(n, "mu"))
+    if node is None:
+        raise ValueError("no RMSProp state (nu) in the optax state")
+    return RMSPropState(nu=from_flax(node.nu))

@@ -4,15 +4,22 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit (from nvidia-smi);
-2. build: every CUDA kernel of the main path, from `actor_critic_tpu_torch/csrc`;
+2. build: every CUDA kernel of the main paths (GAE and V-trace), from
+   `actor_critic_tpu_torch/csrc`, one nvcc each, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shape and at boundary shapes, with its tolerance, and
+   its main path's shape and at boundary shapes, with its tolerance, and
    its time beside the plain version's and the card's bound; then one A2C
-   update on the card against the same update on the CPU;
-4. main path: the `a2c_cartpole` preset at full width (E=4096, T=64)
-   through `actor_critic_tpu_torch.train.main` for a few iterations, with
-   the launch counts reset just before and read just after; then where a
-   train step's time goes (host clock and torch.profiler);
+   update and one IMPALA update on the card against the same update on
+   the CPU;
+4. main paths, each through `actor_critic_tpu_torch.train.main` with every
+   launch count reset just before and read just after:
+   - `a2c_cartpole` at full width (E=4096, T=64), GAE on its path;
+   - `impala_pong` at full width (E=64, T=20, 84×84×2 frames, Nature
+     CNN), V-trace on its path;
+   - `a3c_pong`, the same trainer through GAE, for a few iterations;
+   then IMPALA's learning check on the two-state MDP, and where a train
+   step's time goes for `a2c_cartpole` and `impala_pong` (host clock and
+   torch.profiler);
 5. a `{"kernels": [...]}` line, then the card's name and power limit;
 6. last line: `{"ok": true, "device": {"platform": "gpu", ...}}`.
 
@@ -23,6 +30,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import subprocess
@@ -30,10 +38,15 @@ import sys
 import time
 
 MAIN_PATH_ITERATIONS = 50
-# Kernel vs plain version: the same tolerance as the JAX package's kernel
-# tests (tests/test_pallas_scan.py). The kernel rounds every operation in
-# the plain version's order, so on the card the two should agree exactly.
+IMPALA_ITERATIONS = 60   # > max_steps / T = 50: every env ends an episode
+A3C_ITERATIONS = 3
+# Kernel vs plain version: the same tolerances as the JAX package's kernel
+# tests (tests/test_pallas_scan.py). The GAE kernel rounds every operation
+# in the plain version's order, so on the card the two should agree
+# exactly; V-trace also takes an exp on each side (expf in the kernel,
+# PyTorch's exp in the plain version), so it may differ in the last bit.
 ATOL = RTOL = 1e-6
+VTRACE_ATOL, VTRACE_RTOL = 1e-6, 1e-5
 GAMMA, LAM = 0.99, 0.95
 # H100 SXM published peaks at its 700 W limit (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -167,83 +180,262 @@ def check_gae() -> dict:
     }
 
 
-def check_update_on_card() -> None:
-    """One A2C update on the card against the same update on the CPU (plain
-    GAE there), from the same state and rollout at a small size: the slice
-    as a whole, kernel included, gives the CPU's answer. Float32 matrix
-    products stay in full float32 (TF32 off); tolerance on the parameters
-    atol 1e-5·lr + rtol 1e-6 (see tests/test_torch_a2c.py), on the loss
-    metrics rtol 1e-5 (sums taken in another order)."""
+def vtrace_inputs(T: int, E: int, seed: int, done_at_t0: bool = False,
+                  lp_scale: float = 0.3, capped: bool = False):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tlp = torch.randn((T, E), generator=g, device="cuda") * lp_scale
+    blp = torch.randn((T, E), generator=g, device="cuda") * lp_scale
+    if capped:  # log-ratios far above the cap of 20 (exp(100) is inf in float32)
+        tlp = torch.where(torch.rand((T, E), generator=g, device="cuda") < 0.05, 100.0, tlp)
+    return (tlp, blp, *gae_inputs(T, E, seed + 1000, done_at_t0))
+
+
+def check_vtrace() -> dict:
+    """V-trace kernel vs `ops.returns.vtrace` on the card; returns its
+    kernels-line entry."""
+    import torch
+
+    from actor_critic_tpu_torch.ops import returns, vtrace_cuda
+
+    # (name, T, E, input options, rho_bar, c_bar, lam)
+    cases = [
+        ("preset", 20, 64, {}, 1.0, 1.0, 1.0),
+        ("T17-E512", 17, 512, {}, 1.0, 1.0, 0.9),
+        ("E7", 17, 7, {}, 1.0, 1.0, 1.0),
+        ("E96", 17, 96, {}, 1.0, 1.0, 1.0),
+        ("E200", 17, 200, {}, 1.0, 1.0, 1.0),
+        ("E300", 17, 300, {}, 1.0, 1.0, 1.0),
+        ("T1", 1, 512, {}, 1.0, 1.0, 1.0),
+        ("done-at-t0", 4, 512, {"done_at_t0": True}, 1.0, 1.0, 1.0),
+        ("cbar>rhobar", 17, 512, {"lp_scale": 1.0}, 1.0, 2.0, 0.9),
+        ("capped-ratio", 4, 128, {"capped": True}, 1e9, 1.0, 1.0),
+        ("multi-block", 20, 4096 + 37, {}, 1.0, 1.0, 1.0),
+    ]
+    max_err = 0.0
+    for i, (name, T, E, opts, rho_bar, c_bar, lam) in enumerate(cases):
+        args = vtrace_inputs(T, E, seed=i, **opts)
+        got = vtrace_cuda.vtrace(*args, GAMMA, rho_bar, c_bar, lam)
+        want = returns.vtrace(*args, GAMMA, rho_bar, c_bar, lam)
+        torch.cuda.synchronize()
+        err = 0.0
+        for field in want._fields:
+            g, w = getattr(got, field), getattr(want, field)
+            assert g.shape == (T, E) and bool(torch.isfinite(g).all()), (name, field)
+            torch.testing.assert_close(g, w, atol=VTRACE_ATOL, rtol=VTRACE_RTOL,
+                                       msg=lambda m: f"vtrace {name} {field}: {m}")
+            err = max(err, float((g - w).abs().max()))
+        if name == "capped-ratio":
+            # ρ = exp(20) ≈ 4.85e8 here, so the outputs are of that order
+            # and held by the relative tolerance; the other cases' values are
+            # of order 1, and `max_abs_err` is taken over those.
+            assert float(got.clipped_rhos.max()) > 4e8, "the capped ratio did not reach rho"
+        else:
+            max_err = max(max_err, err)
+        print(f"vtrace {name:12s} T={T:3d} E={E:5d} max_abs_err={err:.3e}", flush=True)
+
+    T, E = 20, 64  # the preset's shape
+    args = vtrace_inputs(T, E, seed=100)
+    event_ms = cuda_ms(lambda: vtrace_cuda.vtrace(*args, GAMMA), iters=500)
+    plain_ms = cuda_ms(lambda: returns.vtrace(*args, GAMMA), iters=20)
+    prof, _ = profile_kernels(lambda: vtrace_cuda.vtrace(*args, GAMMA), iters=100)
+    rows = [(n, us) for k, (n, us) in prof.items() if "vtrace_kernel" in k]
+    ms = rows[0][1] / rows[0][0] / 1e3 if rows else event_ms
+    bytes_moved = (8 * T * E + E) * 4  # 5 inputs + 3 outputs [T,E], bootstrap [E]
+    flops = 21 * T * E  # 20 float operations and one exp per element
+    bound_s = max(bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S)
+    bound_by = "bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / FP32_FLOPS_PER_S else "operations"
+    print(
+        f"vtrace [{T},{E}]: kernel {ms * 1e3:.2f} us on the device "
+        f"({'torch.profiler' if rows else 'not measured by the profiler; CUDA events'}), "
+        f"{event_ms * 1e3:.2f} us a call back to back (CUDA events), plain {plain_ms * 1e3:.2f} us, "
+        f"bound {bound_s * 1e6:.4f} us ({bound_by}: {bytes_moved} B, {flops} flop)",
+        flush=True,
+    )
+    return {
+        "name": "vtrace",
+        "route": "cuda",
+        "source": "actor_critic_tpu_torch/csrc/vtrace.cu",
+        "replaces": "actor_critic_tpu/ops/pallas_scan.py:238",
+        "launches": None,
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_s * 1e3,
+        "bound_by": bound_by,
+        # No single PyTorch call computes V-trace.
+        "library_ms": None,
+    }
+
+
+@contextlib.contextmanager
+def full_float32():
+    """Float32 matrix products and cuDNN convolutions in full float32 (no
+    TF32) inside the block; the flags as they were afterwards."""
+    import torch
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def update_on_card_vs_cpu(mod, env, cfg, cpu, traj, param_atol: float, metric_keys,
+                          metric_atol: float, metric_rtol: float) -> tuple[float, dict, dict]:
+    """One `mod.update` on the card against the same update on the CPU
+    (the kernels' plain versions there), from a copy of the CPU train state
+    `cpu` and the rollout `traj`, with float32 products and convolutions in
+    full float32. Holds the parameters at `param_atol` + rtol 1e-6 and the
+    metrics `metric_keys` at their tolerances; returns (largest parameter
+    difference, CPU metrics, card metrics)."""
     import copy
 
     import torch
 
-    from actor_critic_tpu_torch.algos import a2c
     from actor_critic_tpu_torch.algos.common import RolloutState, Transition
+
+    gpu = copy.deepcopy(cpu)
+    for f in dataclasses.fields(gpu):
+        v = getattr(gpu, f.name)
+        if isinstance(v, (torch.Tensor, torch.nn.Module)):
+            setattr(gpu, f.name, v.cuda())
+    for f in dataclasses.fields(gpu.opt_state):
+        v = getattr(gpu.opt_state, f.name)
+        if isinstance(v, dict):
+            setattr(gpu.opt_state, f.name, {k: t.cuda() for k, t in v.items()})
+    # The update reads the next obs of the rollout state, not the env state.
+    gpu.rollout = RolloutState(env_state=None, obs=gpu.rollout.obs.cuda())
+    with full_float32():
+        m_cpu = mod.update(env, cfg, mod.make_optimizer(cfg), cpu, traj)
+        m_gpu = mod.update(env, cfg, mod.make_optimizer(cfg), gpu,
+                           Transition(*(x.cuda() for x in traj)))
+        torch.cuda.synchronize()
+    worst = 0.0
+    for (k, pc), (_, pg) in zip(cpu.net.named_parameters(), gpu.net.named_parameters()):
+        torch.testing.assert_close(pg.detach().cpu(), pc.detach(), atol=param_atol, rtol=1e-6,
+                                   msg=lambda m, k=k: f"update on card, {k}: {m}")
+        worst = max(worst, float((pg.detach().cpu() - pc.detach()).abs().max()))
+    for k in metric_keys:
+        torch.testing.assert_close(m_gpu[k].cpu(), m_cpu[k], atol=metric_atol, rtol=metric_rtol,
+                                   msg=lambda m, k=k: f"update on card, metric {k}: {m}")
+    return worst, m_cpu, m_gpu
+
+
+def check_update_on_card() -> None:
+    """One A2C update on the card against the same update on the CPU (plain
+    GAE there), from the same state and rollout at a small size: the slice
+    as a whole, kernel included, gives the CPU's answer. Tolerance on the
+    parameters atol 1e-5·lr + rtol 1e-6 (see tests/test_torch_a2c.py), on
+    the loss metrics rtol 1e-5 (sums taken in another order)."""
+    from actor_critic_tpu_torch.algos import a2c
     from actor_critic_tpu_torch.envs import make_cartpole
 
-    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = a2c.A2CConfig(num_envs=64, rollout_steps=16, lr=1e-3, anneal_iters=10,
                         lr_final=0.0, entropy_coef_final=0.0)
     env = make_cartpole()
     cpu = a2c.init_state(env, cfg, seed=3, device="cpu")
     traj = a2c.rollout(env, cfg, cpu)
-    gpu = copy.deepcopy(cpu)
-    gpu.net = gpu.net.cuda()
-    gpu.opt_state.mu = {k: v.cuda() for k, v in gpu.opt_state.mu.items()}
-    gpu.opt_state.nu = {k: v.cuda() for k, v in gpu.opt_state.nu.items()}
-    gpu.rollout = RolloutState(env_state=None, obs=gpu.rollout.obs.cuda())
-    gpu.ep_return, gpu.ep_length, gpu.avg_return = (
-        gpu.ep_return.cuda(), gpu.ep_length.cuda(), gpu.avg_return.cuda())
-    m_cpu = a2c.update(env, cfg, a2c.make_optimizer(cfg), cpu, traj)
-    m_gpu = a2c.update(env, cfg, a2c.make_optimizer(cfg), gpu,
-                       Transition(*(x.cuda() for x in traj)))
-    torch.cuda.synchronize()
-    worst = 0.0
-    for (k, pc), (_, pg) in zip(cpu.net.named_parameters(), gpu.net.named_parameters()):
-        torch.testing.assert_close(pg.detach().cpu(), pc.detach(), atol=1e-5 * cfg.lr, rtol=1e-6,
-                                   msg=lambda m, k=k: f"update on card, {k}: {m}")
-        worst = max(worst, float((pg.detach().cpu() - pc.detach()).abs().max()))
-    for k in ("loss", "pg_loss", "v_loss", "entropy", "mean_finished_return"):
-        torch.testing.assert_close(m_gpu[k].cpu(), m_cpu[k], atol=0.0, rtol=1e-5,
-                                   msg=lambda m, k=k: f"update on card, metric {k}: {m}")
+    worst, _, _ = update_on_card_vs_cpu(
+        a2c, env, cfg, cpu, traj, param_atol=1e-5 * cfg.lr,
+        metric_keys=("loss", "pg_loss", "v_loss", "entropy", "mean_finished_return"),
+        metric_atol=0.0, metric_rtol=1e-5)
     print(f"update on card vs CPU (E=64, T=16): max abs parameter difference {worst:.3e}",
           flush=True)
 
 
-def run_main_path() -> dict[str, int]:
-    """Train the a2c_cartpole preset at full width through the CLI's main();
-    returns each kernel's launches during that run."""
-    import math
+def check_impala_update_on_card() -> None:
+    """One IMPALA update on the card against the same update on the CPU
+    (plain V-trace there), from the same state and a stale-actor rollout at
+    a small pixel size (42 px, E=8, T=4), TF32 off. Tolerances: loss
+    metrics rtol 1e-4, parameters atol 1e-4·lr + rtol 1e-6. cuDNN sums
+    the convolutions in another order than the CPU (and may transform
+    them, Winograd or FFT), so grads agree to ~1e-5 relative, not to the
+    bit; RMSProp moves a parameter by at most ~3.2·lr·|g|, which bounds
+    the parameter difference by ~3.2·lr·|Δg|."""
+    import torch
 
+    from actor_critic_tpu_torch.algos import impala
+    from actor_critic_tpu_torch.envs import make_pong
+
+    cfg = impala.ImpalaConfig(num_envs=8, rollout_steps=4, lr=1e-3, actor_refresh_every=2)
+    env = make_pong(size=42)
+    cpu = impala.init_state(env, cfg, seed=3, device="cpu")
+    # The learner's policy head sharpened after the actors' copy was taken,
+    # so that the compared update's ratios are well away from 1.
+    with torch.no_grad():
+        cpu.net.policy.weight.mul_(1000.0)
+    traj = impala.rollout(env, cfg, cpu)
+    worst, m_cpu, m_gpu = update_on_card_vs_cpu(
+        impala, env, cfg, cpu, traj, param_atol=1e-4 * cfg.lr,
+        metric_keys=("loss", "pg_loss", "v_loss", "entropy", "mean_rho"),
+        metric_atol=1e-6, metric_rtol=1e-4)
+    assert 0.0 < float(m_cpu["mean_rho"]) < 0.99, m_cpu["mean_rho"]
+    print(f"impala update on card vs CPU (42 px, E=8, T=4, TF32 off): max abs parameter "
+          f"difference {worst:.3e}, mean_rho {float(m_gpu['mean_rho']):.6f} "
+          f"(CPU {float(m_cpu['mean_rho']):.6f})", flush=True)
+
+
+def drive(argv: list[str], show_every: int) -> tuple[list[dict], dict, dict[str, int]]:
+    """Run `train.main(argv)` with every kernel's launch count reset just
+    before and read just after; returns (logged rows, summary row,
+    launches). Prints the first and last rows, every `show_every`-th and
+    the summary."""
     from actor_critic_tpu_torch import train
-    from actor_critic_tpu_torch.ops import gae_cuda
+    from actor_critic_tpu_torch.ops import gae_cuda, vtrace_cuda
 
-    argv = ["--preset", "a2c_cartpole", "--iterations", str(MAIN_PATH_ITERATIONS),
-            "--log-every", "10", "--eval-every", str(MAIN_PATH_ITERATIONS), "--seed", "0"]
     buf = io.StringIO()
     gae_cuda.reset_launch_count()
+    vtrace_cuda.reset_launch_count()
     with contextlib.redirect_stdout(buf):
         rc = train.main(argv)
-    launches = {"gae": gae_cuda.launch_count()}
-    out = buf.getvalue()
-    print(out, end="", flush=True)
+    launches = {"gae": gae_cuda.launch_count(), "vtrace": vtrace_cuda.launch_count()}
     assert rc == 0, f"train.main returned {rc}"
-    rows = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    rows = [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
     logged, summary = [r for r in rows if "iter" in r], rows[-1]
-    first, last = logged[0], logged[-1]
-    assert first["iter"] == 1 and last["iter"] == MAIN_PATH_ITERATIONS, (first, last)
+    for r in logged:
+        if r["iter"] in (1, logged[-1]["iter"]) or r["iter"] % show_every == 0:
+            print(json.dumps(r), flush=True)
+    print(json.dumps(summary), flush=True)
+    return logged, summary, launches
+
+
+def check_rows(logged: list[dict], iterations: int) -> None:
+    """Every iteration 1..`iterations` logged or the first and last; finite
+    losses on every logged row."""
+    import math
+
+    assert logged[0]["iter"] == 1 and logged[-1]["iter"] == iterations, (logged[0], logged[-1])
     for r in logged:
         for k in ("loss", "pg_loss", "v_loss", "entropy"):
             assert r[k] is not None and math.isfinite(r[k]), (r["iter"], k, r[k])
-    assert launches["gae"] == MAIN_PATH_ITERATIONS, launches
+
+
+def per_iteration(logged: list[dict], summary: dict) -> tuple[float, float]:
+    """(host seconds per iteration after the first, env steps per iteration)."""
+    first, last = logged[0], logged[-1]
+    per_iter_s = (last["wall_s"] - first["wall_s"]) / (last["iter"] - first["iter"])
+    return per_iter_s, summary["env_steps"] / summary["iterations"]
+
+
+def run_a2c_cartpole() -> dict[str, int]:
+    """Train the a2c_cartpole preset at full width through the CLI's main();
+    returns each kernel's launches during that run."""
+    n = MAIN_PATH_ITERATIONS
+    logged, summary, launches = drive(
+        ["--preset", "a2c_cartpole", "--iterations", str(n), "--log-every", "10",
+         "--eval-every", str(n), "--seed", "0"], show_every=10)
+    check_rows(logged, n)
+    first, last = logged[0], logged[-1]
+    assert launches == {"gae": n, "vtrace": 0}, launches
     assert last["mean_finished_return"] > first["mean_finished_return"], (
         first["mean_finished_return"], last["mean_finished_return"])
     assert last.get("eval_return") is not None, last
-    per_iter_s = (last["wall_s"] - first["wall_s"]) / (last["iter"] - first["iter"])
-    steps_per_iter = summary["env_steps"] / summary["iterations"]
+    per_iter_s, steps_per_iter = per_iteration(logged, summary)
     print(
-        f"main path: {MAIN_PATH_ITERATIONS} iterations of {steps_per_iter:.0f} env steps, "
+        f"main path a2c_cartpole: {n} iterations of {steps_per_iter:.0f} env steps, "
         f"{per_iter_s * 1e3:.3f} ms/iteration after the first, "
         f"{steps_per_iter / per_iter_s:.0f} env-steps/s; mean_finished_return "
         f"{first['mean_finished_return']:.3f} -> {last['mean_finished_return']:.3f}, "
@@ -253,21 +445,94 @@ def run_main_path() -> dict[str, int]:
     return launches
 
 
-def profile_main_path() -> None:
-    """Where a full-width train step's time goes: host-clock rollout and
-    update times, then device busy share and the top kernels from
+def run_impala_pong() -> dict[str, int]:
+    """Train the impala_pong preset at full width (E=64, T=20, 84 px) through
+    the CLI's main(), every iteration logged; returns each kernel's
+    launches during that run."""
+    import math
+
+    n = IMPALA_ITERATIONS
+    logged, summary, launches = drive(
+        ["--preset", "impala_pong", "--iterations", str(n), "--log-every", "1",
+         "--eval-every", str(n), "--seed", "0"], show_every=10)
+    check_rows(logged, n)
+    assert [r["iter"] for r in logged] == list(range(1, n + 1))
+    assert launches == {"gae": 0, "vtrace": n}, launches
+    for r in logged:
+        assert 0.0 < r["mean_rho"] <= 1.0, (r["iter"], r["mean_rho"])
+    episodes = sum(r["episodes_finished"] for r in logged)
+    assert episodes >= 64, f"only {episodes} episodes finished in {n} iterations"
+    ev = logged[-1].get("eval_return")
+    assert ev is not None and math.isfinite(ev), logged[-1]
+    per_iter_s, steps_per_iter = per_iteration(logged, summary)
+    print(
+        f"main path impala_pong: {n} iterations of {steps_per_iter:.0f} env steps, "
+        f"{per_iter_s * 1e3:.3f} ms/iteration after the first, "
+        f"{steps_per_iter / per_iter_s:.0f} env-steps/s; {episodes:.0f} episodes finished, "
+        f"mean_rho {min(r['mean_rho'] for r in logged):.6f}..{max(r['mean_rho'] for r in logged):.6f}, "
+        f"greedy eval {ev:.3f}; launches {launches}",
+        flush=True,
+    )
+    return launches
+
+
+def run_a3c_pong() -> dict[str, int]:
+    """The same trainer with correction="none": GAE, not V-trace, on its path."""
+    n = A3C_ITERATIONS
+    logged, summary, launches = drive(
+        ["--preset", "a3c_pong", "--iterations", str(n), "--log-every", "1", "--seed", "0"],
+        show_every=1)
+    check_rows(logged, n)
+    assert launches == {"gae": n, "vtrace": 0}, launches
+    assert all(r["mean_rho"] == 1.0 for r in logged), logged
+    per_iter_s, _ = per_iteration(logged, summary)
+    print(f"main path a3c_pong: {n} iterations, {per_iter_s * 1e3:.3f} ms/iteration after "
+          f"the first; launches {launches}", flush=True)
+    return launches
+
+
+def check_impala_learns() -> None:
+    """IMPALA with a 2-step actor lag on the two-state MDP at
+    tests/test_impala.py's shape (E=16, T=8, hidden (32,), lr 3e-3, entropy
+    1e-3, 800 iterations), on the card: the greedy policy picks the optimal
+    action 1 in both states and the critic heads toward V* = 100."""
+    import torch
+
+    from actor_critic_tpu_torch.algos import impala
+    from actor_critic_tpu_torch.envs import make_two_state_mdp
+
+    env = make_two_state_mdp()
+    cfg = impala.ImpalaConfig(num_envs=16, rollout_steps=8, hidden=(32,), lr=3e-3,
+                              actor_refresh_every=2, entropy_coef=0.001)
+    t0 = time.perf_counter()
+    state, metrics = impala.train(env, cfg, num_iterations=800, seed=0, device="cuda")
+    with torch.no_grad():
+        dist, values = state.net(torch.eye(2, device="cuda"))
+    probs = torch.softmax(dist.logits, -1).cpu()
+    values = values.cpu()
+    print(f"impala learning check (two-state MDP, 800 iterations, "
+          f"{time.perf_counter() - t0:.2f} s): pi(a=1) = {probs[0, 1]:.4f}, {probs[1, 1]:.4f}; "
+          f"V = {values[0]:.3f}, {values[1]:.3f}; last mean_rho {float(metrics['mean_rho']):.4f}",
+          flush=True)
+    assert float(probs[0, 1]) > 0.8 and float(probs[1, 1]) > 0.8, probs
+    assert 50.0 < float(values[0]) <= 110.0, values
+
+
+def profile_step(preset_name: str) -> None:
+    """Where a full-width train step of a preset goes: host-clock rollout
+    and update times, then device busy share and the top kernels from
     torch.profiler over a few steps."""
     import torch
 
-    from actor_critic_tpu_torch.algos import a2c
+    from actor_critic_tpu_torch import train
     from actor_critic_tpu_torch.config import PRESETS
-    from actor_critic_tpu_torch.envs import make_cartpole
 
-    cfg = PRESETS["a2c_cartpole"].config
-    env = make_cartpole()
-    state = a2c.init_state(env, cfg, seed=1, device="cuda")
-    opt = a2c.make_optimizer(cfg)
-    step = a2c.make_train_step(env, cfg)
+    preset = PRESETS[preset_name]
+    mod, cfg = train.ALGOS[preset.algo], preset.config
+    env = train.ENVS[preset.env](**preset.env_kwargs)
+    state = mod.init_state(env, cfg, seed=1, device="cuda")
+    opt = mod.make_optimizer(cfg)
+    step = mod.make_train_step(env, cfg)
     for _ in range(2):
         step(state)
     torch.cuda.synchronize()
@@ -275,10 +540,10 @@ def profile_main_path() -> None:
     t_roll = t_upd = 0.0
     for _ in range(n):
         t0 = time.perf_counter()
-        traj = a2c.rollout(env, cfg, state)
+        traj = mod.rollout(env, cfg, state)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        a2c.update(env, cfg, opt, state, traj)
+        mod.update(env, cfg, opt, state, traj)
         torch.cuda.synchronize()
         t_roll += t1 - t0
         t_upd += time.perf_counter() - t1
@@ -287,8 +552,9 @@ def profile_main_path() -> None:
     launches = sum(c for c, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
     print(
-        f"train step at E={cfg.num_envs}, T={cfg.rollout_steps} (host clock, synchronised): "
-        f"rollout {t_roll / n * 1e3:.3f} ms, update {t_upd / n * 1e3:.3f} ms",
+        f"{preset_name} train step at E={cfg.num_envs}, T={cfg.rollout_steps} "
+        f"(host clock, synchronised): rollout {t_roll / n * 1e3:.3f} ms, "
+        f"update {t_upd / n * 1e3:.3f} ms",
         flush=True,
     )
     if busy_us > 0:
@@ -317,15 +583,20 @@ def main() -> int:
     print(f"device: {smi}", flush=True)
 
     t0 = time.perf_counter()
-    _build.build("gae")
+    _build.build("gae", "vtrace")
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     for name, (secs, text) in _build.build_log.items():
         print(f"nvcc {name}.cu ({secs:.2f} s):\n{text.strip()}", flush=True)
 
-    entries = [check_gae()]
+    entries = [check_gae(), check_vtrace()]
     check_update_on_card()
-    launches = run_main_path()
-    profile_main_path()
+    check_impala_update_on_card()
+    # Each kernel's launches on its own main path.
+    launches = {"gae": run_a2c_cartpole()["gae"], "vtrace": run_impala_pong()["vtrace"]}
+    run_a3c_pong()
+    check_impala_learns()
+    profile_step("a2c_cartpole")
+    profile_step("impala_pong")
     for e in entries:
         e["launches"] = launches[e["name"]]
         assert e["launches"] > 0, f"kernel {e['name']} was not launched on the main path"

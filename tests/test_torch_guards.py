@@ -11,10 +11,12 @@ import torch
 
 from actor_critic_tpu import config as jconfig
 from actor_critic_tpu.algos import a2c as ja2c
+from actor_critic_tpu.algos import impala as jimpala
 from actor_critic_tpu_torch import config as tconfig
 from actor_critic_tpu_torch import resolve_device, train
 from actor_critic_tpu_torch.algos import a2c as ta2c
-from actor_critic_tpu_torch.envs import make_cartpole
+from actor_critic_tpu_torch.algos import impala as timpala
+from actor_critic_tpu_torch.envs import make_cartpole, make_pong
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "actor_critic_tpu"}
@@ -68,9 +70,25 @@ def test_default_device_raises_without_cuda(no_cuda):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_impala_entry_points_raise_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--preset", "impala_pong", "--iterations", "1"])
+    cfg = timpala.ImpalaConfig(num_envs=2, rollout_steps=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        timpala.init_state(make_pong(size=36), cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        timpala.train(make_pong(size=36), cfg, 1)
+
+
 def test_a2c_config_fields_and_defaults_match_jax():
     jf = [(f.name, f.default) for f in dataclasses.fields(ja2c.A2CConfig)]
     tf = [(f.name, f.default) for f in dataclasses.fields(ta2c.A2CConfig)]
+    assert tf == jf
+
+
+def test_impala_config_fields_and_defaults_match_jax():
+    jf = [(f.name, f.default) for f in dataclasses.fields(jimpala.ImpalaConfig)]
+    tf = [(f.name, f.default) for f in dataclasses.fields(timpala.ImpalaConfig)]
     assert tf == jf
 
 
@@ -79,6 +97,16 @@ def test_a2c_cartpole_preset_matches_jax():
     assert (t.algo, t.iterations) == (j.algo, j.iterations)
     assert dataclasses.asdict(t.config) == dataclasses.asdict(j.config)
     assert j.env == "jax:cartpole" and t.env == "cartpole"
+
+
+@pytest.mark.parametrize("name", ["impala_pong", "impala_pong_learn", "a3c_pong"])
+def test_pong_preset_matches_jax(name):
+    j, t = jconfig.PRESETS[name], tconfig.PRESETS[name]
+    assert (t.algo, t.iterations) == (j.algo, j.iterations)
+    assert dataclasses.asdict(t.config) == dataclasses.asdict(j.config)
+    assert j.env == f"jax:{t.env}" and t.env in train.ENVS
+    assert t.env_kwargs == j.env_kwargs
+    assert train.ALGOS[t.algo] is timpala
 
 
 @pytest.mark.slow
