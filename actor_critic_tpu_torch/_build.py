@@ -7,8 +7,9 @@ at first use, on the machine with the card, by
          -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
 
 into `build/kernels/` at the root of the checkout (listed in `.gitignore`).
-The library name carries a hash of the source, so an edited source is
-rebuilt and a stale library is never loaded. `build()` compiles several
+The library name carries a hash of the source and of the shared headers
+(`csrc/*.cuh`), so an edited source is rebuilt and a stale library is
+never loaded. `build()` compiles several
 sources at once, one `nvcc` process each, all started together.
 """
 
@@ -47,8 +48,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(
+        b"".join(p.read_bytes() for p in sources) + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -4,9 +4,11 @@ Replaces `actor_critic_tpu/ops/pallas_scan.py::_gae_kernel` (reached there
 through `gae`, `lambda_returns`, `gae_auto` and `lambda_returns_auto`; the
 λ-returns are the second output here).
 The kernel is bound by memory (5·T·E·4 + 4·E bytes, each input read once
-and each output written once), and at the trainer's shape by its launch;
-one thread per env column walks T in reverse with the carry in registers,
-so every row access is coalesced across E (see the note in the source).
+and each output written once). A block takes a strip of env columns over
+all T rows (`_scan_args.scan_geometry`): it copies the strip's rows into
+shared memory with every copy in flight before one wait, computes δ and
+the carry's coefficient in parallel, and runs only the one-FMA carry per
+column serially (see the note in the source).
 
 `gae` takes the plain version (`ops/returns.py`) only for CPU tensors; for
 CUDA tensors it launches the kernel or raises, with no fall back. Inputs
@@ -21,7 +23,7 @@ import ctypes
 import torch
 
 from actor_critic_tpu_torch.ops import returns as _returns
-from actor_critic_tpu_torch.ops._scan_args import check_scan_inputs
+from actor_critic_tpu_torch.ops._scan_args import check_scan_inputs, scan_geometry
 
 _launches = 0
 
@@ -45,7 +47,8 @@ def _bind():
     fn = lib.gae_launch
     if fn.argtypes is None:
         ptr = ctypes.c_void_p
-        fn.argtypes = [ptr] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ptr]
+        fn.argtypes = ([ptr] * 6 + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
+                       + [ctypes.c_int] * 6 + [ptr])
         fn.restype = ctypes.c_int
     return fn
 
@@ -70,15 +73,17 @@ def gae(
         return _returns.gae(rewards, values, dones, bootstrap_value, gamma, lam)
 
     global _launches
+    planes = (rewards, values, dones)
+    geometry = scan_geometry(T, E, len(planes), aligned=all(x.data_ptr() % 16 == 0 for x in planes))
     adv = torch.empty_like(rewards)
     ret = torch.empty_like(rewards)
     launch = _bind()
     with torch.cuda.device(rewards.device):
         stream = torch.cuda.current_stream(rewards.device).cuda_stream
         err = launch(
-            rewards.data_ptr(), values.data_ptr(), dones.data_ptr(),
-            bootstrap_value.data_ptr(), adv.data_ptr(), ret.data_ptr(),
-            T, E, float(gamma), float(gamma * lam), stream,
+            *(x.data_ptr() for x in planes), bootstrap_value.data_ptr(),
+            adv.data_ptr(), ret.data_ptr(),
+            T, E, float(gamma), float(gamma * lam), *geometry, stream,
         )
     if err != 0:
         raise RuntimeError(f"gae kernel launch failed: cudaError {err}")

@@ -4,9 +4,12 @@ Replaces `actor_critic_tpu/ops/pallas_scan.py::_vtrace_kernel` (reached
 there through `vtrace` and `vtrace_auto`).
 The kernel is bound by memory ((8·T·E + E)·4 bytes, each input read once
 and each output written once), and at the trainer's shape (E = 64) by its
-launch; one thread per env column walks T in reverse with the carries in
-registers, so every row access is coalesced across E (see the note in the
-source).
+launch. A block takes a strip of env columns over all T rows
+(`_scan_args.scan_geometry`): it copies the strip's rows into shared
+memory with every copy in flight before one wait, computes the ratios, δ
+and the carry's coefficient in parallel, runs only the one-FMA trace
+carry per column serially, then computes pg in parallel (see the note in
+the source).
 
 `vtrace` takes the plain version (`ops/returns.py`) only for CPU tensors;
 for CUDA tensors it launches the kernel or raises, with no fall back.
@@ -21,7 +24,7 @@ import ctypes
 import torch
 
 from actor_critic_tpu_torch.ops import returns as _returns
-from actor_critic_tpu_torch.ops._scan_args import check_scan_inputs
+from actor_critic_tpu_torch.ops._scan_args import check_scan_inputs, scan_geometry
 
 _launches = 0
 
@@ -44,7 +47,7 @@ def _bind():
     fn = lib.vtrace_launch
     if fn.argtypes is None:
         ptr = ctypes.c_void_p
-        fn.argtypes = [ptr] * 9 + [ctypes.c_int] * 2 + [ctypes.c_float] * 4 + [ptr]
+        fn.argtypes = [ptr] * 9 + [ctypes.c_int] * 2 + [ctypes.c_float] * 4 + [ctypes.c_int] * 6 + [ptr]
         fn.restype = ctypes.c_int
     return fn
 
@@ -73,6 +76,9 @@ def vtrace(
         return _returns.vtrace(*args, bootstrap_value, gamma, rho_bar, c_bar, lam)
 
     global _launches
+    # One scratch plane in shared memory: the chunk's δ.
+    geometry = scan_geometry(T, E, len(args), scratch_planes=1,
+                             aligned=all(x.data_ptr() % 16 == 0 for x in args))
     vs, pg, rho = (torch.empty_like(args[2]) for _ in range(3))
     launch = _bind()
     with torch.cuda.device(rewards.device):
@@ -80,7 +86,7 @@ def vtrace(
         err = launch(
             *(x.data_ptr() for x in args), bootstrap_value.data_ptr(),
             vs.data_ptr(), pg.data_ptr(), rho.data_ptr(),
-            T, E, float(gamma), float(rho_bar), float(c_bar), float(lam), stream,
+            T, E, float(gamma), float(rho_bar), float(c_bar), float(lam), *geometry, stream,
         )
     if err != 0:
         raise RuntimeError(f"vtrace kernel launch failed: cudaError {err}")

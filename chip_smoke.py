@@ -6,9 +6,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device: the card's name and power limit (from nvidia-smi);
 2. build: every CUDA kernel of the main paths (GAE and V-trace), from
    `actor_critic_tpu_torch/csrc`, one nvcc each, all started together;
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   its main path's shape and at boundary shapes, with its tolerance, and
-   its time beside the plain version's and the card's bound; then one A2C
+3. kernels: the launch floor (the device time of a one-element zero_());
+   each kernel against its plain PyTorch version on the card, at its main
+   paths' shapes and at boundary shapes (ragged strips, chunk boundaries
+   in T, bases off 16 bytes), with its tolerance, and its time beside the
+   plain version's, the card's bound and the launch floor; then one A2C
    update and one IMPALA update on the card against the same update on
    the CPU;
 4. main paths, each through `actor_critic_tpu_torch.train.main` with every
@@ -100,7 +102,53 @@ def profile_kernels(fn, iters: int) -> tuple[dict[str, tuple[int, float]], float
     return kernels, wall
 
 
-def gae_inputs(T: int, E: int, seed: int, done_at_t0: bool = False):
+def launch_floor_ms() -> float:
+    """Device time of the smallest kernel, a one-element zero_() on a
+    preallocated CUDA tensor, under torch.profiler: what any kernel costs
+    at a launch-bound shape."""
+    import torch
+
+    x = torch.empty(1, device="cuda")
+    prof, _ = profile_kernels(x.zero_, iters=100)
+    assert len(prof) == 1, f"expected one kernel for zero_(), the profiler saw {list(prof)}"
+    (n, us), = prof.values()
+    return us / n / 1e3
+
+
+def time_against_bound(label: str, kernel: str, fn, plain, bytes_moved: int, flops: int) -> dict:
+    """Time the wrapper call `fn` (whose kernel's name contains `kernel`)
+    and its plain version `plain`, print both beside the card's bound, and
+    return the kernels-line timing keys. The kernel's time is its own
+    device time under torch.profiler; back-to-back calls timed by CUDA
+    events include the wrapper's host time when the host is the slower
+    side, and are the fall back where the profiler records none. The
+    inputs stay warm in L2 between calls, as they are on the main path."""
+    event_ms = cuda_ms(fn, iters=500)
+    prof, _ = profile_kernels(fn, iters=100)
+    rows = [(n, us) for k, (n, us) in prof.items() if kernel in k]
+    ms = rows[0][1] / rows[0][0] / 1e3 if rows else event_ms
+    plain_ms = cuda_ms(plain, iters=20)
+    bound_s = max(bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S)
+    bound_by = "bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / FP32_FLOPS_PER_S else "operations"
+    print(
+        f"{label}: kernel {ms * 1e3:.3f} us on the device "
+        f"({'torch.profiler, inputs warm in L2' if rows else 'not measured by the profiler; CUDA events'}), "
+        f"{event_ms * 1e3:.3f} us a call back to back (CUDA events), plain {plain_ms * 1e3:.3f} us, "
+        f"bound {bound_s * 1e6:.4f} us ({bound_by}: {bytes_moved} B, {flops} flop)",
+        flush=True,
+    )
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3, "bound_by": bound_by}
+
+
+def off_by_one_float(x):
+    """A contiguous copy of `x` that starts one float into its buffer, so
+    the kernels must take their 4-byte copies."""
+    import torch
+
+    return torch.empty(x.numel() + 1, device=x.device)[1:].view(x.shape).copy_(x)
+
+
+def gae_inputs(T: int, E: int, seed: int, done_at_t0: bool = False, offset: bool = False):
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -110,6 +158,8 @@ def gae_inputs(T: int, E: int, seed: int, done_at_t0: bool = False):
     if done_at_t0:
         dones.zero_()
         dones[0] = 1.0
+    if offset:
+        rewards, values, dones = map(off_by_one_float, (rewards, values, dones))
     bootstrap = torch.randn((E,), generator=g, device="cuda")
     return rewards, values, dones, bootstrap
 
@@ -120,19 +170,27 @@ def check_gae() -> dict:
 
     from actor_critic_tpu_torch.ops import gae_cuda, returns
 
+    # (name, T, E, input options). The kernel walks T in chunks of 64 rows
+    # (T65 and multi-chunk cross chunk boundaries) over strips of 16 env
+    # columns (E7, E200, multi-block: ragged strips), with 16-byte copies
+    # where E % 4 == 0 and the planes start on 16 bytes (offset-base,
+    # multi-block and multi-chunk take the 4-byte ones).
     cases = [
-        ("preset", 64, 4096, False),
-        ("T17-E512", 17, 512, False),
-        ("E7", 17, 7, False),
-        ("E96", 17, 96, False),
-        ("E200", 17, 200, False),
-        ("T1", 1, 512, False),
-        ("done-at-t0", 4, 512, True),
-        ("multi-block", 64, 4096 + 37, False),
+        ("preset", 64, 4096, {}),
+        ("T17-E512", 17, 512, {}),
+        ("E7", 17, 7, {}),
+        ("E96", 17, 96, {}),
+        ("E200", 17, 200, {}),
+        ("T1", 1, 512, {}),
+        ("T65", 65, 4096, {}),
+        ("done-at-t0", 4, 512, {"done_at_t0": True}),
+        ("multi-block", 64, 4096 + 37, {}),
+        ("multi-chunk", 256, 4133, {}),
+        ("offset-base", 20, 64, {"offset": True}),
     ]
     max_err = 0.0
-    for i, (name, T, E, d0) in enumerate(cases):
-        args = gae_inputs(T, E, seed=i, done_at_t0=d0)
+    for i, (name, T, E, opts) in enumerate(cases):
+        args = gae_inputs(T, E, seed=i, **opts)
         adv, ret = gae_cuda.gae(*args, GAMMA, LAM)
         adv_p, ret_p = returns.gae(*args, GAMMA, LAM)
         torch.cuda.synchronize()
@@ -143,27 +201,15 @@ def check_gae() -> dict:
         max_err = max(max_err, err)
         print(f"gae {name:12s} T={T:3d} E={E:5d} max_abs_err={err:.3e}", flush=True)
 
-    T, E = 64, 4096
-    args = gae_inputs(T, E, seed=100)
-    event_ms = cuda_ms(lambda: gae_cuda.gae(*args, GAMMA, LAM), iters=500)
-    plain_ms = cuda_ms(lambda: returns.gae(*args, GAMMA, LAM), iters=20)
-    # Back-to-back calls timed by events include the wrapper's host time
-    # when the host is the slower side; the profiler gives the kernel's own
-    # device time (events are the fall back where it records none).
-    prof, _ = profile_kernels(lambda: gae_cuda.gae(*args, GAMMA, LAM), iters=100)
-    gae_rows = [(n, us) for k, (n, us) in prof.items() if "gae_kernel" in k]
-    ms = gae_rows[0][1] / gae_rows[0][0] / 1e3 if gae_rows else event_ms
-    bytes_moved = (5 * T * E + E) * 4  # 3 inputs + 2 outputs [T,E], bootstrap [E]
-    flops = 8 * T * E  # sub, 2 mul, add, sub; 2 mul, add; add per element
-    bound_s = max(bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S)
-    bound_by = "bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / FP32_FLOPS_PER_S else "operations"
-    print(
-        f"gae [64,4096]: kernel {ms * 1e3:.2f} us on the device "
-        f"({'torch.profiler' if gae_rows else 'not measured by the profiler; CUDA events'}), "
-        f"{event_ms * 1e3:.2f} us a call back to back (CUDA events), plain {plain_ms * 1e3:.2f} us, "
-        f"bound {bound_s * 1e6:.2f} us ({bound_by}: {bytes_moved} B, {flops} flop)",
-        flush=True,
-    )
+    # a2c_cartpole's shape (the kernels-line entry), then a3c_pong's.
+    timings = []
+    for T, E in ((64, 4096), (20, 64)):
+        args = gae_inputs(T, E, seed=100)
+        timings.append(time_against_bound(
+            f"gae [{T},{E}]", "gae_kernel", lambda: gae_cuda.gae(*args, GAMMA, LAM),
+            lambda: returns.gae(*args, GAMMA, LAM),
+            bytes_moved=(5 * T * E + E) * 4,  # 3 inputs + 2 outputs [T,E], bootstrap [E]
+            flops=8 * T * E))  # sub, 2 mul, add, sub; 2 mul, add; add per element
     return {
         "name": "gae",
         "route": "cuda",
@@ -171,17 +217,14 @@ def check_gae() -> dict:
         "replaces": "actor_critic_tpu/ops/pallas_scan.py:107",
         "launches": None,
         "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_s * 1e3,
-        "bound_by": bound_by,
+        **timings[0],
         # No single PyTorch call computes GAE.
         "library_ms": None,
     }
 
 
 def vtrace_inputs(T: int, E: int, seed: int, done_at_t0: bool = False,
-                  lp_scale: float = 0.3, capped: bool = False):
+                  lp_scale: float = 0.3, capped: bool = False, offset: bool = False):
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -189,7 +232,9 @@ def vtrace_inputs(T: int, E: int, seed: int, done_at_t0: bool = False,
     blp = torch.randn((T, E), generator=g, device="cuda") * lp_scale
     if capped:  # log-ratios far above the cap of 20 (exp(100) is inf in float32)
         tlp = torch.where(torch.rand((T, E), generator=g, device="cuda") < 0.05, 100.0, tlp)
-    return (tlp, blp, *gae_inputs(T, E, seed + 1000, done_at_t0))
+    if offset:
+        tlp, blp = off_by_one_float(tlp), off_by_one_float(blp)
+    return (tlp, blp, *gae_inputs(T, E, seed + 1000, done_at_t0, offset))
 
 
 def check_vtrace() -> dict:
@@ -199,7 +244,8 @@ def check_vtrace() -> dict:
 
     from actor_critic_tpu_torch.ops import returns, vtrace_cuda
 
-    # (name, T, E, input options, rho_bar, c_bar, lam)
+    # (name, T, E, input options, rho_bar, c_bar, lam); chunks and strips
+    # as in check_gae.
     cases = [
         ("preset", 20, 64, {}, 1.0, 1.0, 1.0),
         ("T17-E512", 17, 512, {}, 1.0, 1.0, 0.9),
@@ -208,10 +254,13 @@ def check_vtrace() -> dict:
         ("E200", 17, 200, {}, 1.0, 1.0, 1.0),
         ("E300", 17, 300, {}, 1.0, 1.0, 1.0),
         ("T1", 1, 512, {}, 1.0, 1.0, 1.0),
+        ("T65", 65, 4096, {}, 1.0, 2.0, 0.9),
         ("done-at-t0", 4, 512, {"done_at_t0": True}, 1.0, 1.0, 1.0),
         ("cbar>rhobar", 17, 512, {"lp_scale": 1.0}, 1.0, 2.0, 0.9),
         ("capped-ratio", 4, 128, {"capped": True}, 1e9, 1.0, 1.0),
         ("multi-block", 20, 4096 + 37, {}, 1.0, 1.0, 1.0),
+        ("multi-chunk", 129, 4133, {"lp_scale": 1.0}, 1.0, 2.0, 0.9),
+        ("offset-base", 20, 64, {"offset": True}, 1.0, 1.0, 1.0),
     ]
     max_err = 0.0
     for i, (name, T, E, opts, rho_bar, c_bar, lam) in enumerate(cases):
@@ -237,22 +286,11 @@ def check_vtrace() -> dict:
 
     T, E = 20, 64  # the preset's shape
     args = vtrace_inputs(T, E, seed=100)
-    event_ms = cuda_ms(lambda: vtrace_cuda.vtrace(*args, GAMMA), iters=500)
-    plain_ms = cuda_ms(lambda: returns.vtrace(*args, GAMMA), iters=20)
-    prof, _ = profile_kernels(lambda: vtrace_cuda.vtrace(*args, GAMMA), iters=100)
-    rows = [(n, us) for k, (n, us) in prof.items() if "vtrace_kernel" in k]
-    ms = rows[0][1] / rows[0][0] / 1e3 if rows else event_ms
-    bytes_moved = (8 * T * E + E) * 4  # 5 inputs + 3 outputs [T,E], bootstrap [E]
-    flops = 21 * T * E  # 20 float operations and one exp per element
-    bound_s = max(bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S)
-    bound_by = "bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / FP32_FLOPS_PER_S else "operations"
-    print(
-        f"vtrace [{T},{E}]: kernel {ms * 1e3:.2f} us on the device "
-        f"({'torch.profiler' if rows else 'not measured by the profiler; CUDA events'}), "
-        f"{event_ms * 1e3:.2f} us a call back to back (CUDA events), plain {plain_ms * 1e3:.2f} us, "
-        f"bound {bound_s * 1e6:.4f} us ({bound_by}: {bytes_moved} B, {flops} flop)",
-        flush=True,
-    )
+    timing = time_against_bound(
+        f"vtrace [{T},{E}]", "vtrace_kernel", lambda: vtrace_cuda.vtrace(*args, GAMMA),
+        lambda: returns.vtrace(*args, GAMMA),
+        bytes_moved=(8 * T * E + E) * 4,  # 5 inputs + 3 outputs [T,E], bootstrap [E]
+        flops=21 * T * E)  # 20 float operations and one exp per element
     return {
         "name": "vtrace",
         "route": "cuda",
@@ -260,10 +298,7 @@ def check_vtrace() -> dict:
         "replaces": "actor_critic_tpu/ops/pallas_scan.py:238",
         "launches": None,
         "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_s * 1e3,
-        "bound_by": bound_by,
+        **timing,
         # No single PyTorch call computes V-trace.
         "library_ms": None,
     }
@@ -588,7 +623,14 @@ def main() -> int:
     for name, (secs, text) in _build.build_log.items():
         print(f"nvcc {name}.cu ({secs:.2f} s):\n{text.strip()}", flush=True)
 
+    floor_ms = launch_floor_ms()
+    print(f"launch floor: {floor_ms * 1e3:.3f} us on the device (torch.profiler, "
+          f"a one-element zero_())", flush=True)
     entries = [check_gae(), check_vtrace()]
+    for e in entries:
+        e["launch_floor_ms"] = floor_ms
+        print(f"{e['name']}: kernel {e['ms'] / floor_ms:.2f}x the launch floor, "
+              f"{e['ms'] / e['bound_ms']:.2f}x its bound", flush=True)
     check_update_on_card()
     check_impala_update_on_card()
     # Each kernel's launches on its own main path.
