@@ -11,6 +11,8 @@ The library name carries a hash of the source and of the shared headers
 (`csrc/*.cuh`), so an edited source is rebuilt and a stale library is
 never loaded. `build()` compiles several
 sources at once, one `nvcc` process each, all started together.
+Each kernel counts its own launches on the card (`csrc/scan_tile.cuh::
+count_launch`); `device_launches` reads those counts.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -92,3 +95,25 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name)[name]))
         _loaded[name] = lib
     return lib
+
+
+def device_launches(name: str, devices: Iterable[int], reset: bool = False) -> int:
+    """The launches of kernel library `name`'s kernel that ran on `devices`,
+    summed: each device's counter is read by `<name>_launches` once the
+    device's work has finished, then zeroed where `reset` is set."""
+    import torch
+
+    total = 0
+    for index in devices:
+        read = getattr(load(name), f"{name}_launches")
+        if read.argtypes is None:
+            read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
+            read.restype = ctypes.c_int
+        torch.cuda.synchronize(index)
+        out = ctypes.c_ulonglong()
+        with torch.cuda.device(index):
+            err = read(ctypes.byref(out), int(reset))
+        if err != 0:
+            raise RuntimeError(f"reading the {name} kernel's launch count failed: cudaError {err}")
+        total += out.value
+    return total

@@ -10,27 +10,35 @@ One train step is
 with `rollout` and `update` split, so a test can drive the update half
 with another rollout's output. Everything but GAE is plain PyTorch on the
 card, as the JAX package leaves it to XLA.
+
+The step is capturable (`CAPTURABLE`): it keeps no host float and makes
+no host sync, writes all it carries in place, and reads the annealed lr
+and Adam's bias corrections from the state's schedule table at Adam's
+count, the entropy coefficient at `state.step_counter`, both on the
+device; on the card `algos/loop.py` runs it as one CUDA graph.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import torch
 
 from actor_critic_tpu_torch import resolve_device
 from actor_critic_tpu_torch.algos.common import (
+    ScheduleTable,
     TrainState,
     Transition,
+    advance,
     anneal_fraction,
-    episode_metrics_update,
-    gae_targets,
-    init_rollout,
+    fold_episodes,
+    init_train_state,
     linear_anneal,
     make_mode_eval,
     rollout_loop,
-    truncation_bootstrap_rewards,
+    rollout_targets,
+    schedule_table,
 )
 from actor_critic_tpu_torch.algos.metrics import aggregate_metrics
 from actor_critic_tpu_torch.envs.env import TorchEnv
@@ -38,6 +46,8 @@ from actor_critic_tpu_torch.models.networks import ActorCriticDiscrete
 from actor_critic_tpu_torch.ops.returns import normalize_advantages
 from actor_critic_tpu_torch.optim import ClippedAdam, linear_schedule
 
+# `algos/loop.py` runs this trainer's step as one CUDA graph on the card.
+CAPTURABLE = True
 
 @dataclasses.dataclass(frozen=True)
 class A2CConfig:
@@ -100,24 +110,21 @@ def entropy_coef_at(cfg: A2CConfig, update_step: int) -> float:
     )
 
 
+def make_schedule(cfg: A2CConfig, device="cpu") -> ScheduleTable:
+    """The optimizer's scalars by optimizer step (one per iteration) and
+    the entropy coefficient by iteration."""
+    return schedule_table(make_optimizer(cfg), [lambda i: entropy_coef_at(cfg, i)],
+                          cfg.anneal_iters, torch.device(device))
+
+
 def init_state(env: TorchEnv, cfg: A2CConfig, seed: int = 0, device="cuda") -> TrainState:
     """Fresh train state on `device`. The weights are drawn on the CPU from
     a generator seeded with `seed` (so they do not depend on the device);
     actions and resets come from a generator on `device`, seeded likewise."""
     device = resolve_device(device)
     net = make_network(env, cfg, torch.Generator().manual_seed(seed)).to(device)
-    generator = torch.Generator(device=device).manual_seed(seed)
-    E = cfg.num_envs
-    return TrainState(
-        net=net,
-        opt_state=make_optimizer(cfg).init(dict(net.named_parameters())),
-        rollout=init_rollout(env, generator, E),
-        generator=generator,
-        update_step=0,
-        ep_return=torch.zeros(E, device=device),
-        ep_length=torch.zeros(E, device=device),
-        avg_return=torch.zeros((), device=device),
-    )
+    return init_train_state(env, net, make_optimizer(cfg), cfg.num_envs, seed, device,
+                            make_schedule(cfg, device))
 
 
 def _huber(pred: torch.Tensor, target: torch.Tensor, delta: float) -> torch.Tensor:
@@ -134,11 +141,12 @@ def a2c_loss(
     advantages: torch.Tensor,
     returns: torch.Tensor,
     cfg: A2CConfig,
-    entropy_coef: Optional[float] = None,
+    entropy_coef: Union[float, torch.Tensor, None] = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Policy-gradient + value-MSE (or Huber) + entropy-bonus loss on a
     [T, E] batch, float32 reductions; advantages and returns are
-    gradient constants."""
+    gradient constants. `entropy_coef` (a float or a 0-dim tensor)
+    overrides the config's."""
     if entropy_coef is None:
         entropy_coef = cfg.entropy_coef
     obs = traj.obs.reshape(-1, *traj.obs.shape[2:])
@@ -162,11 +170,8 @@ def a2c_loss(
 
 
 def rollout(env: TorchEnv, cfg: A2CConfig, state: TrainState) -> Transition:
-    """Collect T steps with the current policy; advances `state.rollout`."""
-    state.rollout, traj = rollout_loop(
-        env, state.net, state.rollout, state.generator, cfg.rollout_steps
-    )
-    return traj
+    """Collect T steps with the current policy; advances `state.rollout` in place."""
+    return rollout_loop(env, state.net, state.rollout, state.generator, cfg.rollout_steps)
 
 
 def update(
@@ -180,29 +185,17 @@ def update(
     for a rollout `traj` whose next obs is `state.rollout.obs`. Updates
     `state` in place; returns the metrics as device tensors."""
     net = state.net
-    with torch.no_grad():
-        _, bootstrap_value = net(state.rollout.obs)
-        if env.spec.can_truncate:
-            T, E = traj.reward.shape
-            _, final_values = net(traj.final_obs.reshape(T * E, *traj.final_obs.shape[2:]))
-            rewards = truncation_bootstrap_rewards(traj, final_values.reshape(T, E), cfg.gamma)
-        else:
-            rewards = traj.reward
-    advantages, returns = gae_targets(
-        rewards, traj.value, traj.done, bootstrap_value, cfg.gamma, cfg.gae_lambda
+    advantages, returns = rollout_targets(
+        env, net, traj, state.rollout.obs, cfg.gamma, cfg.gae_lambda
     )
-
     params = dict(net.named_parameters())
-    loss, metrics = a2c_loss(
-        net, traj, advantages, returns, cfg, entropy_coef_at(cfg, state.update_step)
-    )
+    entropy_coef = state.schedule.coefficients_at(state.step_counter)[0]
+    loss, metrics = a2c_loss(net, traj, advantages, returns, cfg, entropy_coef)
     grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
-    opt.step(params, grads, state.opt_state)
+    opt.step(params, grads, state.opt_state, state.schedule.optimizer)
 
-    state.ep_return, state.ep_length, state.avg_return, ep_metrics = episode_metrics_update(
-        state.ep_return, state.ep_length, state.avg_return, traj
-    )
-    state.update_step += 1
+    ep_metrics = fold_episodes(state, traj)
+    advance(state)
     return aggregate_metrics(metrics, ep_metrics)
 
 
@@ -235,4 +228,5 @@ def train(
     return fused_train_loop(
         make_train_step, init_state, env, cfg, num_iterations,
         seed=seed, device=device, state=state, log_every=log_every, log_fn=log_fn,
+        capturable=CAPTURABLE,
     )

@@ -7,14 +7,22 @@ hand-written kernels: `gae_targets` through the GAE kernel
 (`ops/gae_cuda.py`), `corrected_advantages` through the V-trace kernel
 (`ops/vtrace_cuda.py`) or GAE.
 
-Unlike JAX's immutable pytrees, `TrainState` is a mutable dataclass: the
-network's parameters and the optimizer moments are updated in place.
+Unlike JAX's immutable pytrees, `TrainState` is a mutable dataclass, and
+every tensor it carries from one iteration to the next is updated in place
+(parameters, optimizer moments and count, the rollout's obs and env state,
+the episode accounting, the step counter): a CUDA graph that captured a
+step reads and writes the addresses it saw, so a rebound tensor would be
+read stale on every replay (`algos/loop.py`). The counts live on the device
+alone (`TrainState.step_counter`, `AdamState.count`), and the scalars that
+change from step to step (learning rate, bias corrections, annealed
+coefficients) come from a `ScheduleTable` looked up there at those counts,
+not from Python floats, which a capture would freeze.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, NamedTuple, Optional, Union
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -22,7 +30,7 @@ from torch import nn
 
 from actor_critic_tpu_torch.envs.env import TorchEnv
 from actor_critic_tpu_torch.ops import gae_cuda, vtrace_cuda
-from actor_critic_tpu_torch.optim import AdamState, RMSPropState
+from actor_critic_tpu_torch.optim import AdamState, ClippedAdam, RMSPropState
 
 
 class Transition(NamedTuple):
@@ -45,6 +53,38 @@ class RolloutState(NamedTuple):
     obs: torch.Tensor
 
 
+class ScheduleTable(NamedTuple):
+    """A trainer's step-dependent scalars, built once on the host by the
+    same float32 functions the eager code used (so the values are those
+    functions' to the bit) and looked up on the device. Each lookup clamps
+    its index at the last row, from which every value is constant."""
+
+    optimizer: torch.Tensor     # [R, 3] `ClippedAdam.scalar_table()`, by Adam's count
+    coefficients: torch.Tensor  # [S, C] the loss's annealed coefficients, by iteration
+
+    def coefficients_at(self, iteration: torch.Tensor) -> torch.Tensor:
+        """[C] coefficients of `iteration` (a [1] int64 tensor)."""
+        row = torch.clamp(iteration, max=self.coefficients.shape[0] - 1)
+        return self.coefficients.index_select(0, row)[0]
+
+
+def schedule_table(
+    opt: ClippedAdam,
+    coefficients: Sequence[Callable[[int], float]],
+    anneal_iters: int,
+    device: torch.device,
+) -> ScheduleTable:
+    """The table of `opt`'s scalars and of `coefficients`, each a function
+    of `update_step`, at update_step = 0 … anneal_iters (0 alone when
+    annealing is off): `anneal_fraction` clips there, so they are constant
+    from then on."""
+    rows = [[fn(i) for fn in coefficients] for i in range(max(anneal_iters, 0) + 1)]
+    return ScheduleTable(
+        optimizer=torch.from_numpy(opt.scalar_table()).to(device),
+        coefficients=torch.tensor(rows, dtype=torch.float32, device=device),
+    )
+
+
 @dataclasses.dataclass
 class TrainState:
     """On-policy trainer state. Total env steps = update_step · T · E."""
@@ -53,17 +93,57 @@ class TrainState:
     opt_state: Union[AdamState, RMSPropState]
     rollout: RolloutState
     generator: torch.Generator  # on the trainer's device: actions and resets
-    update_step: int  # number of train_step calls
     # Running episode-return accounting (per env).
     ep_return: torch.Tensor
     ep_length: torch.Tensor
     # Exponential-moving average of completed-episode returns (0-dim).
     avg_return: torch.Tensor
+    # Number of train_step calls, a [1] int64 tensor on the trainer's device
+    # advanced in place: the one count of iterations (`update_step` reads it).
+    step_counter: torch.Tensor
+    # The annealed scalars by step (A2C, PPO; IMPALA/A3C anneal nothing).
+    schedule: Optional[ScheduleTable] = dataclasses.field(default=None, kw_only=True)
+
+    @property
+    def update_step(self) -> int:
+        """Train steps taken; reading it waits for the device."""
+        return int(self.step_counter)
 
 
 def init_rollout(env: TorchEnv, generator: torch.Generator, num_envs: int) -> RolloutState:
+    """A fresh env batch. Every field gets storage of its own (a reset may
+    return one tensor for two fields, or views of one buffer), since the
+    rollout writes each field in place."""
     env_state, obs = env.reset(num_envs, generator)
-    return RolloutState(env_state=env_state, obs=obs)
+    return RolloutState(env_state=type(env_state)(*(x.clone() for x in env_state)),
+                        obs=obs.clone())
+
+
+def init_train_state(
+    env: TorchEnv,
+    net: nn.Module,
+    opt: ClippedAdam,
+    num_envs: int,
+    seed: int,
+    device: torch.device,
+    schedule: ScheduleTable,
+) -> TrainState:
+    """A capturable trainer's fresh state on `device`: `net` (already there),
+    Adam moments at zero, a reset env batch and a step counter at 0. Actions,
+    resets and minibatch draws come from a generator on `device` seeded
+    with `seed`."""
+    generator = torch.Generator(device=device).manual_seed(seed)
+    return TrainState(
+        net=net,
+        opt_state=opt.init(dict(net.named_parameters())),
+        rollout=init_rollout(env, generator, num_envs),
+        generator=generator,
+        ep_return=torch.zeros(num_envs, device=device),
+        ep_length=torch.zeros(num_envs, device=device),
+        avg_return=torch.zeros((), device=device),
+        step_counter=torch.zeros(1, dtype=torch.int64, device=device),
+        schedule=schedule,
+    )
 
 
 @torch.no_grad()
@@ -73,18 +153,21 @@ def rollout_loop(
     rstate: RolloutState,
     generator: torch.Generator,
     num_steps: int,
-) -> tuple[RolloutState, Transition]:
+) -> Transition:
     """Collect `num_steps` of experience from the env batch (the
     counterpart of `rollout_scan`). `net(obs) -> (dist, value)`; actions
-    are sampled from `generator`. Returns time-major [T, E, ...] arrays."""
+    are sampled from `generator`. Returns time-major [T, E, ...] arrays and
+    advances `rstate` in place: its obs and every env-state field take the
+    values after the last step."""
+    env_state, obs = rstate.env_state, rstate.obs
     steps = []
     for _ in range(num_steps):
-        dist, value = net(rstate.obs)
+        dist, value = net(obs)
         action = dist.sample(generator)
         log_prob = dist.log_prob(action)
-        out = env.step(rstate.env_state, action, generator)
+        out = env.step(env_state, action, generator)
         steps.append(Transition(
-            obs=rstate.obs,
+            obs=obs,
             action=action,
             log_prob=log_prob,
             value=value,
@@ -93,8 +176,12 @@ def rollout_loop(
             terminated=out.info["terminated"],
             final_obs=out.info["final_obs"],
         ))
-        rstate = RolloutState(env_state=out.state, obs=out.obs)
-    return rstate, Transition(*(torch.stack(field) for field in zip(*steps)))
+        env_state, obs = out.state, out.obs
+    # Stacked before the copy: the first step's obs is `rstate.obs` itself.
+    traj = Transition(*(torch.stack(field) for field in zip(*steps)))
+    for buf, new in zip((*rstate.env_state, rstate.obs), (*env_state, obs)):
+        buf.copy_(new)
+    return traj
 
 
 def gae_targets(
@@ -169,6 +256,28 @@ def truncation_bootstrap_rewards(
     terminated) at t, so `gae` can treat `done` as a hard cut."""
     truncated = traj.done * (1.0 - traj.terminated)
     return traj.reward + gamma * final_values * truncated
+
+
+def rollout_targets(
+    env: TorchEnv,
+    net: nn.Module,
+    traj: Transition,
+    next_obs: torch.Tensor,
+    gamma: float,
+    lam: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(advantages, returns) of a rollout `traj` under `net`: the bootstrap
+    value at `next_obs`, the truncation bootstrap at `final_obs` (where the
+    env can truncate), then GAE through `gae_targets`."""
+    with torch.no_grad():
+        _, bootstrap_value = net(next_obs)
+        if env.spec.can_truncate:
+            T, E = traj.reward.shape
+            _, final_values = net(traj.final_obs.reshape(T * E, *traj.final_obs.shape[2:]))
+            rewards = truncation_bootstrap_rewards(traj, final_values.reshape(T, E), gamma)
+        else:
+            rewards = traj.reward
+    return gae_targets(rewards, traj.value, traj.done, bootstrap_value, gamma, lam)
 
 
 @torch.no_grad()
@@ -248,3 +357,20 @@ def episode_metrics_update(
         "avg_return_ema": avg_return,
     }
     return ep_return, ep_length, avg_return, metrics
+
+
+def fold_episodes(state: TrainState, traj: Transition) -> dict[str, torch.Tensor]:
+    """`episode_metrics_update` on `state`'s accounting, written back in
+    place; returns the episode metrics."""
+    ep_return, ep_length, avg_return, metrics = episode_metrics_update(
+        state.ep_return, state.ep_length, state.avg_return, traj
+    )
+    state.ep_return.copy_(ep_return)
+    state.ep_length.copy_(ep_length)
+    state.avg_return.copy_(avg_return)
+    return metrics
+
+
+def advance(state: TrainState) -> None:
+    """Count one train step, on the device, in place."""
+    state.step_counter.add_(1)

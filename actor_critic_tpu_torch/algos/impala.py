@@ -18,6 +18,11 @@ re-evaluates π and V at the stored observations, so one train step is
 under the learner's critic with no importance weighting. The
 sequence-parallel learner (`make_sp_update`, `make_sp_train_step`) comes
 with the multi-GPU slice.
+
+The actor refresh is a select on the device at the state's step counter,
+not a host branch. The step still runs eagerly on the card
+(`CAPTURABLE = False`): its replay as a CUDA graph has not been held
+against the eager step there yet.
 """
 
 from __future__ import annotations
@@ -33,8 +38,9 @@ from actor_critic_tpu_torch import resolve_device
 from actor_critic_tpu_torch.algos.common import (
     TrainState,
     Transition,
+    advance,
     corrected_advantages,
-    episode_metrics_update,
+    fold_episodes,
     init_rollout,
     make_mode_eval,
     rollout_loop,
@@ -45,6 +51,8 @@ from actor_critic_tpu_torch.envs.env import TorchEnv
 from actor_critic_tpu_torch.models.networks import ActorCriticDiscrete
 from actor_critic_tpu_torch.optim import ClippedRMSProp
 
+# `algos/loop.py` runs this trainer's step eagerly, on the card as well.
+CAPTURABLE = False
 
 @dataclasses.dataclass(frozen=True)
 class ImpalaConfig:
@@ -120,10 +128,10 @@ def init_state(env: TorchEnv, cfg: ImpalaConfig, seed: int = 0, device="cuda") -
         opt_state=make_optimizer(cfg).init(dict(net.named_parameters())),
         rollout=init_rollout(env, generator, E),
         generator=generator,
-        update_step=0,
         ep_return=torch.zeros(E, device=device),
         ep_length=torch.zeros(E, device=device),
         avg_return=torch.zeros((), device=device),
+        step_counter=torch.zeros(1, dtype=torch.int64, device=device),
         actor_net=copy.deepcopy(net).requires_grad_(False),
     )
 
@@ -177,11 +185,8 @@ def impala_loss(
 
 def rollout(env: TorchEnv, cfg: ImpalaConfig, state: ImpalaTrainState) -> Transition:
     """Collect T steps with the actors' stale network; advances
-    `state.rollout`. `traj.log_prob` is the behaviour policy's."""
-    state.rollout, traj = rollout_loop(
-        env, state.actor_net, state.rollout, state.generator, cfg.rollout_steps
-    )
-    return traj
+    `state.rollout` in place. `traj.log_prob` is the behaviour policy's."""
+    return rollout_loop(env, state.actor_net, state.rollout, state.generator, cfg.rollout_steps)
 
 
 def update(
@@ -202,17 +207,15 @@ def update(
     opt.step(params, grads, state.opt_state)
 
     # k-step policy lag: the actors pick up the learner's parameters only at
-    # refresh boundaries (k=1 is on-policy: every ρ is exactly 1).
-    state.update_step += 1
-    if state.update_step % cfg.actor_refresh_every == 0:
-        with torch.no_grad():
-            for a, p in zip(state.actor_net.parameters(), net.parameters()):
-                a.copy_(p)
+    # refresh boundaries (k=1 is on-policy: every ρ is exactly 1), selected
+    # on the device.
+    advance(state)
+    refresh = state.step_counter % cfg.actor_refresh_every == 0
+    with torch.no_grad():
+        for a, p in zip(state.actor_net.parameters(), net.parameters()):
+            a.copy_(torch.where(refresh, p, a))
 
-    state.ep_return, state.ep_length, state.avg_return, ep_metrics = episode_metrics_update(
-        state.ep_return, state.ep_length, state.avg_return, traj
-    )
-    return aggregate_metrics(metrics, ep_metrics)
+    return aggregate_metrics(metrics, fold_episodes(state, traj))
 
 
 def make_train_step(
@@ -245,4 +248,5 @@ def train(
     return fused_train_loop(
         make_train_step, init_state, env, cfg, num_iterations,
         seed=seed, device=device, state=state, log_every=log_every, log_fn=log_fn,
+        capturable=CAPTURABLE,
     )

@@ -1,8 +1,9 @@
 """Named presets (counterpart of `actor_critic_tpu/config.py`).
 
-The presets ported so far: `a2c_cartpole`, and the IMPALA/A3C trio on the
-Pong-like pixel env, `impala_pong`, `impala_pong_learn` and `a3c_pong`.
-Their values are held equal to the JAX presets' by a test.
+The presets ported so far: `a2c_cartpole`, `ppo_cartpole`, and the
+IMPALA/A3C trio on the Pong-like pixel env, `impala_pong`,
+`impala_pong_learn` and `a3c_pong`. Their values are held equal to the JAX
+presets' by a test.
 """
 
 from __future__ import annotations
@@ -10,14 +11,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-from actor_critic_tpu_torch.algos import a2c, impala
+from actor_critic_tpu_torch.algos import a2c, impala, ppo
 
 
 @dataclasses.dataclass(frozen=True)
 class Preset:
     """A runnable training setup: algorithm + environment + config."""
 
-    algo: str        # a2c | impala | a3c
+    algo: str        # a2c | ppo | impala | a3c
     env: str         # env name, see train.ENVS
     config: Any      # the algorithm's frozen config dataclass
     iterations: int  # default --iterations
@@ -40,6 +41,20 @@ PRESETS: dict[str, Preset] = {
         ),
         iterations=400,
         description="A2C on batched CartPole-v1, GAE through the CUDA kernel",
+    ),
+    # The JAX package's CartPole solver: E=256, T=128, 4 epochs × 8
+    # minibatches, lr 2.5e-4 and the entropy bonus 0.01 annealed to 0 over
+    # 100 iterations (lr per optimizer step); clip-ε is not annealed.
+    "ppo_cartpole": Preset(
+        algo="ppo",
+        env="cartpole",
+        config=ppo.PPOConfig(
+            num_envs=256, rollout_steps=128, epochs=4, num_minibatches=8,
+            lr=2.5e-4, entropy_coef=0.01, gae_lambda=0.95, gamma=0.99,
+            anneal_iters=100, lr_final=0.0, entropy_coef_final=0.0,
+        ),
+        iterations=100,
+        description="PPO on batched CartPole-v1, GAE through the CUDA kernel",
     ),
     # IMPALA with 64 actors, unroll 20 and a 4-step actor lag, Nature CNN
     # on 84×84×2 uint8 Pong frames.

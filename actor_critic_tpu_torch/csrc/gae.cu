@@ -58,6 +58,8 @@ using scan_tile::kColumns;
 using scan_tile::kPassRows;
 using scan_tile::kRowStep;
 
+__device__ unsigned long long launches = 0;  // gae_kernel launches that ran (gae_launches)
+
 template <int kBytes>
 __global__ void __launch_bounds__(scan_tile::kThreads)
 gae_kernel(scan_tile::Planes<3> in, const float* __restrict__ bootstrap,
@@ -78,6 +80,7 @@ gae_kernel(scan_tile::Planes<3> in, const float* __restrict__ bootstrap,
   float adv = 0.0f;
 
   scan_tile::load_chunk<3, kBytes>(tiles, in, max(0, T - chunk), T, chunk, col0, E);
+  scan_tile::count_launch(&launches);
   for (int k = 0, hi = T; hi > 0; ++k) {
     const int lo = max(0, hi - chunk);
     const int rows = hi - lo;
@@ -179,4 +182,11 @@ extern "C" int gae_launch(const float* rewards, const float* values, const float
   kernel<<<blocks, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       in, bootstrap, adv_out, ret_out, T, E, chunk, gamma, gamma_lam);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The gae_kernel launches that ran on the current device since the counter
+// was last zeroed, into *out; zeroes it where `reset` is not 0. Synchronous;
+// returns a cudaError_t.
+extern "C" int gae_launches(unsigned long long* out, int reset) {
+  return static_cast<int>(scan_tile::read_launches(launches, out, reset != 0));
 }

@@ -73,6 +73,8 @@ constexpr float kLogRatioCap = 20.0f;
 // min(x, cap) that returns x when x is NaN.
 __device__ __forceinline__ float capped(float x, float cap) { return cap < x ? cap : x; }
 
+__device__ unsigned long long launches = 0;  // vtrace_kernel launches that ran (vtrace_launches)
+
 template <int kBytes>
 __global__ void __launch_bounds__(scan_tile::kThreads)
 vtrace_kernel(scan_tile::Planes<5> in, const float* __restrict__ bootstrap,
@@ -102,6 +104,7 @@ vtrace_kernel(scan_tile::Planes<5> in, const float* __restrict__ bootstrap,
   float acc = 0.0f;
 
   scan_tile::load_chunk<5, kBytes>(tiles, in, max(0, T - chunk), T, chunk, col0, E);
+  scan_tile::count_launch(&launches);
   for (int k = 0, hi = T; hi > 0; ++k) {
     const int lo = max(0, hi - chunk);
     const int rows = hi - lo;
@@ -232,4 +235,11 @@ extern "C" int vtrace_launch(const float* target_log_probs, const float* behavio
   kernel<<<blocks, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       in, bootstrap, vs_out, pg_out, rho_out, T, E, chunk, gamma, rho_bar, c_bar, lam);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The vtrace_kernel launches that ran on the current device since the
+// counter was last zeroed, into *out; zeroes it where `reset` is not 0.
+// Synchronous; returns a cudaError_t.
+extern "C" int vtrace_launches(unsigned long long* out, int reset) {
+  return static_cast<int>(scan_tile::read_launches(launches, out, reset != 0));
 }

@@ -1,6 +1,6 @@
 """Analytic micro-environments with known optima (counterpart of
-`actor_critic_tpu/envs/testbeds.py`); only `make_two_state_mdp`, which the
-IMPALA learning checks use, is ported."""
+`actor_critic_tpu/envs/testbeds.py`): `make_two_state_mdp` and
+`make_point_mass`; `make_bandit` is still to be ported."""
 
 from __future__ import annotations
 
@@ -41,4 +41,34 @@ def make_two_state_mdp(horizon: int = 8) -> TorchEnv:
         return TwoStateState(s=action, t=t), obs_of(action), action.to(torch.float32), terminated, truncated
 
     spec = EnvSpec(obs_shape=(2,), action_dim=2, discrete=True, episode_horizon=horizon)
+    return TorchEnv(spec=spec, reset=reset, step=auto_reset(reset, raw_step))
+
+
+class PointMassState(NamedTuple):
+    pos: torch.Tensor  # float32 position
+    t: torch.Tensor    # int32 steps this episode
+
+
+def make_point_mass(horizon: int = 16, pos_clip: float = 2.0) -> TorchEnv:
+    """1-d continuous control: obs = [pos]; pos' = clip(pos + clip(a, ±1),
+    ±pos_clip); reward = −pos'²; fixed-horizon episodes (truncation only).
+
+    The optimal action is a* = −pos. Positions start uniform in
+    [−0.5, 0.5], so a* is always reachable."""
+
+    def reset(num_envs: int, generator: torch.Generator):
+        pos = torch.rand(num_envs, generator=generator, device=generator.device) - 0.5
+        return PointMassState(pos=pos, t=torch.zeros(num_envs, dtype=torch.int32,
+                                                     device=pos.device)), pos[:, None]
+
+    def raw_step(state: PointMassState, action: torch.Tensor, generator: torch.Generator):
+        del generator  # deterministic dynamics
+        a = torch.clamp(action.reshape(state.pos.shape), -1.0, 1.0)
+        pos = torch.clamp(state.pos + a, -pos_clip, pos_clip)
+        t = state.t + 1
+        terminated = torch.zeros_like(pos)
+        truncated = (t >= horizon).to(torch.float32)
+        return PointMassState(pos=pos, t=t), pos[:, None], -(pos**2), terminated, truncated
+
+    spec = EnvSpec(obs_shape=(1,), action_dim=1, discrete=False, episode_horizon=horizon)
     return TorchEnv(spec=spec, reset=reset, step=auto_reset(reset, raw_step))

@@ -1,14 +1,16 @@
 """Action distributions (counterpart of `actor_critic_tpu/models/distributions.py`).
 
-Only `Categorical` is ported in this slice; the Gaussian heads come with
-the continuous-control trainers.
+`Categorical` and `DiagGaussian`; `TanhGaussian` comes with SAC.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+
+_LOG_2PI = math.log(2.0 * math.pi)
 
 
 class Categorical:
@@ -43,3 +45,41 @@ class Categorical:
 
     def mode(self) -> torch.Tensor:
         return torch.argmax(self.logits, dim=-1)
+
+
+class DiagGaussian:
+    """Diagonal Gaussian over continuous actions; `mean` and `log_std` are
+    [..., action_dim] and log-prob / entropy reduce over that trailing
+    event axis."""
+
+    def __init__(self, mean: torch.Tensor, log_std: torch.Tensor):
+        self.mean = mean
+        self.log_std = log_std
+
+    @property
+    def std(self) -> torch.Tensor:
+        return torch.exp(self.log_std)
+
+    def sample(self, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """mean + std·ε, ε standard normal from `generator` (on the mean's device)."""
+        eps = torch.randn(
+            self.mean.shape, generator=generator,
+            device=self.mean.device, dtype=self.mean.dtype,
+        )
+        return self.mean + self.std * eps
+
+    def log_prob(self, action: torch.Tensor) -> torch.Tensor:
+        z = (action - self.mean) / self.std
+        return torch.sum(-0.5 * (z * z + _LOG_2PI) - self.log_std, dim=-1)
+
+    def entropy(self) -> torch.Tensor:
+        return torch.sum(self.log_std + 0.5 * (_LOG_2PI + 1.0), dim=-1)
+
+    def mode(self) -> torch.Tensor:
+        return self.mean
+
+    def kl(self, other: "DiagGaussian") -> torch.Tensor:
+        var, ovar = torch.exp(2 * self.log_std), torch.exp(2 * other.log_std)
+        per_dim = (other.log_std - self.log_std
+                   + (var + (self.mean - other.mean) ** 2) / (2.0 * ovar) - 0.5)
+        return torch.sum(per_dim, dim=-1)

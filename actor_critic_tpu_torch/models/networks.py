@@ -1,11 +1,12 @@
 """Actor-critic networks (counterpart of `actor_critic_tpu/models/networks.py`).
 
-`MLPTorso`, `NatureCNN` and `ActorCriticDiscrete` only, in float32.
-Submodule names follow the flax parameter tree (`torso.dense_{i}`,
-`torso.conv_{i}`, `torso.Dense_0`, `policy`, `value`) so that
-`weights.from_flax` maps one onto the other by name. Initialisation
-matches the JAX package's: orthogonal with gain √2 on the torso, 0.01 on
-the policy head and 1.0 on the value head, zero biases.
+`MLPTorso`, `NatureCNN`, `ActorCriticDiscrete` and `ActorCriticGaussian`,
+in float32. Submodule names follow the flax parameter tree
+(`torso.dense_{i}`, `torso.conv_{i}`, `torso.Dense_0`, `pi_torso`,
+`vf_torso`, `policy`, `value`, `log_std`) so that `weights.from_flax` maps
+one onto the other by name. Initialisation matches the JAX package's:
+orthogonal with gain √2 on the torso, 0.01 on the policy head and 1.0 on
+the value head, zero biases, a zero `log_std`.
 
 Pixel observations keep the JAX package's NHWC layout `[..., H, W, C]` at
 the public interface (the env's obs, the Transition); `NatureCNN`
@@ -23,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from actor_critic_tpu_torch.models.distributions import Categorical
+from actor_critic_tpu_torch.models.distributions import Categorical, DiagGaussian
 
 _INV_255 = float(np.float32(1.0) / np.float32(255.0))
 
@@ -127,3 +128,29 @@ class ActorCriticDiscrete(nn.Module):
     def forward(self, obs: torch.Tensor) -> tuple[Categorical, torch.Tensor]:
         z = self.torso(obs)
         return Categorical(self.policy(z).float()), self.value(z)[..., 0].float()
+
+
+class ActorCriticGaussian(nn.Module):
+    """Policy+value net for continuous actions: separate tanh MLP torsos for
+    the actor (`pi_torso`) and the critic (`vf_torso`), and a learned
+    state-independent `log_std`; `forward(obs)` returns (DiagGaussian,
+    value[...]), both float32."""
+
+    def __init__(
+        self,
+        obs_dim: int,
+        action_dim: int,
+        hidden: Sequence[int] = (64, 64),
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.pi_torso = MLPTorso(obs_dim, hidden, generator)
+        self.vf_torso = MLPTorso(obs_dim, hidden, generator)
+        self.policy = _dense(self.pi_torso.out_dim, action_dim, 0.01, generator)
+        self.value = _dense(self.vf_torso.out_dim, 1, 1.0, generator)
+        self.log_std = nn.Parameter(torch.zeros(action_dim))
+
+    def forward(self, obs: torch.Tensor) -> tuple[DiagGaussian, torch.Tensor]:
+        mean = self.policy(self.pi_torso(obs)).float()
+        value = self.value(self.vf_torso(obs))[..., 0].float()
+        return DiagGaussian(mean, self.log_std.expand_as(mean)), value

@@ -25,19 +25,26 @@ import torch
 from actor_critic_tpu_torch.ops import returns as _returns
 from actor_critic_tpu_torch.ops._scan_args import check_scan_inputs, scan_geometry
 
-_launches = 0
+# The devices the wrapper launched the kernel on; the kernel counts its
+# launches there itself.
+_devices: set[int] = set()
 
 
 def launch_count() -> int:
-    """Kernel launches since the last `reset_launch_count()` (the counterpart
-    of `pallas_scan.kernel_block`'s engagement query): lets a run show that
-    its main path went through the kernel."""
-    return _launches
+    """Kernel launches that ran since the last `reset_launch_count()` (the
+    counterpart of `pallas_scan.kernel_block`'s engagement query): lets a
+    run show that its main path went through the kernel. The kernel counts
+    them on the card, so a replay of a CUDA graph that captured it counts
+    and the capture does not. Waits for the devices' work."""
+    from actor_critic_tpu_torch import _build
+
+    return _build.device_launches("gae", sorted(_devices))
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    from actor_critic_tpu_torch import _build
+
+    _build.device_launches("gae", sorted(_devices), reset=True)
 
 
 def _bind():
@@ -72,7 +79,6 @@ def gae(
     if rewards.device.type == "cpu":
         return _returns.gae(rewards, values, dones, bootstrap_value, gamma, lam)
 
-    global _launches
     planes = (rewards, values, dones)
     geometry = scan_geometry(T, E, len(planes), aligned=all(x.data_ptr() % 16 == 0 for x in planes))
     adv = torch.empty_like(rewards)
@@ -87,6 +93,6 @@ def gae(
         )
     if err != 0:
         raise RuntimeError(f"gae kernel launch failed: cudaError {err}")
-    _launches += 1
+    _devices.add(rewards.device.index)
     return adv, ret
 

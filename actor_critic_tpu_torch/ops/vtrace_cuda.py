@@ -26,18 +26,25 @@ import torch
 from actor_critic_tpu_torch.ops import returns as _returns
 from actor_critic_tpu_torch.ops._scan_args import check_scan_inputs, scan_geometry
 
-_launches = 0
+# The devices the wrapper launched the kernel on; the kernel counts its
+# launches there itself.
+_devices: set[int] = set()
 
 
 def launch_count() -> int:
-    """Kernel launches since the last `reset_launch_count()`: lets a run
-    show that its main path went through the kernel."""
-    return _launches
+    """Kernel launches that ran since the last `reset_launch_count()`: lets
+    a run show that its main path went through the kernel. The kernel
+    counts them on the card, so a replay of a CUDA graph that captured it
+    counts and the capture does not. Waits for the devices' work."""
+    from actor_critic_tpu_torch import _build
+
+    return _build.device_launches("vtrace", sorted(_devices))
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    from actor_critic_tpu_torch import _build
+
+    _build.device_launches("vtrace", sorted(_devices), reset=True)
 
 
 def _bind():
@@ -75,7 +82,6 @@ def vtrace(
     if rewards.device.type == "cpu":
         return _returns.vtrace(*args, bootstrap_value, gamma, rho_bar, c_bar, lam)
 
-    global _launches
     # One scratch plane in shared memory: the chunk's δ.
     geometry = scan_geometry(T, E, len(args), scratch_planes=1,
                              aligned=all(x.data_ptr() % 16 == 0 for x in args))
@@ -90,5 +96,5 @@ def vtrace(
         )
     if err != 0:
         raise RuntimeError(f"vtrace kernel launch failed: cudaError {err}")
-    _launches += 1
+    _devices.add(rewards.device.index)
     return _returns.VTraceOutput(vs=vs, pg_advantages=pg, clipped_rhos=rho)

@@ -6,7 +6,8 @@ under the same path with dots (`torso/dense_0` → `torso.dense_0`). A flax
 `Conv` keeps `kernel [kh, kw, in, out]`; the port's `nn.Conv2d` keeps
 `weight [out, in, kh, kw]`, which is `permute(3, 2, 0, 1)` of it (a plain
 transpose would also swap kh and kw: invisible in the shapes of square
-kernels, wrong in the values). Both sides are plain numpy / torch here,
+kernels, wrong in the values). A bare parameter such as
+`ActorCriticGaussian`'s `log_std` keeps its name and values. Both sides are plain numpy / torch here,
 so this module needs neither JAX nor the JAX package: the caller hands it
 `jax.device_get(params)`.
 """
@@ -34,7 +35,7 @@ def _flat(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]:
 
 def from_flax(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """flax params (with or without the top-level "params" key) → a
-    state_dict for `ActorCriticDiscrete`."""
+    state_dict for `ActorCriticDiscrete` or `ActorCriticGaussian`."""
     if set(params_np) == {"params"}:
         params_np = params_np["params"]
     state = {}
@@ -45,8 +46,8 @@ def from_flax(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
                 np.ascontiguousarray(arr.transpose(3, 2, 0, 1)))
         elif leaf == "kernel" and arr.ndim == 2:
             state[f"{module}.weight"] = torch.from_numpy(np.array(arr.T, order="C"))
-        elif leaf == "bias":
-            state[f"{module}.bias"] = torch.from_numpy(np.array(arr))
+        elif leaf in ("bias", "log_std"):
+            state[path] = torch.from_numpy(np.array(arr))
         else:
             raise ValueError(f"unexpected flax leaf {path!r}")
     return state
@@ -69,7 +70,8 @@ def adam_state_from_optax(opt_state: Any) -> AdamState:
     node = _find_state(opt_state, lambda n: all(hasattr(n, a) for a in ("mu", "nu", "count")))
     if node is None:
         raise ValueError("no Adam state (mu, nu, count) in the optax state")
-    return AdamState(count=int(np.asarray(node.count)), mu=from_flax(node.mu), nu=from_flax(node.nu))
+    count = torch.tensor([int(np.asarray(node.count))], dtype=torch.int64)
+    return AdamState(count=count, mu=from_flax(node.mu), nu=from_flax(node.nu))
 
 
 def rmsprop_state_from_optax(opt_state: Any) -> RMSPropState:

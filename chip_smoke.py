@@ -13,17 +13,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain version's, the card's bound and the launch floor; then one A2C
    update and one IMPALA update on the card against the same update on
    the CPU;
-4. main paths, each through `actor_critic_tpu_torch.train.main` with every
+4. graph equals eager: for `a2c_cartpole` and `ppo_cartpole` at full
+   width, a few iterations through the loop's CUDA-graph path against the
+   same iterations run eagerly from the same seed;
+5. main paths, each through `actor_critic_tpu_torch.train.main` with every
    launch count reset just before and read just after:
-   - `a2c_cartpole` at full width (E=4096, T=64), GAE on its path;
+   - `a2c_cartpole` at full width (E=4096, T=64), GAE on its path, the
+     step replayed as a CUDA graph;
+   - `ppo_cartpole` at full width (E=256, T=128, 4 epochs × 8
+     minibatches), GAE on its path, the step replayed as a CUDA graph;
+     it must solve CartPole (best greedy eval >= 400) in 30 iterations;
    - `impala_pong` at full width (E=64, T=20, 84×84×2 frames, Nature
-     CNN), V-trace on its path;
+     CNN), V-trace on its path, eager;
    - `a3c_pong`, the same trainer through GAE, for a few iterations;
    then IMPALA's learning check on the two-state MDP, and where a train
-   step's time goes for `a2c_cartpole` and `impala_pong` (host clock and
+   step's time goes for `a2c_cartpole` and `ppo_cartpole` (eager and as
+   graph replays, in the same call) and `impala_pong` (host clock and
    torch.profiler);
-5. a `{"kernels": [...]}` line, then the card's name and power limit;
-6. last line: `{"ok": true, "device": {"platform": "gpu", ...}}`.
+6. a `{"kernels": [...]}` line, then the card's name and power limit;
+7. last line: `{"ok": true, "device": {"platform": "gpu", ...}}`.
 
 Exits non-zero, printing no result, where no CUDA device is present.
 Imports nothing of JAX.
@@ -40,8 +48,10 @@ import sys
 import time
 
 MAIN_PATH_ITERATIONS = 50
+PPO_ITERATIONS = 30      # tests/test_ppo.py's bar: best eval at 20/25/30 >= 400
 IMPALA_ITERATIONS = 60   # > max_steps / T = 50: every env ends an episode
 A3C_ITERATIONS = 3
+GRAPH_CHECK_ITERATIONS = 5  # the loop's eager warm-up, a capture, then replays
 # Kernel vs plain version: the same tolerances as the JAX package's kernel
 # tests (tests/test_pallas_scan.py). The GAE kernel rounds every operation
 # in the plain version's order, so on the card the two should agree
@@ -177,6 +187,7 @@ def check_gae() -> dict:
     # multi-block and multi-chunk take the 4-byte ones).
     cases = [
         ("preset", 64, 4096, {}),
+        ("ppo preset", 128, 256, {}),
         ("T17-E512", 17, 512, {}),
         ("E7", 17, 7, {}),
         ("E96", 17, 96, {}),
@@ -201,9 +212,10 @@ def check_gae() -> dict:
         max_err = max(max_err, err)
         print(f"gae {name:12s} T={T:3d} E={E:5d} max_abs_err={err:.3e}", flush=True)
 
-    # a2c_cartpole's shape (the kernels-line entry), then a3c_pong's.
+    # a2c_cartpole's shape (the kernels-line entry), then ppo_cartpole's
+    # (two chunks of 64 rows, double-buffered) and a3c_pong's.
     timings = []
-    for T, E in ((64, 4096), (20, 64)):
+    for T, E in ((64, 4096), (128, 256), (20, 64)):
         args = gae_inputs(T, E, seed=100)
         timings.append(time_against_bound(
             f"gae [{T},{E}]", "gae_kernel", lambda: gae_cuda.gae(*args, GAMMA, LAM),
@@ -330,17 +342,21 @@ def update_on_card_vs_cpu(mod, env, cfg, cpu, traj, param_atol: float, metric_ke
 
     import torch
 
-    from actor_critic_tpu_torch.algos.common import RolloutState, Transition
+    from actor_critic_tpu_torch.algos.common import RolloutState, ScheduleTable, Transition
 
     gpu = copy.deepcopy(cpu)
     for f in dataclasses.fields(gpu):
         v = getattr(gpu, f.name)
         if isinstance(v, (torch.Tensor, torch.nn.Module)):
             setattr(gpu, f.name, v.cuda())
+        elif isinstance(v, ScheduleTable):
+            setattr(gpu, f.name, ScheduleTable(*(t.cuda() for t in v)))
     for f in dataclasses.fields(gpu.opt_state):
         v = getattr(gpu.opt_state, f.name)
         if isinstance(v, dict):
             setattr(gpu.opt_state, f.name, {k: t.cuda() for k, t in v.items()})
+        elif isinstance(v, torch.Tensor):
+            setattr(gpu.opt_state, f.name, v.cuda())
     # The update reads the next obs of the rollout state, not the env state.
     gpu.rollout = RolloutState(env_state=None, obs=gpu.rollout.obs.cuda())
     with full_float32():
@@ -413,6 +429,87 @@ def check_impala_update_on_card() -> None:
           f"(CPU {float(m_cpu['mean_rho']):.6f})", flush=True)
 
 
+def check_graph_equals_eager(preset_name: str) -> None:
+    """The loop's CUDA-graph path against eager execution, at a preset's
+    full width: two states from one seed, each taken through
+    `fused_train_loop` for GRAPH_CHECK_ITERATIONS iterations, one eagerly and
+    one through the graph (the eager warm-up, a capture, then replays). The
+    step is the trainer's rollout and update, plus a copy of each
+    iteration's actions into a buffer at the row of the state's step
+    counter (in place, so that replays write it too). Holds the parameters,
+    Adam moments and count, rollout obs, env state, episode accounting, step
+    counter, actions and last metrics of the two at 1e-6 (expected 0.0: the
+    same kernels on the same inputs, the same random numbers), the GAE
+    kernel's launches (counted on the card) equal to the iterations on both
+    sides, and the actions of consecutive replays different."""
+    import torch
+
+    from actor_critic_tpu_torch import train
+    from actor_critic_tpu_torch.algos import loop
+    from actor_critic_tpu_torch.config import PRESETS
+    from actor_critic_tpu_torch.ops import gae_cuda
+
+    preset = PRESETS[preset_name]
+    mod, cfg = train.ALGOS[preset.algo], preset.config
+    env = train.ENVS[preset.env](**preset.env_kwargs)
+    n = GRAPH_CHECK_ITERATIONS
+    runs = {}
+    for capturable in (False, True):
+        state = mod.init_state(env, cfg, seed=2, device="cuda")
+        drawn = torch.zeros((n, cfg.rollout_steps, cfg.num_envs), dtype=torch.int64, device="cuda")
+
+        def make_recording_step(env, cfg, drawn=drawn):
+            opt = mod.make_optimizer(cfg)
+
+            def step(state):
+                traj = mod.rollout(env, cfg, state)
+                drawn.index_copy_(0, state.step_counter, traj.action[None])
+                return state, mod.update(env, cfg, opt, state, traj)
+
+            return step
+
+        gae_cuda.reset_launch_count()
+        t0 = time.perf_counter()
+        state, metrics = loop.fused_train_loop(
+            make_recording_step, mod.init_state, env, cfg, n, state=state, capturable=capturable)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        tensors = {f"param {k}": p.detach() for k, p in state.net.named_parameters()}
+        tensors.update({f"mu {k}": v for k, v in state.opt_state.mu.items()})
+        tensors.update({f"nu {k}": v for k, v in state.opt_state.nu.items()})
+        tensors["adam count"] = state.opt_state.count
+        tensors["rollout obs"] = state.rollout.obs
+        tensors.update({f"env {k}": v for k, v in state.rollout.env_state._asdict().items()})
+        tensors.update(ep_return=state.ep_return, ep_length=state.ep_length,
+                       avg_return=state.avg_return, step_counter=state.step_counter, actions=drawn)
+        tensors.update({f"metric {k}": v for k, v in metrics.items()})
+        runs[capturable] = (tensors, (state.update_step, int(state.opt_state.count)),
+                            gae_cuda.launch_count(), seconds)
+
+    (eager, eager_counts, eager_launches, eager_s), (graph, graph_counts, graph_launches, graph_s) = (
+        runs[False], runs[True])
+    assert sorted(eager) == sorted(graph)
+    diffs = {k: float((graph[k].double() - eager[k].double()).abs().max()) for k in eager}
+    worst = max(diffs.values())
+    drawn = graph["actions"]
+    changed = [float((drawn[i] != drawn[i + 1]).float().mean())
+               for i in range(loop.WARMUP_ITERATIONS, n - 1)]
+    print(
+        f"graph vs eager, {preset_name} (E={cfg.num_envs}, T={cfg.rollout_steps}), {n} iterations "
+        f"({loop.WARMUP_ITERATIONS} eager warm-up, then replays): max abs difference {worst:.3e} "
+        f"over {len(diffs)} tensors (worst: {max(diffs, key=diffs.get)}); update_step, Adam count "
+        f"{graph_counts} (eager {eager_counts}); GAE launches {graph_launches} (eager "
+        f"{eager_launches}); share of actions changed between consecutive replays "
+        f"{', '.join(f'{c:.3f}' for c in changed)}; {graph_s:.2f} s (eager {eager_s:.2f} s, "
+        f"capture included)",
+        flush=True,
+    )
+    assert worst <= 1e-6, {k: d for k, d in diffs.items() if d > 1e-6}
+    assert graph_counts == eager_counts and graph_counts[0] == n, (graph_counts, eager_counts)
+    assert graph_launches == eager_launches == n, (graph_launches, eager_launches)
+    assert all(c > 0 for c in changed), changed
+
+
 def drive(argv: list[str], show_every: int) -> tuple[list[dict], dict, dict[str, int]]:
     """Run `train.main(argv)` with every kernel's launch count reset just
     before and read just after; returns (logged rows, summary row,
@@ -448,16 +545,33 @@ def check_rows(logged: list[dict], iterations: int) -> None:
             assert r[k] is not None and math.isfinite(r[k]), (r["iter"], k, r[k])
 
 
-def per_iteration(logged: list[dict], summary: dict) -> tuple[float, float]:
-    """(host seconds per iteration after the first, env steps per iteration)."""
-    first, last = logged[0], logged[-1]
+def per_iteration(logged: list[dict], summary: dict, after: int = 1) -> tuple[float, float]:
+    """(host seconds per iteration from the first logged row at or after
+    iteration `after` to the last, evals left out; env steps per
+    iteration)."""
+    rows = [r for r in logged if r["iter"] >= after]
+    first, last = rows[0], rows[-1]
     per_iter_s = (last["wall_s"] - first["wall_s"]) / (last["iter"] - first["iter"])
     return per_iter_s, summary["env_steps"] / summary["iterations"]
 
 
+def graph_timing(logged: list[dict], summary: dict) -> str:
+    """ms/iteration and env-steps/s of a run through the loop's CUDA graph:
+    over the whole run after the first iteration (warm-up and capture
+    included) and over the replays after the capture."""
+    from actor_critic_tpu_torch.algos import loop
+
+    per_iter_s, steps_per_iter = per_iteration(logged, summary)
+    replay_s, _ = per_iteration(logged, summary, after=loop.WARMUP_ITERATIONS + 2)
+    return (f"{per_iter_s * 1e3:.3f} ms/iteration after the first "
+            f"({steps_per_iter / per_iter_s:.0f} env-steps/s), {replay_s * 1e3:.3f} ms/iteration "
+            f"over the replays after the capture ({steps_per_iter / replay_s:.0f} env-steps/s)")
+
+
 def run_a2c_cartpole() -> dict[str, int]:
-    """Train the a2c_cartpole preset at full width through the CLI's main();
-    returns each kernel's launches during that run."""
+    """Train the a2c_cartpole preset at full width through the CLI's main(),
+    the step replayed as a CUDA graph; returns each kernel's launches during
+    that run."""
     n = MAIN_PATH_ITERATIONS
     logged, summary, launches = drive(
         ["--preset", "a2c_cartpole", "--iterations", str(n), "--log-every", "10",
@@ -468,15 +582,39 @@ def run_a2c_cartpole() -> dict[str, int]:
     assert last["mean_finished_return"] > first["mean_finished_return"], (
         first["mean_finished_return"], last["mean_finished_return"])
     assert last.get("eval_return") is not None, last
-    per_iter_s, steps_per_iter = per_iteration(logged, summary)
+    _, steps_per_iter = per_iteration(logged, summary)
     print(
-        f"main path a2c_cartpole: {n} iterations of {steps_per_iter:.0f} env steps, "
-        f"{per_iter_s * 1e3:.3f} ms/iteration after the first, "
-        f"{steps_per_iter / per_iter_s:.0f} env-steps/s; mean_finished_return "
+        f"main path a2c_cartpole (CUDA graph): {n} iterations of {steps_per_iter:.0f} env steps, "
+        f"{graph_timing(logged, summary)}; mean_finished_return "
         f"{first['mean_finished_return']:.3f} -> {last['mean_finished_return']:.3f}, "
         f"greedy eval {last['eval_return']:.3f}; launches {launches}",
         flush=True,
     )
+    return launches
+
+
+def run_ppo_cartpole() -> dict[str, int]:
+    """Train the ppo_cartpole preset at full width (E=256, T=128) through the
+    CLI's main(), the step replayed as a CUDA graph, with a greedy eval every
+    5 iterations: the best eval at iterations 20, 25 and 30 must reach 400
+    (tests/test_ppo.py's bar). Returns each kernel's launches during that
+    run."""
+    n = PPO_ITERATIONS
+    logged, summary, launches = drive(
+        ["--preset", "ppo_cartpole", "--iterations", str(n), "--eval-every", "5",
+         "--seed", "0"], show_every=5)
+    check_rows(logged, n)
+    assert launches == {"gae": n, "vtrace": 0}, launches
+    evals = {r["iter"]: r["eval_return"] for r in logged if "eval_return" in r}
+    best = max(evals[i] for i in (20, 25, 30))
+    _, steps_per_iter = per_iteration(logged, summary)
+    print(
+        f"main path ppo_cartpole (CUDA graph): {n} iterations of {steps_per_iter:.0f} env steps, "
+        f"{graph_timing(logged, summary)}; greedy evals {evals}, best at 20/25/30 {best:.3f}; "
+        f"launches {launches}",
+        flush=True,
+    )
+    assert best >= 400.0, f"ppo_cartpole did not learn CartPole: best greedy eval {best}"
     return launches
 
 
@@ -554,12 +692,16 @@ def check_impala_learns() -> None:
 
 
 def profile_step(preset_name: str) -> None:
-    """Where a full-width train step of a preset goes: host-clock rollout
-    and update times, then device busy share and the top kernels from
-    torch.profiler over a few steps."""
+    """Where a full-width train step of a preset goes, in one call:
+    host-clock rollout and update times of eager steps; then the step run
+    eagerly and, for a capturable trainer, as replays of the loop's CUDA
+    graph, each with its host-clock time per step (synchronised) and its
+    device busy time, busy share and kernel launches per step from
+    torch.profiler (top kernels for the eager step)."""
     import torch
 
     from actor_critic_tpu_torch import train
+    from actor_critic_tpu_torch.algos import loop
     from actor_critic_tpu_torch.config import PRESETS
 
     preset = PRESETS[preset_name]
@@ -568,8 +710,9 @@ def profile_step(preset_name: str) -> None:
     state = mod.init_state(env, cfg, seed=1, device="cuda")
     opt = mod.make_optimizer(cfg)
     step = mod.make_train_step(env, cfg)
-    for _ in range(2):
-        step(state)
+    side = torch.cuda.Stream()
+    for _ in range(loop.WARMUP_ITERATIONS):
+        loop.eager_step(step, state, side)
     torch.cuda.synchronize()
     n = 3
     t_roll = t_upd = 0.0
@@ -582,27 +725,42 @@ def profile_step(preset_name: str) -> None:
         torch.cuda.synchronize()
         t_roll += t1 - t0
         t_upd += time.perf_counter() - t1
-    kernels, wall = profile_kernels(lambda: step(state), iters=n)
-    busy_us = sum(us for _, us in kernels.values())
-    launches = sum(c for c, _ in kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
     print(
         f"{preset_name} train step at E={cfg.num_envs}, T={cfg.rollout_steps} "
-        f"(host clock, synchronised): rollout {t_roll / n * 1e3:.3f} ms, "
+        f"(host clock, synchronised, eager): rollout {t_roll / n * 1e3:.3f} ms, "
         f"update {t_upd / n * 1e3:.3f} ms",
         flush=True,
     )
-    if busy_us > 0:
-        print(
-            f"profiled {n} steps: wall {wall / n * 1e3:.3f} ms/step under the profiler, "
-            f"device busy {busy_us / n / 1e3:.3f} ms/step ({busy_us / 1e6 / wall:.1%}), "
-            f"{launches / n:.0f} kernel launches/step",
-            flush=True,
-        )
-        for name, (count, us) in top:
-            print(f"  {us / n:10.1f} us/step {count // n:6d} launches/step  {name[:100]}", flush=True)
-    else:
-        print("profiled steps: device time not measured (the profiler recorded none)", flush=True)
+    modes = [("eager", lambda: step(state))]
+    if mod.CAPTURABLE:
+        captured = loop.CapturedStep(step, state)
+        modes.append(("graph", captured.replay))
+    for label, fn in modes:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / n * 1e3
+        kernels, wall = profile_kernels(fn, iters=n)
+        busy_us = sum(us for _, us in kernels.values())
+        launches = sum(c for c, _ in kernels.values())
+        if busy_us > 0:
+            print(
+                f"{preset_name} {label}: {host_ms:.3f} ms/step (host clock, synchronised); "
+                f"profiled {n} steps: wall {wall / n * 1e3:.3f} ms/step under the profiler, "
+                f"device busy {busy_us / n / 1e3:.3f} ms/step ({busy_us / 1e6 / wall:.1%}), "
+                f"{launches / n:.0f} kernel launches/step",
+                flush=True,
+            )
+        else:
+            print(f"{preset_name} {label}: {host_ms:.3f} ms/step (host clock, synchronised); "
+                  f"device time not measured (the profiler recorded none)", flush=True)
+        if label == "eager":
+            for name, (count, us) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]:
+                print(f"  {us / n:10.1f} us/step {count // n:6d} launches/step  {name[:100]}",
+                      flush=True)
 
 
 def main() -> int:
@@ -633,11 +791,15 @@ def main() -> int:
               f"{e['ms'] / e['bound_ms']:.2f}x its bound", flush=True)
     check_update_on_card()
     check_impala_update_on_card()
+    check_graph_equals_eager("a2c_cartpole")
+    check_graph_equals_eager("ppo_cartpole")
     # Each kernel's launches on its own main path.
     launches = {"gae": run_a2c_cartpole()["gae"], "vtrace": run_impala_pong()["vtrace"]}
+    run_ppo_cartpole()
     run_a3c_pong()
     check_impala_learns()
     profile_step("a2c_cartpole")
+    profile_step("ppo_cartpole")
     profile_step("impala_pong")
     for e in entries:
         e["launches"] = launches[e["name"]]

@@ -127,13 +127,14 @@ def test_optimizer_steps_match_optax(clip):
         assert (g_norm >= max_grad_norm) == (clip == "taken")
         updates, jstate = jopt.update(jax.tree.map(jnp.asarray, gnp), jstate, params)
         params = jax.tree.map(lambda p, u: p + u, params, updates)
-        topt.step(tparams, {k: v for k, v in weights.from_flax(gnp).items()}, tstate)
+        topt.step(tparams, {k: v for k, v in weights.from_flax(gnp).items()}, tstate,
+                  torch.from_numpy(topt.scalar_table()))
         for k, v in weights.from_flax(jax.device_get(params)).items():
             np.testing.assert_allclose(tparams[k].detach().numpy(), v.numpy(),
                                        **_param_tol(lr), err_msg=f"step {step} {k}")
         # The moments and count carry across too.
         conv = weights.adam_state_from_optax(jax.device_get(jstate))
-        assert conv.count == tstate.count == step + 1
+        assert int(conv.count) == int(tstate.count) == step + 1
         for k in conv.mu:
             np.testing.assert_allclose(tstate.mu[k].numpy(), conv.mu[k].numpy(), **ELEM_TOL)
             np.testing.assert_allclose(tstate.nu[k].numpy(), conv.nu[k].numpy(), **ELEM_TOL)
@@ -225,8 +226,8 @@ def test_update_matches_jax_on_jax_rollout():
         rollout=tcommon.RolloutState(env_state=None,
                                      obs=torch.from_numpy(np.array(new_rollout.obs))),
         generator=torch.Generator(),
-        update_step=0,
         ep_return=torch.zeros(16), ep_length=torch.zeros(16), avg_return=torch.zeros(()),
+        step_counter=torch.zeros(1, dtype=torch.int64), schedule=ta2c.make_schedule(cfg),
     )
     ttraj = tcommon.Transition(*(torch.from_numpy(np.array(x)) for x in jtraj))
     tmetrics = ta2c.update(tenv, cfg, topt, tstate, ttraj)
@@ -251,7 +252,7 @@ def test_train_runs_on_cpu_and_counts_steps():
     state, metrics = ta2c.train(make_cartpole(), cfg, 3, seed=0, device="cpu",
                                 log_fn=lambda it, m: rows.append((it, m)))
     assert [it for it, _ in rows] == [1, 3]
-    assert state.update_step == 3 and state.opt_state.count == 3
+    assert state.update_step == 3 and int(state.opt_state.count) == 3
     assert all(np.isfinite(float(v)) for v in metrics.values())
     ev = ta2c.make_eval_fn(make_cartpole(), cfg)(state, torch.Generator().manual_seed(1), 4, 50)
     assert 1.0 <= float(ev) <= 50.0

@@ -1,6 +1,6 @@
 """Guards on the PyTorch port as a whole: it imports nothing of JAX, it
-does not run on the CPU unless asked to, its configuration cannot drift
-from the JAX package's, and it learns CartPole (slow-marked)."""
+does not run on the CPU unless asked to, its configurations cannot drift
+from the JAX package's, and A2C learns CartPole (slow-marked)."""
 
 import ast
 import dataclasses
@@ -12,10 +12,12 @@ import torch
 from actor_critic_tpu import config as jconfig
 from actor_critic_tpu.algos import a2c as ja2c
 from actor_critic_tpu.algos import impala as jimpala
+from actor_critic_tpu.algos import ppo as jppo
 from actor_critic_tpu_torch import config as tconfig
 from actor_critic_tpu_torch import resolve_device, train
 from actor_critic_tpu_torch.algos import a2c as ta2c
 from actor_critic_tpu_torch.algos import impala as timpala
+from actor_critic_tpu_torch.algos import ppo as tppo
 from actor_critic_tpu_torch.envs import make_cartpole, make_pong
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -80,6 +82,19 @@ def test_impala_entry_points_raise_without_cuda(no_cuda):
         timpala.train(make_pong(size=36), cfg, 1)
 
 
+def test_ppo_entry_points_raise_without_cuda(no_cuda, capsys):
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--preset", "ppo_cartpole", "--iterations", "1"])
+    cfg = tppo.PPOConfig(num_envs=4, rollout_steps=2, num_minibatches=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tppo.init_state(make_cartpole(), cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tppo.train(make_cartpole(), cfg, 1)
+    # Asked for the CPU, the same entry point runs.
+    assert train.main(["--preset", "ppo_cartpole", "--iterations", "1", "--device", "cpu"]) == 0
+    assert '"algo": "ppo"' in capsys.readouterr().out
+
+
 def test_a2c_config_fields_and_defaults_match_jax():
     jf = [(f.name, f.default) for f in dataclasses.fields(ja2c.A2CConfig)]
     tf = [(f.name, f.default) for f in dataclasses.fields(ta2c.A2CConfig)]
@@ -90,6 +105,20 @@ def test_impala_config_fields_and_defaults_match_jax():
     jf = [(f.name, f.default) for f in dataclasses.fields(jimpala.ImpalaConfig)]
     tf = [(f.name, f.default) for f in dataclasses.fields(timpala.ImpalaConfig)]
     assert tf == jf
+
+
+def test_ppo_config_fields_and_defaults_match_jax():
+    jf = [(f.name, f.default) for f in dataclasses.fields(jppo.PPOConfig)]
+    tf = [(f.name, f.default) for f in dataclasses.fields(tppo.PPOConfig)]
+    assert tf == jf
+
+
+def test_ppo_cartpole_preset_matches_jax():
+    j, t = jconfig.PRESETS["ppo_cartpole"], tconfig.PRESETS["ppo_cartpole"]
+    assert (t.algo, t.iterations) == (j.algo, j.iterations)
+    assert dataclasses.asdict(t.config) == dataclasses.asdict(j.config)
+    assert j.env == "jax:cartpole" and t.env == "cartpole" and t.env_kwargs == j.env_kwargs
+    assert train.ALGOS[t.algo] is tppo
 
 
 def test_a2c_cartpole_preset_matches_jax():

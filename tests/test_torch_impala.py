@@ -139,8 +139,8 @@ def test_update_matches_jax(kw):
         opt_state=topt.init(dict(tnet.named_parameters())),
         rollout=tcommon.RolloutState(env_state=None, obs=torch.from_numpy(boot)),
         generator=torch.Generator(),
-        update_step=0,
         ep_return=torch.zeros(E), ep_length=torch.zeros(E), avg_return=torch.zeros(()),
+        step_counter=torch.zeros(1, dtype=torch.int64),
         actor_net=_torch_net(cfg, params),
     )
     ttraj = tcommon.Transition(**{k: torch.from_numpy(v) for k, v in b.items()})

@@ -199,3 +199,104 @@ def test_pixel_init_is_orthogonal_with_flax_gains(name, gain):
     small = w @ w.T if w.shape[0] <= w.shape[1] else w.T @ w
     np.testing.assert_allclose(small.numpy(), np.eye(small.shape[0]), atol=1e-5)
     assert torch.count_nonzero(sd[f"{name}.bias"]) == 0
+
+
+# ------------------------------------ Gaussian heads (continuous actions)
+# Distribution math at 1e-6 (atol and rtol): elementwise float32 with one
+# sum over 3 action dims. The network at TOL, as above.
+
+
+def _gaussian_args(seed, n=257, dims=3):
+    rng = np.random.default_rng(seed)
+    mean = rng.normal(size=(n, dims)).astype(np.float32)
+    log_std = rng.normal(scale=0.5, size=(n, dims)).astype(np.float32)
+    action = rng.normal(scale=2.0, size=(n, dims)).astype(np.float32)
+    return mean, log_std, action
+
+
+def test_diag_gaussian_matches_jax():
+    from actor_critic_tpu.models.distributions import DiagGaussian as JDiag
+    from actor_critic_tpu_torch.models.distributions import DiagGaussian
+
+    mean, log_std, action = _gaussian_args(2)
+    mean2, log_std2, _ = _gaussian_args(3)
+    jd, jo = JDiag(jnp.asarray(mean), jnp.asarray(log_std)), JDiag(jnp.asarray(mean2), jnp.asarray(log_std2))
+    td = DiagGaussian(torch.from_numpy(mean), torch.from_numpy(log_std))
+    to = DiagGaussian(torch.from_numpy(mean2), torch.from_numpy(log_std2))
+    tol = dict(rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(td.log_prob(torch.from_numpy(action)).numpy(),
+                               np.asarray(jd.log_prob(jnp.asarray(action))), **tol)
+    np.testing.assert_allclose(td.entropy().numpy(), np.asarray(jd.entropy()), **tol)
+    np.testing.assert_array_equal(td.mode().numpy(), np.asarray(jd.mode()))
+    np.testing.assert_allclose(td.kl(to).numpy(), np.asarray(jd.kl(jo)), **tol)
+    np.testing.assert_allclose(td.kl(td).numpy(), 0.0, atol=1e-6)
+
+
+def test_diag_gaussian_sample_is_seeded_and_has_its_moments():
+    from actor_critic_tpu_torch.models.distributions import DiagGaussian
+
+    mean = torch.tensor([1.0, -2.0]).expand(100_000, 2)
+    log_std = torch.log(torch.tensor([0.5, 2.0])).expand(100_000, 2)
+    d = DiagGaussian(mean, log_std)
+    a = d.sample(torch.Generator().manual_seed(0))
+    assert torch.equal(a, d.sample(torch.Generator().manual_seed(0)))
+    # 5σ bounds on the sample mean and standard deviation.
+    std = torch.tensor([0.5, 2.0])
+    assert torch.all((a.mean(0) - mean[0]).abs() < 5 * std / 100_000 ** 0.5)
+    assert torch.all((a.std(0) / std - 1.0).abs() < 5 / (2 * 100_000) ** 0.5)
+
+
+def _gaussian_pair(hidden, action_dim, seed):
+    from actor_critic_tpu_torch.models.networks import ActorCriticGaussian
+
+    jnet = jnets.ActorCriticGaussian(action_dim=action_dim, hidden=hidden)
+    params = jnet.init(jax.random.key(seed), jnp.zeros((1, 5), jnp.float32))
+    # A log_std away from its zero init, so that the conversion shows.
+    params = jax.tree_util.tree_map_with_path(
+        lambda p, x: x - 0.3 * jnp.arange(x.shape[0]) if p[-1].key == "log_std" else x, params)
+    tnet = ActorCriticGaussian(5, action_dim, hidden)
+    tnet.load_state_dict(weights.from_flax(jax.device_get(params)))
+    return jnet, params, tnet
+
+
+@pytest.mark.parametrize("hidden,action_dim", [((64, 64), 1), ((32,), 3)])
+def test_gaussian_net_matches_flax(hidden, action_dim):
+    jnet, params, tnet = _gaussian_pair(hidden, action_dim, seed=4)
+    rng = np.random.default_rng(5)
+    obs = rng.normal(scale=2.0, size=(129, 5)).astype(np.float32)
+    actions = rng.normal(size=(129, action_dim)).astype(np.float32)
+    jdist, jvalue = jnet.apply(params, jnp.asarray(obs))
+    with torch.no_grad():
+        tdist, tvalue = tnet(torch.from_numpy(obs))
+        log_prob, entropy = tdist.log_prob(torch.from_numpy(actions)), tdist.entropy()
+    assert tdist.mean.shape == (129, action_dim) and tvalue.shape == (129,)
+    np.testing.assert_allclose(tdist.mean.numpy(), np.asarray(jdist.mean), **TOL)
+    np.testing.assert_array_equal(tdist.log_std.detach().numpy(), np.asarray(jdist.log_std))
+    np.testing.assert_allclose(tvalue.numpy(), np.asarray(jvalue), **TOL)
+    np.testing.assert_allclose(log_prob.numpy(), np.asarray(jdist.log_prob(jnp.asarray(actions))), **TOL)
+    np.testing.assert_allclose(entropy.numpy(), np.asarray(jdist.entropy()), **TOL)
+
+
+def test_gaussian_state_dict_names_follow_flax_tree():
+    from actor_critic_tpu_torch.models.networks import ActorCriticGaussian
+
+    _, params, tnet = _gaussian_pair((64, 64), 2, seed=0)
+    converted = weights.from_flax(jax.device_get(params))
+    assert sorted(tnet.state_dict()) == sorted(converted)
+    assert {k.split(".")[0] for k in converted} == {"pi_torso", "vf_torso", "policy", "value", "log_std"}
+    fresh = ActorCriticGaussian(5, 2, (64, 64))
+    assert torch.equal(fresh.log_std.detach(), torch.zeros(2))
+
+
+@pytest.mark.parametrize("name,gain", [
+    ("pi_torso.dense_0", np.sqrt(2.0)), ("vf_torso.dense_1", np.sqrt(2.0)),
+    ("policy", 0.01), ("value", 1.0),
+])
+def test_gaussian_init_is_orthogonal_with_flax_gains(name, gain):
+    from actor_critic_tpu_torch.models.networks import ActorCriticGaussian
+
+    layer = dict(ActorCriticGaussian(5, 2, (64, 64)).named_modules())[name]
+    w = layer.weight.detach().double()
+    small = w @ w.T if w.shape[0] <= w.shape[1] else w.T @ w
+    np.testing.assert_allclose(small.numpy(), gain**2 * np.eye(small.shape[0]), atol=1e-5)
+    assert torch.equal(layer.bias.detach(), torch.zeros_like(layer.bias))
