@@ -31,6 +31,7 @@ from torch import nn
 from actor_critic_tpu_torch.envs.env import TorchEnv
 from actor_critic_tpu_torch.ops import gae_cuda, vtrace_cuda
 from actor_critic_tpu_torch.optim import AdamState, ClippedAdam, RMSPropState
+from actor_critic_tpu_torch.tree import tree_leaves, tree_map
 
 
 class Transition(NamedTuple):
@@ -111,12 +112,13 @@ class TrainState:
 
 
 def init_rollout(env: TorchEnv, generator: torch.Generator, num_envs: int) -> RolloutState:
-    """A fresh env batch. Every field gets storage of its own (a reset may
-    return one tensor for two fields, or views of one buffer), since the
-    rollout writes each field in place."""
+    """A fresh env batch. Every leaf of the (possibly nested) env state
+    gets dense storage of its own (a reset may return one tensor for two
+    fields, views of one buffer, or a constant table broadcast over the
+    batch), since the rollout writes each leaf in place."""
     env_state, obs = env.reset(num_envs, generator)
-    return RolloutState(env_state=type(env_state)(*(x.clone() for x in env_state)),
-                        obs=obs.clone())
+    own = lambda x: x.clone(memory_format=torch.contiguous_format)
+    return RolloutState(env_state=tree_map(own, env_state), obs=own(obs))
 
 
 def init_train_state(
@@ -157,8 +159,8 @@ def rollout_loop(
     """Collect `num_steps` of experience from the env batch (the
     counterpart of `rollout_scan`). `net(obs) -> (dist, value)`; actions
     are sampled from `generator`. Returns time-major [T, E, ...] arrays and
-    advances `rstate` in place: its obs and every env-state field take the
-    values after the last step."""
+    advances `rstate` in place: its obs and every leaf of its env state
+    take the values after the last step."""
     env_state, obs = rstate.env_state, rstate.obs
     steps = []
     for _ in range(num_steps):
@@ -179,7 +181,8 @@ def rollout_loop(
         env_state, obs = out.state, out.obs
     # Stacked before the copy: the first step's obs is `rstate.obs` itself.
     traj = Transition(*(torch.stack(field) for field in zip(*steps)))
-    for buf, new in zip((*rstate.env_state, rstate.obs), (*env_state, obs)):
+    for buf, new in zip(tree_leaves(rstate), tree_leaves(RolloutState(env_state, obs)),
+                        strict=True):
         buf.copy_(new)
     return traj
 
@@ -280,6 +283,10 @@ def rollout_targets(
     return gae_targets(rewards, traj.value, traj.done, bootstrap_value, gamma, lam)
 
 
+# Steps between the eval loop's checks for a running first episode.
+EVAL_CHECK_EVERY = 16
+
+
 @torch.no_grad()
 def evaluate(
     env: TorchEnv,
@@ -287,14 +294,21 @@ def evaluate(
     generator: torch.Generator,
     num_envs: int = 32,
     num_steps: int = 256,
+    reset_fn: Optional[Callable[[int, torch.Generator], tuple[Any, torch.Tensor]]] = None,
 ) -> torch.Tensor:
     """Greedy eval: mean return of each env's FIRST episode. Envs whose
     episode outlives `num_steps` are excluded; if none finishes, the mean
-    of the partial returns is reported (a lower bound)."""
-    env_state, obs = env.reset(num_envs, generator)
+    of the partial returns is reported (a lower bound). `reset_fn`
+    replaces `env.reset` (the mixture's type-pinned fleets for the
+    per-type eval). Every `EVAL_CHECK_EVERY` steps the host looks whether
+    any first episode is still running and stops when none is: the steps
+    left could change no return."""
+    env_state, obs = (reset_fn or env.reset)(num_envs, generator)
     ret = torch.zeros(num_envs, device=obs.device)
     alive = torch.ones(num_envs, device=obs.device)
-    for _ in range(num_steps):
+    for i in range(num_steps):
+        if i % EVAL_CHECK_EVERY == 0 and i > 0 and not bool(alive.any()):
+            break
         out = env.step(env_state, act_fn(obs), generator)
         ret = ret + out.reward * alive
         alive = alive * (1.0 - out.done)

@@ -28,6 +28,13 @@ What a capture freezes, and how the step is built around it:
   counts are device tensors that each replay advances, and each kernel
   counts its own launches on the card.
 
+A `state_hook(it, state)` runs on the host before each iteration (`it`
+the number of iterations already run, as in the JAX loop): the seam where
+the mixture curriculum installs new type weights into the fleet state
+(`envs/mixture.py::set_fleet_weights`). It writes the state in place and
+returns nothing, so that a replay, which reads the addresses its capture
+saw, sees what it wrote.
+
 Metrics stay on the device and are synced to the host only on the
 iterations that log: every `log_every`, and always the first and the
 last, and every `eval_every` (an eval iteration always logs, as in the JAX
@@ -37,7 +44,7 @@ before the next replay.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -97,10 +104,12 @@ def fused_train_loop(
     log_fn: Optional[Callable[[int, dict], None]] = None,
     eval_every: int = 0,
     capturable: bool = False,
+    state_hook: Optional[Callable[[int, Any], None]] = None,
 ):
     """Run `num_iterations` train steps; returns (state, last metrics).
     `capturable` (the trainer's `CAPTURABLE`) lets the loop replay the step
-    as a CUDA graph where the state lives on the card."""
+    as a CUDA graph where the state lives on the card; `state_hook` (see
+    the module's docstring) runs before each iteration."""
     if num_iterations < 1:
         raise ValueError("num_iterations must be >= 1")
     if state is None:
@@ -111,6 +120,8 @@ def fused_train_loop(
     captured: Optional[CapturedStep] = None
     metrics: dict = {}
     for it in range(1, num_iterations + 1):
+        if state_hook is not None:
+            state_hook(it - 1, state)
         if not graph or it <= WARMUP_ITERATIONS:
             state, metrics = eager_step(step, state, warmup_stream)
         else:

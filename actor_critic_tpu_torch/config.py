@@ -1,9 +1,10 @@
 """Named presets (counterpart of `actor_critic_tpu/config.py`).
 
-The presets ported so far: `a2c_cartpole`, `ppo_cartpole`, and the
+The presets ported so far: `a2c_cartpole`, `ppo_cartpole`, the
 IMPALA/A3C trio on the Pong-like pixel env, `impala_pong`,
-`impala_pong_learn` and `a3c_pong`. Their values are held equal to the JAX
-presets' by a test.
+`impala_pong_learn` and `a3c_pong`, and `a2c_mixture` on the four-type
+scenario fleet. Their values are held equal to the JAX presets' by a
+test.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ class Preset:
     """A runnable training setup: algorithm + environment + config."""
 
     algo: str        # a2c | ppo | impala | a3c
-    env: str         # env name, see train.ENVS
+    env: str         # env name (train.ENVS) or "mixture:<members>"
     config: Any      # the algorithm's frozen config dataclass
     iterations: int  # default --iterations
     description: str
@@ -75,6 +76,25 @@ PRESETS: dict[str, Preset] = {
         description="IMPALA on the Pong-like pixel env at the learnable difficulty "
         "(opp_skill=0.5, frame_skip=4, 36px)",
         env_kwargs={"opp_skill": 0.5, "frame_skip": 4, "size": 36},
+    ),
+    # The scenario universe: A2C on a fleet of four env types (CartPole,
+    # Pendulum, Acrobot, the procedural maze), each instance's physics
+    # drawn within ±20% of its defaults at every episode, behind the padded
+    # obs and the shared 5-action interface (envs/mixture.py). Pair with
+    # `--curriculum "200:1,2,2,2;400:0,1,2,4" --eval-every 25` to shift the
+    # type draw toward the harder members as the eval return crosses the
+    # thresholds.
+    "a2c_mixture": Preset(
+        algo="a2c",
+        env="mixture:cartpole,pendulum,acrobot,maze",
+        config=a2c.A2CConfig(
+            num_envs=1024, rollout_steps=32, lr=1e-3,
+            anneal_iters=400, lr_final=0.0,
+            entropy_coef=0.01, entropy_coef_final=0.0,
+        ),
+        iterations=400,
+        description="A2C on the 4-type scenario-mixture fleet, GAE through the CUDA kernel",
+        env_kwargs={"randomize": 0.2},
     ),
     # The same trainer with no importance correction (the A3C rule): GAE
     # through the CUDA kernel.

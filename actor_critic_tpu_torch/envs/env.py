@@ -15,14 +15,29 @@ the whole batch at once. The contract is the JAX one:
   from a fresh episode, and the pre-reset obs is in `info["final_obs"]`;
 - everything is float32 apart from integer step counters and pixel
   observations, which are uint8 `[E, H, W, C]` as in the JAX package.
+
+A state may nest: a NamedTuple whose fields are tensors, NamedTuples or
+tuples of them (a mixture fleet's member states, `envs/mixture.py`);
+`auto_reset` and the trainers treat it through `tree.py`.
+
+Scenario fleet (JAX `jax_env.py:98-180`): an env whose physics can be
+randomized per instance carries them in its state as one `[E, P]` float32
+tensor, `scenario`, its columns the env's `SCENARIO_DEFAULTS` in order,
+drawn at every reset by `draw_scenario` from the ranges `scenario_ranges`
+resolves. One tensor rather than JAX's NamedTuple of P scalars: the draw,
+auto-reset's select and the rollout's write-back each take one launch for
+all P parameters, and `scenario.unbind(-1)` names them without a copy.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
+
+from actor_critic_tpu_torch.tree import tree_map
 
 
 class StepOutput(NamedTuple):
@@ -85,7 +100,7 @@ def auto_reset(
         def select(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             return torch.where(d.reshape(d.shape + (1,) * (a.dim() - d.dim())), a, b)
 
-        out_state = type(nstate)(*(select(r, n) for r, n in zip(rstate, nstate)))
+        out_state = tree_map(select, rstate, nstate)
         return StepOutput(
             state=out_state,
             obs=select(robs, obs),
@@ -95,3 +110,101 @@ def auto_reset(
         )
 
     return step
+
+
+class DeviceTable:
+    """A constant table, copied to each device once, at its first use there.
+
+    A step captured into a CUDA graph may not copy from the host, so the
+    constants a step reads (scenario bounds, obs masks, action levels) must
+    reach the device before any capture: their first use there is in an
+    eager reset or step (`init_state`, the loop's warm-up iterations)."""
+
+    def __init__(self, values: Any, dtype: torch.dtype = torch.float32):
+        self.host = torch.as_tensor(np.asarray(values), dtype=dtype)
+        self._on: dict[torch.device, torch.Tensor] = {}
+
+    def on(self, device: torch.device) -> torch.Tensor:
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        table = self._on.get(device)
+        if table is None:
+            table = self._on[device] = self.host.to(device)
+        return table
+
+
+def scenario_ranges(
+    defaults: dict[str, float],
+    randomize: float = 0.0,
+    overrides: Optional[dict[str, Any]] = None,
+) -> dict[str, tuple[float, float]]:
+    """Per-parameter (lo, hi) draw ranges, as the JAX `scenario_ranges`.
+
+    `randomize=r` widens every default d to [d·(1−r), d·(1+r)]; `overrides`
+    then pins single parameters: a (lo, hi) pair or list, a "lo,hi" string
+    (the `--env-set masspole=0.05,0.5` spelling) or a bare number (a fixed
+    value). With randomize 0 and no overrides every range is [d, d]."""
+    if randomize < 0:
+        raise ValueError(f"randomize must be >= 0, got {randomize}")
+    out = {}
+    for name, d in defaults.items():
+        r = abs(d) * randomize
+        out[name] = (d - r, d + r)
+    for name, val in (overrides or {}).items():
+        if name not in defaults:
+            raise ValueError(
+                f"unknown scenario parameter {name!r}; valid: {sorted(defaults)}"
+            )
+        if val is None:
+            continue
+        if isinstance(val, str):
+            vals = tuple(float(p) for p in val.split(",") if p.strip())
+        elif isinstance(val, (tuple, list)):
+            vals = tuple(float(v) for v in val)
+        else:
+            vals = (float(val),)
+        if len(vals) == 1:
+            out[name] = (vals[0], vals[0])
+        elif len(vals) == 2:
+            out[name] = (min(vals), max(vals))
+        else:
+            raise ValueError(
+                f"scenario range for {name!r} must be a number or lo,hi pair, got {val!r}"
+            )
+    return out
+
+
+def is_randomized(ranges: dict[str, tuple[float, float]]) -> bool:
+    """Whether any parameter's range is non-degenerate (lo < hi)."""
+    return any(lo != hi for lo, hi in ranges.values())
+
+
+class ScenarioBounds(NamedTuple):
+    """`ranges` as a draw reads them: the [2, P] float32 table (lo; hi − lo),
+    columns in the ranges' order, and whether any width is non-zero."""
+
+    table: DeviceTable
+    randomized: bool
+
+    @classmethod
+    def of(cls, ranges: dict[str, tuple[float, float]]) -> "ScenarioBounds":
+        lo = np.float32([lo for lo, _ in ranges.values()])
+        hi = np.float32([hi for _, hi in ranges.values()])
+        return cls(DeviceTable(np.stack([lo, hi - lo])), is_randomized(ranges))
+
+
+def draw_scenario(
+    generator: torch.Generator, num_envs: int, bounds: ScenarioBounds
+) -> torch.Tensor:
+    """[E, P] parameters: one uniform draw per parameter and instance from
+    `generator`, lo + u·(hi − lo) in float32 (JAX's `uniform(minval,
+    maxval)`). A degenerate range gives its exact constant (u·0 + lo is
+    lo). With no range randomized nothing is drawn and the generator does
+    not advance: every row is the constants (a view, no copy), and an env
+    with its default physics draws only its own state."""
+    lo, width = bounds.table.on(generator.device)
+    if not bounds.randomized:
+        return lo.expand(num_envs, -1)
+    u = torch.rand((num_envs, lo.shape[0]), generator=generator, device=generator.device)
+    return torch.addcmul(lo, u, width)

@@ -1,6 +1,6 @@
 """Analytic micro-environments with known optima (counterpart of
-`actor_critic_tpu/envs/testbeds.py`): `make_two_state_mdp` and
-`make_point_mass`; `make_bandit` is still to be ported."""
+`actor_critic_tpu/envs/testbeds.py`): `make_bandit`, `make_two_state_mdp`
+and `make_point_mass`."""
 
 from __future__ import annotations
 
@@ -8,7 +8,33 @@ from typing import NamedTuple
 
 import torch
 
-from actor_critic_tpu_torch.envs.env import EnvSpec, TorchEnv, auto_reset
+from actor_critic_tpu_torch.envs.env import DeviceTable, EnvSpec, TorchEnv, auto_reset
+
+
+class BanditState(NamedTuple):
+    t: torch.Tensor  # int32, always 0: every episode is one step
+
+
+def make_bandit(payouts=(0.2, 0.9, 0.4)) -> TorchEnv:
+    """One-step episodes: the obs is the constant [1.0] and the reward
+    payouts[action]. The optimal policy picks argmax(payouts), whose value
+    is max(payouts)."""
+    table = DeviceTable(payouts)
+
+    def reset(num_envs: int, generator: torch.Generator):
+        device = generator.device
+        return (BanditState(t=torch.zeros(num_envs, dtype=torch.int32, device=device)),
+                torch.ones((num_envs, 1), device=device))
+
+    def raw_step(state: BanditState, action: torch.Tensor, generator: torch.Generator):
+        del generator  # deterministic payouts
+        reward = table.on(action.device)[action.to(torch.int64)]
+        terminated = torch.ones_like(reward)
+        return state, torch.ones_like(reward)[:, None], reward, terminated, torch.zeros_like(reward)
+
+    spec = EnvSpec(obs_shape=(1,), action_dim=len(payouts), discrete=True,
+                   can_truncate=False, episode_horizon=1)
+    return TorchEnv(spec=spec, reset=reset, step=auto_reset(reset, raw_step))
 
 
 class TwoStateState(NamedTuple):

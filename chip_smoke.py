@@ -13,9 +13,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain version's, the card's bound and the launch floor; then one A2C
    update and one IMPALA update on the card against the same update on
    the CPU;
-4. graph equals eager: for `a2c_cartpole` and `ppo_cartpole` at full
-   width, a few iterations through the loop's CUDA-graph path against the
-   same iterations run eagerly from the same seed;
+4. graph equals eager: for `a2c_cartpole`, `ppo_cartpole` and
+   `a2c_mixture` at full width, a few iterations through the loop's
+   CUDA-graph path against the same iterations run eagerly from the same
+   seed, every carried tensor compared (for the mixture: every member
+   slot, the types, the curriculum weights and stage);
 5. main paths, each through `actor_critic_tpu_torch.train.main` with every
    launch count reset just before and read just after:
    - `a2c_cartpole` at full width (E=4096, T=64), GAE on its path, the
@@ -26,10 +28,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    - `impala_pong` at full width (E=64, T=20, 84×84×2 frames, Nature
      CNN), V-trace on its path, eager;
    - `a3c_pong`, the same trainer through GAE, for a few iterations;
+   - `a2c_mixture` at full width (E=1024, T=32, CartPole, Pendulum,
+     Acrobot and the maze in one fleet, physics ±20%), GAE on its path,
+     the step replayed as a CUDA graph, with the per-type eval matrix;
+     then a few iterations with `--curriculum`, whose install of new type
+     weights must show in the replayed fleet;
    then IMPALA's learning check on the two-state MDP, and where a train
-   step's time goes for `a2c_cartpole` and `ppo_cartpole` (eager and as
-   graph replays, in the same call) and `impala_pong` (host clock and
-   torch.profiler);
+   step's time goes for `a2c_cartpole`, `ppo_cartpole` and `a2c_mixture`
+   (eager and as graph replays, in the same call) and `impala_pong` (host
+   clock and torch.profiler);
 6. a `{"kernels": [...]}` line, then the card's name and power limit;
 7. last line: `{"ok": true, "device": {"platform": "gpu", ...}}`.
 
@@ -51,6 +58,9 @@ MAIN_PATH_ITERATIONS = 50
 PPO_ITERATIONS = 30      # tests/test_ppo.py's bar: best eval at 20/25/30 >= 400
 IMPALA_ITERATIONS = 60   # > max_steps / T = 50: every env ends an episode
 A3C_ITERATIONS = 3
+MIXTURE_ITERATIONS = 50
+MIXTURE_EVAL_EVERY = 25
+CURRICULUM_ITERATIONS = 8   # evals at 4 (a replay: the install lands on replays) and 8
 GRAPH_CHECK_ITERATIONS = 5  # the loop's eager warm-up, a capture, then replays
 # Kernel vs plain version: the same tolerances as the JAX package's kernel
 # tests (tests/test_pallas_scan.py). The GAE kernel rounds every operation
@@ -174,8 +184,9 @@ def gae_inputs(T: int, E: int, seed: int, done_at_t0: bool = False, offset: bool
     return rewards, values, dones, bootstrap
 
 
-def check_gae() -> dict:
-    """GAE kernel vs `ops.returns.gae` on the card; returns its kernels-line entry."""
+def check_gae(floor_ms: float) -> dict:
+    """GAE kernel vs `ops.returns.gae` on the card; returns its kernels-line
+    entry. Prints each timed shape's time over the launch floor."""
     import torch
 
     from actor_critic_tpu_torch.ops import gae_cuda, returns
@@ -188,6 +199,7 @@ def check_gae() -> dict:
     cases = [
         ("preset", 64, 4096, {}),
         ("ppo preset", 128, 256, {}),
+        ("mixture preset", 32, 1024, {}),
         ("T17-E512", 17, 512, {}),
         ("E7", 17, 7, {}),
         ("E96", 17, 96, {}),
@@ -213,15 +225,17 @@ def check_gae() -> dict:
         print(f"gae {name:12s} T={T:3d} E={E:5d} max_abs_err={err:.3e}", flush=True)
 
     # a2c_cartpole's shape (the kernels-line entry), then ppo_cartpole's
-    # (two chunks of 64 rows, double-buffered) and a3c_pong's.
+    # (two chunks of 64 rows, double-buffered), a2c_mixture's and a3c_pong's.
     timings = []
-    for T, E in ((64, 4096), (128, 256), (20, 64)):
+    for T, E in ((64, 4096), (128, 256), (32, 1024), (20, 64)):
         args = gae_inputs(T, E, seed=100)
         timings.append(time_against_bound(
             f"gae [{T},{E}]", "gae_kernel", lambda: gae_cuda.gae(*args, GAMMA, LAM),
             lambda: returns.gae(*args, GAMMA, LAM),
             bytes_moved=(5 * T * E + E) * 4,  # 3 inputs + 2 outputs [T,E], bootstrap [E]
             flops=8 * T * E))  # sub, 2 mul, add, sub; 2 mul, add; add per element
+        print(f"gae [{T},{E}]: {timings[-1]['ms'] / floor_ms:.2f}x the launch floor, "
+              f"{timings[-1]['ms'] / timings[-1]['bound_ms']:.2f}x its bound", flush=True)
     return {
         "name": "gae",
         "route": "cuda",
@@ -441,17 +455,20 @@ def check_graph_equals_eager(preset_name: str) -> None:
     counter, actions and last metrics of the two at 1e-6 (expected 0.0: the
     same kernels on the same inputs, the same random numbers), the GAE
     kernel's launches (counted on the card) equal to the iterations on both
-    sides, and the actions of consecutive replays different."""
+    sides, and the actions of consecutive replays different. The env state
+    is compared leaf by leaf, nested states (the mixture's member slots)
+    included."""
     import torch
 
     from actor_critic_tpu_torch import train
     from actor_critic_tpu_torch.algos import loop
     from actor_critic_tpu_torch.config import PRESETS
     from actor_critic_tpu_torch.ops import gae_cuda
+    from actor_critic_tpu_torch.tree import named_leaves
 
     preset = PRESETS[preset_name]
     mod, cfg = train.ALGOS[preset.algo], preset.config
-    env = train.ENVS[preset.env](**preset.env_kwargs)
+    env = train.make_env(preset.env, preset.env_kwargs)
     n = GRAPH_CHECK_ITERATIONS
     runs = {}
     for capturable in (False, True):
@@ -479,7 +496,7 @@ def check_graph_equals_eager(preset_name: str) -> None:
         tensors.update({f"nu {k}": v for k, v in state.opt_state.nu.items()})
         tensors["adam count"] = state.opt_state.count
         tensors["rollout obs"] = state.rollout.obs
-        tensors.update({f"env {k}": v for k, v in state.rollout.env_state._asdict().items()})
+        tensors.update({f"env {k}": v for k, v in named_leaves(state.rollout.env_state).items()})
         tensors.update(ep_return=state.ep_return, ep_length=state.ep_length,
                        avg_return=state.avg_return, step_counter=state.step_counter, actions=drawn)
         tensors.update({f"metric {k}": v for k, v in metrics.items()})
@@ -513,8 +530,8 @@ def check_graph_equals_eager(preset_name: str) -> None:
 def drive(argv: list[str], show_every: int) -> tuple[list[dict], dict, dict[str, int]]:
     """Run `train.main(argv)` with every kernel's launch count reset just
     before and read just after; returns (logged rows, summary row,
-    launches). Prints the first and last rows, every `show_every`-th and
-    the summary."""
+    launches). Prints the first and last rows, every `show_every`-th, the
+    summary, and the lines that are not JSON (the curriculum's)."""
     from actor_critic_tpu_torch import train
     from actor_critic_tpu_torch.ops import gae_cuda, vtrace_cuda
 
@@ -525,7 +542,11 @@ def drive(argv: list[str], show_every: int) -> tuple[list[dict], dict, dict[str,
         rc = train.main(argv)
     launches = {"gae": gae_cuda.launch_count(), "vtrace": vtrace_cuda.launch_count()}
     assert rc == 0, f"train.main returned {rc}"
-    rows = [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        if not line.startswith("{"):
+            print(line, flush=True)
+    rows = [json.loads(line) for line in lines if line.startswith("{")]
     logged, summary = [r for r in rows if "iter" in r], rows[-1]
     for r in logged:
         if r["iter"] in (1, logged[-1]["iter"]) or r["iter"] % show_every == 0:
@@ -664,6 +685,73 @@ def run_a3c_pong() -> dict[str, int]:
     return launches
 
 
+def run_a2c_mixture() -> dict[str, int]:
+    """Train the a2c_mixture preset at full width (E=1024, T=32, four env
+    types) through the CLI's main(), the step replayed as a CUDA graph, a
+    greedy eval and the per-type eval matrix every MIXTURE_EVAL_EVERY
+    iterations. GAE's launches, counted on the card, must equal the
+    iterations and V-trace's be 0; every metric finite; all four types live
+    in the trained fleet; the eval matrix finite. Returns the launches."""
+    import math
+
+    from actor_critic_tpu_torch.envs.mixture import SOLVE_BARS, eval_matrix_row
+
+    n = MIXTURE_ITERATIONS
+    logged, summary, launches = drive(
+        ["--preset", "a2c_mixture", "--iterations", str(n), "--log-every", "10",
+         "--eval-every", str(MIXTURE_EVAL_EVERY), "--seed", "0"], show_every=10)
+    check_rows(logged, n)
+    assert launches == {"gae": n, "vtrace": 0}, launches
+    for k, v in summary.items():
+        assert not isinstance(v, float) or math.isfinite(v), (k, v)
+    members = tuple(SOLVE_BARS)
+    for r in (r for r in logged if "eval_return" in r):
+        shares = {m: r[f"fleet_share_{m}"] for m in members}
+        matrix = {m: r[f"eval_return_{m}"] for m in members}
+        assert all(s > 0 for s in shares.values()), (r["iter"], shares)
+        assert all(v is not None and math.isfinite(v) for v in matrix.values()), (r["iter"], matrix)
+        row = {k: v for m in members for k, v in eval_matrix_row(m, matrix[m]).items()}
+        print(f"a2c_mixture eval at iteration {r['iter']}: greedy eval {r['eval_return']:.3f}; "
+              f"per-type eval matrix {row}; fleet shares {shares}", flush=True)
+    _, steps_per_iter = per_iteration(logged, summary)
+    first, last = logged[0], logged[-1]
+    print(
+        f"main path a2c_mixture (CUDA graph): {n} iterations of {steps_per_iter:.0f} env steps, "
+        f"{graph_timing(logged, summary)}; mean_finished_return "
+        f"{first['mean_finished_return']:.3f} -> {last['mean_finished_return']:.3f}; "
+        f"launches {launches} ({launches['gae'] / n:.0f} GAE launch per iteration)",
+        flush=True,
+    )
+    return launches
+
+
+def run_a2c_mixture_curriculum() -> None:
+    """a2c_mixture with `--curriculum` at a threshold the first eval
+    crosses, installing weights 0,0,0,1 (the maze alone): the first eval
+    (iteration 4, a graph replay) advances the stage and the state hook
+    writes the weights before iteration 5. The install must reach the
+    replayed graph: the stage read back from the device at the last
+    iteration is 1, and the maze's share of the fleet has risen since
+    iteration 4 (episode ends redraw types from the installed weights)."""
+    n = CURRICULUM_ITERATIONS
+    logged, _, launches = drive(
+        ["--preset", "a2c_mixture", "--iterations", str(n), "--eval-every", "4",
+         "--curriculum=-1e9:0,0,0,1", "--seed", "1"], show_every=4)
+    check_rows(logged, n)
+    assert launches == {"gae": n, "vtrace": 0}, launches
+    rows = {r["iter"]: r for r in logged}
+    before, after = rows[4], rows[n]
+    assert before["curriculum_stage"] == 1 and before["fleet_stage"] == 0, before
+    assert after["fleet_stage"] == 1, after
+    assert after["fleet_share_maze"] > before["fleet_share_maze"], (before, after)
+    print(
+        f"curriculum (a2c_mixture, {n} iterations, install after iteration 4): stage on the "
+        f"device {before['fleet_stage']} -> {after['fleet_stage']}; maze share "
+        f"{before['fleet_share_maze']:.4f} -> {after['fleet_share_maze']:.4f}; launches {launches}",
+        flush=True,
+    )
+
+
 def check_impala_learns() -> None:
     """IMPALA with a 2-step actor lag on the two-state MDP at
     tests/test_impala.py's shape (E=16, T=8, hidden (32,), lr 3e-3, entropy
@@ -691,13 +779,15 @@ def check_impala_learns() -> None:
     assert 50.0 < float(values[0]) <= 110.0, values
 
 
-def profile_step(preset_name: str) -> None:
+def profile_step(preset_name: str, n: int = 3) -> None:
     """Where a full-width train step of a preset goes, in one call:
-    host-clock rollout and update times of eager steps; then the step run
-    eagerly and, for a capturable trainer, as replays of the loop's CUDA
-    graph, each with its host-clock time per step (synchronised) and its
-    device busy time, busy share and kernel launches per step from
-    torch.profiler (top kernels for the eager step)."""
+    host-clock rollout and update times of `n` eager steps; then the step
+    run eagerly and, for a capturable trainer, as replays of the loop's
+    CUDA graph, each with its host-clock time per step over `n` steps
+    (synchronised) and its device busy time, busy share and kernel
+    launches per step from torch.profiler over `n` more (top kernels for
+    the eager step). The busy share is the busy time over the unprofiled
+    host-clock time."""
     import torch
 
     from actor_critic_tpu_torch import train
@@ -706,7 +796,7 @@ def profile_step(preset_name: str) -> None:
 
     preset = PRESETS[preset_name]
     mod, cfg = train.ALGOS[preset.algo], preset.config
-    env = train.ENVS[preset.env](**preset.env_kwargs)
+    env = train.make_env(preset.env, preset.env_kwargs)
     state = mod.init_state(env, cfg, seed=1, device="cuda")
     opt = mod.make_optimizer(cfg)
     step = mod.make_train_step(env, cfg)
@@ -714,7 +804,6 @@ def profile_step(preset_name: str) -> None:
     for _ in range(loop.WARMUP_ITERATIONS):
         loop.eager_step(step, state, side)
     torch.cuda.synchronize()
-    n = 3
     t_roll = t_upd = 0.0
     for _ in range(n):
         t0 = time.perf_counter()
@@ -750,7 +839,8 @@ def profile_step(preset_name: str) -> None:
             print(
                 f"{preset_name} {label}: {host_ms:.3f} ms/step (host clock, synchronised); "
                 f"profiled {n} steps: wall {wall / n * 1e3:.3f} ms/step under the profiler, "
-                f"device busy {busy_us / n / 1e3:.3f} ms/step ({busy_us / 1e6 / wall:.1%}), "
+                f"device busy {busy_us / n / 1e3:.3f} ms/step "
+                f"({busy_us / n / 1e3 / host_ms:.1%} of the unprofiled step), "
                 f"{launches / n:.0f} kernel launches/step",
                 flush=True,
             )
@@ -770,6 +860,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA GPU",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     from actor_critic_tpu_torch import _build
 
     smi = nvidia_smi_line()
@@ -784,7 +875,7 @@ def main() -> int:
     floor_ms = launch_floor_ms()
     print(f"launch floor: {floor_ms * 1e3:.3f} us on the device (torch.profiler, "
           f"a one-element zero_())", flush=True)
-    entries = [check_gae(), check_vtrace()]
+    entries = [check_gae(floor_ms), check_vtrace()]
     for e in entries:
         e["launch_floor_ms"] = floor_ms
         print(f"{e['name']}: kernel {e['ms'] / floor_ms:.2f}x the launch floor, "
@@ -793,18 +884,25 @@ def main() -> int:
     check_impala_update_on_card()
     check_graph_equals_eager("a2c_cartpole")
     check_graph_equals_eager("ppo_cartpole")
+    check_graph_equals_eager("a2c_mixture")
     # Each kernel's launches on its own main path.
     launches = {"gae": run_a2c_cartpole()["gae"], "vtrace": run_impala_pong()["vtrace"]}
     run_ppo_cartpole()
     run_a3c_pong()
+    run_a2c_mixture()
+    run_a2c_mixture_curriculum()
     check_impala_learns()
     profile_step("a2c_cartpole")
-    profile_step("ppo_cartpole")
+    # One step each way for the steps of ~21,000–24,000 launches: the
+    # profiler's bookkeeping of them takes longer than the steps.
+    profile_step("ppo_cartpole", n=1)
+    profile_step("a2c_mixture", n=1)
     profile_step("impala_pong")
     for e in entries:
         e["launches"] = launches[e["name"]]
         assert e["launches"] > 0, f"kernel {e['name']} was not launched on the main path"
 
+    print(f"script: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

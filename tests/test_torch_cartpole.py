@@ -21,12 +21,17 @@ from actor_critic_tpu_torch.envs import make_cartpole
 TOL = dict(rtol=1e-6, atol=1e-6)
 
 
+def _default_scenario(n: int) -> torch.Tensor:
+    return torch.tensor(list(tcart.SCENARIO_DEFAULTS.values())).expand(n, -1)
+
+
 def _to_torch(js) -> tcart.CartPoleState:
     return tcart.CartPoleState(
         x=torch.from_numpy(np.array(js.x)), x_dot=torch.from_numpy(np.array(js.x_dot)),
         theta=torch.from_numpy(np.array(js.theta)),
         theta_dot=torch.from_numpy(np.array(js.theta_dot)),
         t=torch.from_numpy(np.array(js.t)),
+        scenario=_default_scenario(len(js.x)),
     )
 
 
@@ -75,8 +80,9 @@ def test_step_matches_jax_until_first_episode_end():
 
 
 def test_reset_draws_in_range_and_seeded():
-    s1, o1 = tcart.reset(4096, torch.Generator().manual_seed(3))
-    s2, o2 = tcart.reset(4096, torch.Generator().manual_seed(3))
+    reset = make_cartpole().reset
+    s1, o1 = reset(4096, torch.Generator().manual_seed(3))
+    s2, o2 = reset(4096, torch.Generator().manual_seed(3))
     assert o1.shape == (4096, 4) and o1.dtype == torch.float32
     assert torch.equal(o1, o2)
     assert float(o1.min()) >= -0.05 and float(o1.max()) < 0.05
@@ -86,10 +92,26 @@ def test_reset_draws_in_range_and_seeded():
 
 
 def test_float32_physics_constants():
-    """The JAX env forms these in float32 from float32 scalars."""
-    assert tcart.TOTAL_MASS == float(np.float32(1.0) + np.float32(0.1))
-    assert tcart.POLEMASS_LENGTH == float(np.float32(0.1) * np.float32(0.5))
-    assert tcart.TOTAL_MASS != 1.1
+    """The JAX env forms the total mass and the pole's mass-length in
+    float32 from its float32 scenario; the port forms them from its
+    scenario the same way: the default env's scenario is the float32
+    constants, and a step from a pole at rest equals the dynamics worked
+    in numpy float32 with m_c + m_p and m_p·l formed in float32."""
+    state, _ = make_cartpole().reset(3, torch.Generator().manual_seed(0))
+    assert state.scenario.dtype == torch.float32
+    f32 = np.float32
+    _, mc, mp, l, force = (f32(v) for v in state.scenario[0].tolist())
+    assert (mc, mp, l, force) == (f32(1.0), f32(0.1), f32(0.5), f32(10.0))
+    total, pml = mc + mp, mp * l
+    assert float(total) != 1.1
+    at_rest = state._replace(x_dot=torch.zeros(3), theta=torch.zeros(3),
+                             theta_dot=torch.zeros(3))
+    _, obs, *_ = tcart.raw_step(at_rest, torch.tensor([1, 1, 1]), None)
+    temp = force / total
+    thetaacc = -temp / (l * (f32(4.0 / 3.0) - mp / total))
+    xacc = temp - pml * thetaacc / total
+    want = f32(tcart.TAU) * xacc
+    np.testing.assert_array_equal(obs[:, 1].numpy(), np.full(3, want, np.float32))
 
 
 def test_auto_reset_contract():
@@ -100,6 +122,7 @@ def test_auto_reset_contract():
         x=torch.tensor([2.39, 0.0, 0.0]), x_dot=torch.tensor([1.0, 0.0, 0.0]),
         theta=torch.zeros(3), theta_dot=torch.zeros(3),
         t=torch.tensor([10, 499, 5], dtype=torch.int32),
+        scenario=_default_scenario(3),
     )
     out = env.step(state, torch.tensor([1, 1, 0]), torch.Generator().manual_seed(0))
     np.testing.assert_array_equal(out.info["terminated"].numpy(), [1.0, 0.0, 0.0])

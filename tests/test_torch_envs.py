@@ -1,0 +1,164 @@
+"""The port's Pendulum, Acrobot, maze and bandit against the JAX package's
+`envs/pendulum.py`, `acrobot.py`, `maze.py` and `testbeds.py::make_bandit`.
+
+Every step starts both envs from the same state (the JAX fleet's, scenario
+included, converted by `torch_env_states.to_port`) with the same actions
+made by numpy from a seed, and compares the step's reward, done,
+terminated and pre-reset obs for every instance, and the next obs where
+no episode ended (a reset's draws come from another generator and are
+held by their range). Stepping from the JAX state each time keeps a
+rounding difference in sin or cos from growing through the chaotic double
+pendulum. Tolerances: 1e-6 (atol and rtol) on the float32 physics; the
+maze exactly (integer moves, the same float ops on its rewards).
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from actor_critic_tpu.envs import make_acrobot as make_jax_acrobot
+from actor_critic_tpu.envs import make_bandit as make_jax_bandit
+from actor_critic_tpu.envs import make_maze as make_jax_maze
+from actor_critic_tpu.envs import make_pendulum as make_jax_pendulum
+from actor_critic_tpu.envs import pendulum as jpendulum
+from actor_critic_tpu_torch.envs import acrobot as tacrobot
+from actor_critic_tpu_torch.envs import maze as tmaze
+from actor_critic_tpu_torch.envs import pendulum as tpendulum
+from actor_critic_tpu_torch.envs import make_acrobot, make_bandit, make_maze, make_pendulum
+from torch_env_states import to_port
+
+TOL = dict(rtol=1e-6, atol=1e-6)
+EXACT = dict(rtol=0, atol=0)
+
+
+def _actions(name, rng, E):
+    if name == "pendulum":  # normalized torques, some beyond the ±1 clip
+        return rng.uniform(-1.5, 1.5, size=(E, 1)).astype(np.float32)
+    n = {"acrobot": 3, "maze": 4}[name]
+    return rng.integers(0, n, size=E).astype(np.int32)
+
+
+ENVS = {
+    # name: (JAX maker, port maker, kwargs, steps, tolerance, scenario module)
+    "pendulum": (make_jax_pendulum, make_pendulum, dict(randomize=0.2), 210, TOL, tpendulum),
+    "acrobot": (make_jax_acrobot, make_acrobot, dict(randomize=0.2), 40, TOL, tacrobot),
+    "maze": (make_jax_maze, make_maze, dict(randomize=0.2), 80, EXACT, tmaze),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENVS))
+def test_step_matches_jax(name):
+    jmake, tmake, kw, steps, tol, mod = ENVS[name]
+    E = 64
+    jenv, env = jmake(**kw), tmake(**kw)
+    jstate, _ = jax.vmap(jenv.reset)(jax.random.split(jax.random.key(0), E))
+    assert jstate.scenario._fields == tuple(mod.SCENARIO_DEFAULTS)
+    if name == "acrobot":
+        # From the reset's small angles and speeds; 8 instances start
+        # upright (they terminate), all near the time limit (they truncate).
+        up = np.arange(E) < 8
+        rng0 = np.random.default_rng(1)
+        jstate = jstate._replace(
+            theta1=jnp.where(jnp.asarray(up), np.float32(np.pi - 0.05), jstate.theta1),
+            t=jnp.asarray(rng0.integers(470, 500, E), jnp.int32))
+    like, _ = env.reset(E, torch.Generator().manual_seed(0))
+    jstep = jax.jit(jax.vmap(jenv.step))
+    rng = np.random.default_rng(0)
+    gen = torch.Generator().manual_seed(0)
+    n_term = n_trunc = 0
+    for _ in range(steps):
+        actions = _actions(name, rng, E)
+        jout = jstep(jstate, jnp.asarray(actions))
+        out = env.step(to_port(jstate, like), torch.from_numpy(actions), gen)
+        j_done = np.asarray(jout.done)
+        j_term = np.asarray(jout.info["terminated"])
+        np.testing.assert_allclose(out.reward.numpy(), np.asarray(jout.reward), **tol)
+        np.testing.assert_array_equal(out.done.numpy(), j_done)
+        np.testing.assert_array_equal(out.info["terminated"].numpy(), j_term)
+        np.testing.assert_allclose(out.info["final_obs"].numpy(),
+                                   np.asarray(jout.info["final_obs"]), **tol)
+        cont = j_done == 0
+        np.testing.assert_allclose(out.obs.numpy()[cont], np.asarray(jout.obs)[cont], **tol)
+        np.testing.assert_array_equal(out.state.t.numpy(), np.asarray(jout.state.t))
+        n_term += int(j_term.sum())
+        n_trunc += int((j_done - j_term).sum())
+        jstate = jout.state
+    # The episode ends this env has were exercised.
+    assert n_trunc > 0, n_trunc
+    assert (n_term > 0) == (name != "pendulum"), n_term
+
+
+def test_angle_normalize_is_a_floor_mod_as_jax():
+    x = np.float32([-7.0, -3.2, -np.pi, -1e-3, 0.0, 1e-3, np.pi, 3.2, 7.0, 20.0, -20.0])
+    got = tpendulum.angle_normalize(torch.from_numpy(x)).numpy()
+    want = np.asarray(jpendulum._angle_normalize(jnp.asarray(x)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    assert np.all((got >= -np.pi - 1e-6) & (got < np.pi + 1e-6))
+    # torch.fmod would keep x's sign: −3.2 + π mod 2π is 2π − 0.0584, not −0.0584.
+    assert got[1] > 3.0
+
+
+@pytest.mark.parametrize("name,low,high", [
+    ("pendulum", [-math.pi, -1.0], [math.pi, 1.0]),
+    ("acrobot", [-0.1] * 4, [0.1] * 4),
+])
+def test_reset_draws_in_range_seeded_and_randomized(name, low, high):
+    env = ENVS[name][1](randomize=0.2)
+    s1, o1 = env.reset(4096, torch.Generator().manual_seed(3))
+    s2, o2 = env.reset(4096, torch.Generator().manual_seed(3))
+    assert torch.equal(o1, o2) and torch.equal(s1.scenario, s2.scenario)
+    vals = torch.stack([s1[i] for i in range(len(low))], -1).numpy()
+    assert np.all(vals >= np.float32(low)) and np.all(vals <= np.float32(high))
+    assert np.all(vals.std(axis=0) > 0.25 * (np.float32(high) - np.float32(low)) / np.sqrt(12))
+    defaults = np.float32(list(ENVS[name][5].SCENARIO_DEFAULTS.values()))
+    sc = s1.scenario.numpy()
+    assert np.all(sc >= 0.8 * defaults - 1e-6) and np.all(sc <= 1.2 * defaults + 1e-6)
+    assert torch.all(s1.t == 0)
+
+
+def test_maze_generation():
+    """Start and goal distinct and free, obstacles near the density, the
+    obs the 3×3 window of the 1-padded grid plus the offsets, as the JAX
+    env's `_obs` forms it (here from the port's own state)."""
+    E, N = 512, 8
+    state, obs = make_maze(size=N).reset(E, torch.Generator().manual_seed(0))
+    grid, row, col = state.grid.numpy(), state.row.numpy(), state.col.numpy()
+    grow, gcol = state.goal_row.numpy(), state.goal_col.numpy()
+    idx = np.arange(E)
+    assert np.all((row != grow) | (col != gcol))
+    assert np.all(grid[idx, row, col] == 0) and np.all(grid[idx, grow, gcol] == 0)
+    assert abs(grid.mean() - tmaze.DENSITY * (1 - 2 / N**2)) < 0.02
+    padded = np.pad(grid, ((0, 0), (1, 1), (1, 1)), constant_values=1.0)
+    dr, dc = np.divmod(np.arange(9), 3)
+    window = padded[idx[:, None], row[:, None] + dr, col[:, None] + dc]
+    feats = np.stack([row, col, grow - row, gcol - col], -1).astype(np.float32) / np.float32(N)
+    np.testing.assert_array_equal(obs.numpy(), np.concatenate([window, feats], -1))
+    # The JAX env gives the same obs from the same state.
+    jenv = make_jax_maze(size=N)
+    jstate, _ = jax.jit(jax.vmap(jenv.reset))(jax.random.split(jax.random.key(0), 4))
+    like, _ = make_maze(size=N).reset(4, torch.Generator().manual_seed(0))
+    out = make_maze(size=N).step(to_port(jstate, like), torch.zeros(4, dtype=torch.int64),
+                                 torch.Generator().manual_seed(0))
+    jout = jax.jit(jax.vmap(jenv.step))(jstate, jnp.zeros(4, jnp.int32))
+    np.testing.assert_array_equal(out.info["final_obs"].numpy(), np.asarray(jout.info["final_obs"]))
+
+
+def test_bandit_matches_jax():
+    payouts = (0.2, 0.9, 0.4)
+    jenv, env = make_jax_bandit(payouts), make_bandit(payouts)
+    assert (env.spec.obs_shape, env.spec.action_dim, env.spec.can_truncate,
+            env.spec.episode_horizon) == (jenv.spec.obs_shape, jenv.spec.action_dim,
+                                          jenv.spec.can_truncate, jenv.spec.episode_horizon)
+    actions = np.array([0, 1, 2, 1], np.int32)
+    state, obs = env.reset(4, torch.Generator().manual_seed(0))
+    jstate, jobs = jax.vmap(jenv.reset)(jax.random.split(jax.random.key(0), 4))
+    np.testing.assert_array_equal(obs.numpy(), np.asarray(jobs))
+    out = env.step(state, torch.from_numpy(actions), torch.Generator().manual_seed(0))
+    jout = jax.vmap(jenv.step)(jstate, jnp.asarray(actions))
+    for got, want in ((out.reward, jout.reward), (out.done, jout.done), (out.obs, jout.obs),
+                      (out.info["terminated"], jout.info["terminated"])):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))

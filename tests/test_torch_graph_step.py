@@ -8,7 +8,9 @@ CPU, where the same step runs eagerly (`algos/loop.py`):
   device (at Adam's count and at the step counter) equal, bit for bit, the
   host functions the eager code used (`a2c.entropy_coef_at`,
   `linear_schedule`, optax's bias corrections);
-- which trainers the loop captures, and that it runs the CPU eagerly.
+- which trainers the loop captures, and that it runs the CPU eagerly;
+- the same of the mixture fleet's nested state (`a2c_mixture` at a tiny
+  size), and of a `state_hook` that installs curriculum weights.
 """
 
 import numpy as np
@@ -16,7 +18,8 @@ import pytest
 import torch
 
 from actor_critic_tpu_torch.algos import a2c, impala, loop, ppo
-from actor_critic_tpu_torch.envs import make_cartpole, make_pong
+from actor_critic_tpu_torch.envs import make_cartpole, make_mixture, make_pong
+from actor_critic_tpu_torch.envs.mixture import set_fleet_weights
 from actor_critic_tpu_torch.optim import (
     B1,
     B2,
@@ -24,6 +27,7 @@ from actor_critic_tpu_torch.optim import (
     linear_schedule,
     scalars_at,
 )
+from actor_critic_tpu_torch.tree import named_leaves, tree_leaves
 
 TRAINERS = {
     "a2c": (a2c, a2c.A2CConfig(num_envs=8, rollout_steps=4, anneal_iters=5, lr_final=0.0,
@@ -31,6 +35,13 @@ TRAINERS = {
     "ppo": (ppo, ppo.PPOConfig(num_envs=8, rollout_steps=4, epochs=2, num_minibatches=2,
                                anneal_iters=5, lr_final=0.0, clip_eps_final=0.1,
                                entropy_coef=0.01, entropy_coef_final=0.0)),
+}
+# The trainers' step on each env: CartPole, and A2C on the four-type
+# mixture fleet (a nested state: one slot per member type).
+STEP_CASES = {
+    "a2c": ("a2c", make_cartpole),
+    "ppo": ("ppo", make_cartpole),
+    "a2c_mixture": ("a2c", lambda: make_mixture(randomize=0.2, redraw_types=True)),
 }
 
 
@@ -41,16 +52,17 @@ def _carried(state) -> dict[str, torch.Tensor]:
     out.update({f"nu {k}": v for k, v in state.opt_state.nu.items()})
     out["adam count"] = state.opt_state.count
     out["rollout obs"] = state.rollout.obs
-    out.update({f"env {k}": v for k, v in state.rollout.env_state._asdict().items()})
+    out.update({f"env {k}": v for k, v in named_leaves(state.rollout.env_state).items()})
     out.update(ep_return=state.ep_return, ep_length=state.ep_length,
                avg_return=state.avg_return, step_counter=state.step_counter)
     return out
 
 
-@pytest.mark.parametrize("name", sorted(TRAINERS))
+@pytest.mark.parametrize("name", sorted(STEP_CASES))
 def test_train_step_writes_the_state_in_place(name):
-    mod, cfg = TRAINERS[name]
-    env = make_cartpole()
+    trainer, make_env = STEP_CASES[name]
+    mod, cfg = TRAINERS[trainer]
+    env = make_env()
     state = mod.init_state(env, cfg, seed=0, device="cpu")
     step = mod.make_train_step(env, cfg)
     before = {k: (t.data_ptr(), t.clone()) for k, t in _carried(state).items()}
@@ -65,11 +77,35 @@ def test_train_step_writes_the_state_in_place(name):
     # And the step did write them: everything but the Adam moments of
     # parameters without a gradient has new values.
     changed = {k for k, (_, old) in before.items() if not torch.equal(now[k], old)}
+    env_leaves = ("env x", "env t") if name != "a2c_mixture" else tuple(
+        f"env members.{i}.t" for i in range(4) if bool((state.rollout.env_state.type_id == i).any()))
+    assert env_leaves
     for k in ("rollout obs", "ep_return", "ep_length", "step_counter", "adam count",
-              "param policy.weight",
-              "mu policy.weight", "nu value.bias", "env x", "env t"):
+              "param policy.weight", "mu policy.weight", "nu value.bias", *env_leaves):
         assert k in changed, k
     assert int(state.step_counter) == state.update_step == 2
+
+
+def test_state_hook_writes_the_fleet_in_place():
+    """The curriculum's seam: a `state_hook` installing weights through
+    `set_fleet_weights` before iteration 2 keeps every carried tensor's
+    storage (a replay would read the new weights), and the fleet follows
+    them: the stage reads 1 and the weights are the installed ones."""
+    mod, cfg = TRAINERS["a2c"]
+    env = STEP_CASES["a2c_mixture"][1]()
+    state = mod.init_state(env, cfg, seed=0, device="cpu")
+    ptrs = {k: t.data_ptr() for k, t in _carried(state).items()}
+
+    def hook(it, s):
+        if it == 1:
+            set_fleet_weights(s.rollout.env_state, (0.0, 0.0, 0.0, 1.0), stage=1)
+
+    state, _ = loop.fused_train_loop(mod.make_train_step, mod.init_state, env, cfg, 3,
+                                     device="cpu", state=state, state_hook=hook)
+    assert {k: t.data_ptr() for k, t in _carried(state).items()} == ptrs
+    fleet = state.rollout.env_state
+    assert torch.all(fleet.stage == 1)
+    assert torch.all(fleet.weights == torch.tensor([0.0, 0.0, 0.0, 1.0]))
 
 
 def test_init_gives_each_env_field_its_own_storage():
@@ -77,7 +113,7 @@ def test_init_gives_each_env_field_its_own_storage():
     must not, or writing one field in place would write the others."""
     cfg = impala.ImpalaConfig(num_envs=2, rollout_steps=2)
     state = impala.init_state(make_pong(size=36), cfg, seed=0, device="cpu")
-    ptrs = [t.data_ptr() for t in (*state.rollout.env_state, state.rollout.obs)]
+    ptrs = [t.data_ptr() for t in tree_leaves(state.rollout)]
     assert len(set(ptrs)) == len(ptrs)
 
 

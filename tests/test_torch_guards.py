@@ -128,6 +128,19 @@ def test_a2c_cartpole_preset_matches_jax():
     assert j.env == "jax:cartpole" and t.env == "cartpole"
 
 
+def test_a2c_mixture_preset_matches_jax():
+    j, t = jconfig.PRESETS["a2c_mixture"], tconfig.PRESETS["a2c_mixture"]
+    assert (t.algo, t.iterations, t.env, t.env_kwargs) == (j.algo, j.iterations, j.env, j.env_kwargs)
+    assert t.env == "mixture:cartpole,pendulum,acrobot,maze" and t.env_kwargs == {"randomize": 0.2}
+    assert dataclasses.asdict(t.config) == dataclasses.asdict(j.config)
+    assert train.ALGOS[t.algo] is ta2c
+
+
+def test_a2c_mixture_entry_point_raises_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--preset", "a2c_mixture", "--iterations", "1"])
+
+
 @pytest.mark.parametrize("name", ["impala_pong", "impala_pong_learn", "a3c_pong"])
 def test_pong_preset_matches_jax(name):
     j, t = jconfig.PRESETS[name], tconfig.PRESETS[name]
