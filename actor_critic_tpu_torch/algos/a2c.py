@@ -35,6 +35,7 @@ from actor_critic_tpu_torch.algos.common import (
     fold_episodes,
     init_train_state,
     linear_anneal,
+    make_actor_critic,
     make_mode_eval,
     rollout_loop,
     rollout_targets,
@@ -42,7 +43,7 @@ from actor_critic_tpu_torch.algos.common import (
 )
 from actor_critic_tpu_torch.algos.metrics import aggregate_metrics
 from actor_critic_tpu_torch.envs.env import TorchEnv
-from actor_critic_tpu_torch.models.networks import ActorCriticDiscrete
+from actor_critic_tpu_torch.models.networks import ActorCriticDiscrete, ActorCriticGaussian
 from actor_critic_tpu_torch.ops.returns import normalize_advantages
 from actor_critic_tpu_torch.optim import ClippedAdam, linear_schedule
 
@@ -77,14 +78,10 @@ class A2CConfig:
 
 def make_network(
     env: TorchEnv, cfg: A2CConfig, generator: Optional[torch.Generator] = None
-) -> ActorCriticDiscrete:
-    if cfg.bf16_compute:
-        raise NotImplementedError("bf16_compute is not ported yet")
-    if not env.spec.discrete or len(env.spec.obs_shape) != 1:
-        raise NotImplementedError("only discrete actions on vector observations are ported")
-    return ActorCriticDiscrete(
-        env.spec.obs_shape[0], env.spec.action_dim, cfg.hidden, generator
-    )
+) -> Union[ActorCriticDiscrete, ActorCriticGaussian]:
+    """A categorical net (MLP or Nature-CNN torso) for discrete actions, a
+    Gaussian one for continuous actions (`common.make_actor_critic`)."""
+    return make_actor_critic(env.spec, cfg.hidden, cfg.bf16_compute, generator)
 
 
 def make_eval_fn(env: TorchEnv, cfg: A2CConfig):

@@ -22,16 +22,18 @@ not from Python floats, which a capture would freeze.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-from actor_critic_tpu_torch.envs.env import TorchEnv
+from actor_critic_tpu_torch.envs.env import EnvSpec, TorchEnv
+from actor_critic_tpu_torch.models.networks import ActorCriticDiscrete, ActorCriticGaussian
 from actor_critic_tpu_torch.ops import gae_cuda, vtrace_cuda
 from actor_critic_tpu_torch.optim import AdamState, ClippedAdam, RMSPropState
-from actor_critic_tpu_torch.tree import tree_leaves, tree_map
+from actor_critic_tpu_torch.tree import named_leaves, tree_leaves, tree_map
 
 
 class Transition(NamedTuple):
@@ -109,6 +111,50 @@ class TrainState:
     def update_step(self) -> int:
         """Train steps taken; reading it waits for the device."""
         return int(self.step_counter)
+
+
+def carried_tensors(state: TrainState) -> dict[str, torch.Tensor]:
+    """Every tensor a train step reads from `state` and writes back, by
+    name: the learner's parameters (`param <name>`) and any other network's
+    (IMPALA's `actor_net <name>`), the optimizer's moments and count (`mu
+    <name>`, `nu <name>`, `count`), the rollout obs and every env-state leaf
+    (`env <path>`, the mixture's weights and stage among them), the episode
+    accounting and the step counter. What a checkpoint holds besides the
+    generator's state, and what a graph replay must leave where eager
+    execution would."""
+    out: dict[str, torch.Tensor] = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if isinstance(v, nn.Module):
+            prefix = "param" if f.name == "net" else f.name
+            out.update({f"{prefix} {k}": p.detach() for k, p in v.named_parameters()})
+    for f in dataclasses.fields(state.opt_state):
+        v = getattr(state.opt_state, f.name)
+        if isinstance(v, dict):
+            out.update({f"{f.name} {k}": t for k, t in v.items()})
+        else:
+            out[f.name] = v
+    out["rollout obs"] = state.rollout.obs
+    out.update({f"env {k}": v for k, v in named_leaves(state.rollout.env_state).items()})
+    out.update(ep_return=state.ep_return, ep_length=state.ep_length,
+               avg_return=state.avg_return, step_counter=state.step_counter)
+    return out
+
+
+def make_actor_critic(
+    spec: EnvSpec, hidden: Sequence[int], bf16_compute: bool,
+    generator: Optional[torch.Generator] = None,
+) -> Union[ActorCriticDiscrete, ActorCriticGaussian]:
+    """The trainers' network, as the JAX trainers' `make_network` picks it:
+    a shared-torso categorical net for discrete actions (the Nature CNN
+    torso on pixel obs), separate actor and critic torsos with a Gaussian
+    head for continuous ones."""
+    if bf16_compute:
+        raise NotImplementedError("bf16_compute is not ported yet")
+    if spec.discrete:
+        return ActorCriticDiscrete(spec.obs_shape, spec.action_dim, hidden, generator,
+                                   pixel_obs=spec.pixel_obs)
+    return ActorCriticGaussian(spec.obs_shape[-1], spec.action_dim, hidden, generator)
 
 
 def init_rollout(env: TorchEnv, generator: torch.Generator, num_envs: int) -> RolloutState:
@@ -287,6 +333,13 @@ def rollout_targets(
 EVAL_CHECK_EVERY = 16
 
 
+def _first_episode_mean(ret: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+    finished = 1.0 - alive
+    n_finished = torch.sum(finished)
+    finished_mean = torch.sum(ret * finished) / torch.clamp(n_finished, min=1.0)
+    return torch.where(n_finished > 0, finished_mean, torch.mean(ret))
+
+
 @torch.no_grad()
 def evaluate(
     env: TorchEnv,
@@ -302,7 +355,9 @@ def evaluate(
     replaces `env.reset` (the mixture's type-pinned fleets for the
     per-type eval). Every `EVAL_CHECK_EVERY` steps the host looks whether
     any first episode is still running and stops when none is: the steps
-    left could change no return."""
+    left could change no return. The plain loop, run eagerly: the
+    reference `BlockedEval`, the same loop in blocks that the card replays
+    as CUDA graphs, is held against."""
     env_state, obs = (reset_fn or env.reset)(num_envs, generator)
     ret = torch.zeros(num_envs, device=obs.device)
     alive = torch.ones(num_envs, device=obs.device)
@@ -313,10 +368,117 @@ def evaluate(
         ret = ret + out.reward * alive
         alive = alive * (1.0 - out.done)
         env_state, obs = out.state, out.obs
-    finished = 1.0 - alive
-    n_finished = torch.sum(finished)
-    finished_mean = torch.sum(ret * finished) / torch.clamp(n_finished, min=1.0)
-    return torch.where(n_finished > 0, finished_mean, torch.mean(ret))
+    return _first_episode_mean(ret, alive)
+
+
+class BlockedEval:
+    """`evaluate`'s loop as blocks of `EVAL_CHECK_EVERY` env steps (and one
+    shorter tail block when `num_steps` is not a multiple of it) over
+    static buffers: the env state, obs, return and alive mask. Each call
+    resets the fleet eagerly into the buffers, runs the blocks with the
+    host's check for a running first episode between them, and returns
+    what `evaluate` returns, with the same random draws.
+
+    On the CPU the blocks run eagerly. On the card each block length is
+    captured into a CUDA graph at its first use (after one eager run of the
+    block on copies of the buffers and of the generator, on a side stream)
+    and replayed from then on; the generator a call passes is registered
+    with each graph, so a replay draws what the eager block would, and the
+    graphs serve that generator only. The act function, the env and the
+    buffers are frozen into the graphs: a later call evaluates the
+    parameters the act function reads, as they are then. `capture_s` holds
+    the seconds each capture took, warm-up included."""
+
+    def __init__(self, env: TorchEnv, act_fn: Callable[[torch.Tensor], torch.Tensor],
+                 num_envs: int, num_steps: int):
+        self.env, self.act_fn, self.num_envs = env, act_fn, num_envs
+        full, tail = divmod(num_steps, EVAL_CHECK_EVERY)
+        self.blocks = [EVAL_CHECK_EVERY] * full + ([tail] if tail else [])
+        self.buffers: Optional[tuple[Any, torch.Tensor, torch.Tensor, torch.Tensor]] = None
+        self.graphs: dict[int, torch.cuda.CUDAGraph] = {}
+        self.generator: Optional[torch.Generator] = None
+        self.capture_s: dict[int, float] = {}
+
+    def _run_block(self, buffers, generator: torch.Generator, n: int) -> None:
+        env_state, obs, ret, alive = buffers
+        for _ in range(n):
+            out = self.env.step(env_state, self.act_fn(obs), generator)
+            ret = ret + out.reward * alive
+            alive = alive * (1.0 - out.done)
+            env_state, obs = out.state, out.obs
+        for buf, new in zip(tree_leaves(buffers), tree_leaves((env_state, obs, ret, alive)),
+                            strict=True):
+            buf.copy_(new)
+
+    def _capture(self, generator: torch.Generator, n: int) -> torch.cuda.CUDAGraph:
+        t0 = time.perf_counter()
+        device = generator.device
+        scratch = tree_map(torch.clone, self.buffers)
+        twin = torch.Generator(device=device)
+        twin.set_state(generator.get_state())
+        side, current = torch.cuda.Stream(device), torch.cuda.current_stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self._run_block(scratch, twin, n)
+        current.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(generator)
+        with torch.cuda.graph(graph):
+            self._run_block(self.buffers, generator, n)
+        torch.cuda.synchronize(device)
+        self.capture_s[n] = time.perf_counter() - t0
+        return graph
+
+    @torch.no_grad()
+    def __call__(self, generator: torch.Generator,
+                 reset_fn: Callable[[int, torch.Generator], tuple[Any, torch.Tensor]]) -> torch.Tensor:
+        env_state, obs = reset_fn(self.num_envs, generator)
+        ret = torch.zeros(self.num_envs, device=obs.device)
+        alive = torch.ones(self.num_envs, device=obs.device)
+        fresh = (env_state, obs, ret, alive)
+        if self.buffers is None:
+            own = lambda x: x.clone(memory_format=torch.contiguous_format)
+            self.buffers = tree_map(own, fresh)
+        else:
+            for buf, new in zip(tree_leaves(self.buffers), tree_leaves(fresh), strict=True):
+                buf.copy_(new)
+        capture = generator.device.type == "cuda"
+        if capture:
+            if self.generator is None:
+                self.generator = generator
+            elif generator is not self.generator:
+                raise ValueError("a captured eval replays the generator it was captured with")
+        alive = self.buffers[3]
+        for i, n in enumerate(self.blocks):
+            if i > 0 and not bool(alive.any()):
+                break
+            if not capture:
+                self._run_block(self.buffers, generator, n)
+                continue
+            if n not in self.graphs:
+                self.graphs[n] = self._capture(generator, n)
+            self.graphs[n].replay()
+        return _first_episode_mean(self.buffers[2], alive)
+
+
+def make_net_eval(env: TorchEnv):
+    """`run(net, generator, num_envs, num_steps, reset_fn=None)`: the greedy
+    (mode-action) eval of `net` on `env` through a `BlockedEval` (graph
+    replays on the card), one per (net, num_envs, num_steps), kept for the
+    later calls. A `reset_fn` (the mixture's type-pinned reset) is run
+    eagerly at each call, so one set of graphs serves every reset of that
+    shape."""
+    evals: dict[tuple, BlockedEval] = {}
+
+    def run(net: nn.Module, generator: torch.Generator, num_envs: int, num_steps: int,
+            reset_fn=None) -> torch.Tensor:
+        key = (net, num_envs, num_steps)
+        if key not in evals:
+            evals[key] = BlockedEval(env, lambda obs: net(obs)[0].mode(), num_envs, num_steps)
+        return evals[key](generator, reset_fn or env.reset)
+
+    run.evals = evals
+    return run
 
 
 def default_eval_steps(env: TorchEnv) -> int:
@@ -328,14 +490,16 @@ def default_eval_steps(env: TorchEnv) -> int:
 def make_mode_eval(env: TorchEnv):
     """Greedy (mode-action) eval for actor-critic nets whose
     `net(obs) → (dist, value)`; returns
-    `eval_fn(state, generator, num_envs=32, num_steps=default_eval_steps(env))`."""
+    `eval_fn(state, generator, num_envs=32, num_steps=default_eval_steps(env))`,
+    replayed as CUDA graphs on the card (`make_net_eval`)."""
     default_steps = default_eval_steps(env)
+    run = make_net_eval(env)
 
     def eval_fn(state: TrainState, generator: torch.Generator,
                 num_envs: int = 32, num_steps: int = default_steps) -> torch.Tensor:
-        act = lambda obs: state.net(obs)[0].mode()
-        return evaluate(env, act, generator, num_envs, num_steps)
+        return run(state.net, generator, num_envs, num_steps)
 
+    eval_fn.evals = run.evals
     return eval_fn
 
 

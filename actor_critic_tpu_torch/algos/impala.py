@@ -19,17 +19,19 @@ under the learner's critic with no importance weighting. The
 sequence-parallel learner (`make_sp_update`, `make_sp_train_step`) comes
 with the multi-GPU slice.
 
-The actor refresh is a select on the device at the state's step counter,
-not a host branch. The step still runs eagerly on the card
-(`CAPTURABLE = False`): its replay as a CUDA graph has not been held
-against the eager step there yet.
+The step is capturable (`CAPTURABLE`): the actor refresh is a select on
+the device at the state's step counter, not a host branch, and writes the
+actors' parameters in place; RMSProp reads only its constant lr and
+writes `nu` in place; Pong's step reads no host value. On the card
+`algos/loop.py` runs it as one CUDA graph, held equal to the eager step
+there by `chip_smoke.py`.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import torch
 from torch import nn
@@ -42,17 +44,18 @@ from actor_critic_tpu_torch.algos.common import (
     corrected_advantages,
     fold_episodes,
     init_rollout,
+    make_actor_critic,
     make_mode_eval,
     rollout_loop,
     truncation_bootstrap_rewards,
 )
 from actor_critic_tpu_torch.algos.metrics import aggregate_metrics
 from actor_critic_tpu_torch.envs.env import TorchEnv
-from actor_critic_tpu_torch.models.networks import ActorCriticDiscrete
+from actor_critic_tpu_torch.models.networks import ActorCriticDiscrete, ActorCriticGaussian
 from actor_critic_tpu_torch.optim import ClippedRMSProp
 
-# `algos/loop.py` runs this trainer's step eagerly, on the card as well.
-CAPTURABLE = False
+# `algos/loop.py` runs this trainer's step as one CUDA graph on the card.
+CAPTURABLE = True
 
 @dataclasses.dataclass(frozen=True)
 class ImpalaConfig:
@@ -94,15 +97,10 @@ class ImpalaTrainState(TrainState):
 
 def make_network(
     env: TorchEnv, cfg: ImpalaConfig, generator: Optional[torch.Generator] = None
-) -> ActorCriticDiscrete:
-    if cfg.bf16_compute:
-        raise NotImplementedError("bf16_compute is not ported yet")
-    if not env.spec.discrete:
-        raise NotImplementedError("only discrete actions are ported")
-    return ActorCriticDiscrete(
-        env.spec.obs_shape, env.spec.action_dim, cfg.hidden, generator,
-        pixel_obs=env.spec.pixel_obs,
-    )
+) -> Union[ActorCriticDiscrete, ActorCriticGaussian]:
+    """A categorical net (MLP or Nature-CNN torso) for discrete actions, a
+    Gaussian one for continuous actions (`common.make_actor_critic`)."""
+    return make_actor_critic(env.spec, cfg.hidden, cfg.bf16_compute, generator)
 
 
 def make_eval_fn(env: TorchEnv, cfg: ImpalaConfig):

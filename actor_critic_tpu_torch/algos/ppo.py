@@ -41,6 +41,7 @@ from actor_critic_tpu_torch.algos.common import (
     fold_episodes,
     init_train_state,
     linear_anneal,
+    make_actor_critic,
     make_mode_eval,
     rollout_loop,
     rollout_targets,
@@ -102,15 +103,9 @@ def make_network(
     env_spec: EnvSpec, cfg: PPOConfig, generator: Optional[torch.Generator] = None
 ) -> Union[ActorCriticDiscrete, ActorCriticGaussian]:
     """A shared-torso categorical net for discrete actions, separate actor
-    and critic torsos with a Gaussian head for continuous ones."""
-    if cfg.bf16_compute:
-        raise NotImplementedError("bf16_compute is not ported yet")
-    if env_spec.discrete:
-        return ActorCriticDiscrete(
-            env_spec.obs_shape, env_spec.action_dim, cfg.hidden, generator,
-            pixel_obs=env_spec.pixel_obs,
-        )
-    return ActorCriticGaussian(env_spec.obs_shape[-1], env_spec.action_dim, cfg.hidden, generator)
+    and critic torsos with a Gaussian head for continuous ones
+    (`common.make_actor_critic`)."""
+    return make_actor_critic(env_spec, cfg.hidden, cfg.bf16_compute, generator)
 
 
 def make_eval_fn(env: TorchEnv, cfg: PPOConfig):

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -83,6 +84,9 @@ def make_maze(
     # from the window's top-left cell, which is the agent's own cell there.
     window = DeviceTable(
         [r * (size + 2) + c for r in range(3) for c in range(3)], torch.int64)
+    # XLA compiles the JAX env's `/ n` as a multiply by the float32
+    # reciprocal of the constant; so does this port, to give its values.
+    inv_size = float(np.float32(1.0) / np.float32(size))
 
     def obs_of(s: MazeState) -> torch.Tensor:
         padded = F.pad(s.grid, (1, 1, 1, 1), value=1.0).flatten(1)
@@ -90,7 +94,7 @@ def make_maze(
         cells = torch.gather(padded, 1, corner[:, None] + window.on(corner.device))
         feats = torch.stack(
             [s.row, s.col, s.goal_row - s.row, s.goal_col - s.col], dim=-1
-        ).to(torch.float32) / float(size)
+        ).to(torch.float32) * inv_size
         return torch.cat([cells, feats], dim=-1)
 
     def reset(num_envs: int, generator: torch.Generator) -> tuple[MazeState, torch.Tensor]:

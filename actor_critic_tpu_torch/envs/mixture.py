@@ -231,10 +231,12 @@ def make_mixture(
         u = torch.rand(num_envs, generator=generator, device=generator.device)
         return fresh(num_envs, generator, _draw_types(weights, u), weights)
 
-    def reset_typed(num_envs: int, generator: torch.Generator, type_id: int):
-        # A fleet pinned to one type: one-hot weights keep the pin across
-        # episode ends in the redraw mode too.
-        tid = torch.full((num_envs,), int(type_id), dtype=torch.int64, device=generator.device)
+    def reset_typed(num_envs: int, generator: torch.Generator, type_id):
+        # A fleet pinned to one type (an int or a one-element int64 tensor,
+        # read on the device): one-hot weights keep the pin across episode
+        # ends in the redraw mode too.
+        tid = torch.as_tensor(type_id, dtype=torch.int64, device=generator.device)
+        tid = tid.reshape(1).expand(num_envs).clone()
         weights = (tid[:, None] == type_ids.on(tid.device)).to(torch.float32)
         return fresh(num_envs, generator, tid, weights)
 
@@ -403,18 +405,21 @@ def make_typed_eval(env: MixtureEnv):
     """Greedy per-type eval: `eval_fn(state, generator, type_id,
     num_envs=16, num_steps=...)` evaluates the current policy
     (`state.net`, as `common.make_mode_eval`) on a fleet pinned to
-    `type_id`."""
-    from actor_critic_tpu_torch.algos.common import default_eval_steps, evaluate
+    `type_id`, an int or an int64 tensor on the device. The type enters
+    only through the eager reset, so on the card one set of captured eval
+    blocks serves every member type (`common.make_net_eval`), as JAX
+    traces one program for a traced type id."""
+    from actor_critic_tpu_torch.algos.common import default_eval_steps, make_net_eval
 
     default_steps = default_eval_steps(env)
+    run = make_net_eval(env)
 
-    def eval_fn(state, generator: torch.Generator, type_id: int, num_envs: int = 16,
+    def eval_fn(state, generator: torch.Generator, type_id, num_envs: int = 16,
                 num_steps: int = default_steps) -> torch.Tensor:
-        return evaluate(
-            env, lambda obs: state.net(obs)[0].mode(), generator, num_envs, num_steps,
-            reset_fn=lambda k, g: env.reset_typed(k, g, type_id),
-        )
+        return run(state.net, generator, num_envs, num_steps,
+                   reset_fn=lambda k, g: env.reset_typed(k, g, type_id))
 
+    eval_fn.evals = run.evals
     return eval_fn
 
 

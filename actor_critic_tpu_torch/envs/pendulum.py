@@ -22,6 +22,7 @@ from typing import NamedTuple
 import torch
 
 from actor_critic_tpu_torch.envs.env import (
+    DeviceTable,
     EnvSpec,
     ScenarioBounds,
     TorchEnv,
@@ -76,6 +77,10 @@ def make_pendulum(
         SCENARIO_DEFAULTS, randomize,
         {"gravity": gravity, "mass": mass, "length": length, "max_torque": max_torque},
     ))
+    # XLA divides 3 by m·l² (torch's `3.0 / x` is a reciprocal times 3) and
+    # contracts the θ̇ update into two fused multiply-adds; these constants
+    # are tensors so that the port does the same ops.
+    three, dt = DeviceTable(3.0), DeviceTable(DT)
 
     def reset(num_envs: int, generator: torch.Generator) -> tuple[PendulumState, torch.Tensor]:
         vals = torch.rand((num_envs, 2), generator=generator, device=generator.device) * 2.0 - 1.0
@@ -98,9 +103,9 @@ def make_pendulum(
         th, thdot = state.theta, state.theta_dot
         # The reward comes from the pre-step state and the clipped torque.
         costs = angle_normalize(th) ** 2 + 0.1 * thdot**2 + 0.001 * u**2
-        newthdot = thdot + (
-            3.0 * g / (2.0 * l) * torch.sin(th) + 3.0 / (m * l**2) * u
-        ) * DT
+        torque_term = three.on(th.device) / (m * l**2) * u
+        accel = torch.addcmul(torque_term, 3.0 * g / (2.0 * l), torch.sin(th))
+        newthdot = torch.addcmul(thdot, accel, dt.on(th.device))
         newthdot = torch.clamp(newthdot, -MAX_SPEED, MAX_SPEED)
         newth = th + newthdot * DT
         t = state.t + 1

@@ -13,11 +13,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain version's, the card's bound and the launch floor; then one A2C
    update and one IMPALA update on the card against the same update on
    the CPU;
-4. graph equals eager: for `a2c_cartpole`, `ppo_cartpole` and
-   `a2c_mixture` at full width, a few iterations through the loop's
-   CUDA-graph path against the same iterations run eagerly from the same
-   seed, every carried tensor compared (for the mixture: every member
-   slot, the types, the curriculum weights and stage);
+4. graph equals eager: for `a2c_cartpole`, `ppo_cartpole`, `a2c_mixture`,
+   `impala_pong` and `a3c_pong` at full width, a few iterations through
+   the loop's CUDA-graph path against the same iterations run eagerly from
+   the same seed, every carried tensor compared (for the mixture: every
+   member slot, the types, the curriculum weights and stage; for IMPALA:
+   the actors' copy and RMSProp's moments) and the generator's state; then
+   each eval as replays of captured blocks against the eager loop from one
+   generator state (`a2c_cartpole`'s and `impala_pong`'s greedy evals,
+   `a2c_mixture`'s greedy eval and its four typed evals through one set of
+   graphs), returns and generator states equal, times printed;
 5. main paths, each through `actor_critic_tpu_torch.train.main` with every
    launch count reset just before and read just after:
    - `a2c_cartpole` at full width (E=4096, T=64), GAE on its path, the
@@ -26,17 +31,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      minibatches), GAE on its path, the step replayed as a CUDA graph;
      it must solve CartPole (best greedy eval >= 400) in 30 iterations;
    - `impala_pong` at full width (E=64, T=20, 84×84×2 frames, Nature
-     CNN), V-trace on its path, eager;
+     CNN), V-trace on its path, the step replayed as a CUDA graph;
    - `a3c_pong`, the same trainer through GAE, for a few iterations;
    - `a2c_mixture` at full width (E=1024, T=32, CartPole, Pendulum,
      Acrobot and the maze in one fleet, physics ±20%), GAE on its path,
      the step replayed as a CUDA graph, with the per-type eval matrix;
      then a few iterations with `--curriculum`, whose install of new type
      weights must show in the replayed fleet;
+   - resume: `a2c_cartpole`, `impala_pong` and `a2c_mixture` (with a
+     curriculum stage crossed before the save) for N iterations straight
+     and for k plus a resumed N − k (`--ckpt-dir`, `--resume`), the final
+     checkpoints equal at 0.0 over every carried tensor and the generator;
+   - `--chunk 4` against `--chunk 1` on `a2c_cartpole`, the final
+     checkpoints equal at 0.0 and GAE launched once an iteration;
    then IMPALA's learning check on the two-state MDP, and where a train
-   step's time goes for `a2c_cartpole`, `ppo_cartpole` and `a2c_mixture`
-   (eager and as graph replays, in the same call) and `impala_pong` (host
-   clock and torch.profiler);
+   step's time goes for `a2c_cartpole`, `ppo_cartpole`, `a2c_mixture` and
+   `impala_pong` (eager and as graph replays, in the same call; host clock
+   and torch.profiler, V-trace's own time inside the graph);
 6. a `{"kernels": [...]}` line, then the card's name and power limit;
 7. last line: `{"ok": true, "device": {"platform": "gpu", ...}}`.
 
@@ -62,6 +73,10 @@ MIXTURE_ITERATIONS = 50
 MIXTURE_EVAL_EVERY = 25
 CURRICULUM_ITERATIONS = 8   # evals at 4 (a replay: the install lands on replays) and 8
 GRAPH_CHECK_ITERATIONS = 5  # the loop's eager warm-up, a capture, then replays
+RESUME_ITERATIONS, RESUME_AT = 8, 4  # N straight against k + a resumed N − k
+CHUNK, CHUNK_ITERATIONS = 4, 12      # warm-up, a short chunk, two full chunks
+# Checkpoints and metrics of the drives, inside the checkout (gitignored).
+SCRATCH = "build/chip_smoke"
 # Kernel vs plain version: the same tolerances as the JAX package's kernel
 # tests (tests/test_pallas_scan.py). The GAE kernel rounds every operation
 # in the plain version's order, so on the card the two should agree
@@ -450,24 +465,26 @@ def check_graph_equals_eager(preset_name: str) -> None:
     one through the graph (the eager warm-up, a capture, then replays). The
     step is the trainer's rollout and update, plus a copy of each
     iteration's actions into a buffer at the row of the state's step
-    counter (in place, so that replays write it too). Holds the parameters,
-    Adam moments and count, rollout obs, env state, episode accounting, step
-    counter, actions and last metrics of the two at 1e-6 (expected 0.0: the
-    same kernels on the same inputs, the same random numbers), the GAE
-    kernel's launches (counted on the card) equal to the iterations on both
-    sides, and the actions of consecutive replays different. The env state
-    is compared leaf by leaf, nested states (the mixture's member slots)
-    included."""
+    counter (in place, so that replays write it too). Holds every carried
+    tensor (`common.carried_tensors`: parameters, IMPALA's actor copy,
+    optimizer moments and count, rollout obs, env state leaf by leaf,
+    episode accounting, step counter), the actions, the last metrics and the
+    generator's state of the two at 1e-6 (expected 0.0: the same kernels on
+    the same inputs, the same random numbers), the advantage kernel's
+    launches (counted on the card: V-trace for IMPALA, GAE otherwise) equal
+    to the iterations on both sides, and the actions of consecutive replays
+    different. Both sides run with the same TF32 flags (the defaults)."""
     import torch
 
     from actor_critic_tpu_torch import train
     from actor_critic_tpu_torch.algos import loop
+    from actor_critic_tpu_torch.algos.common import carried_tensors
     from actor_critic_tpu_torch.config import PRESETS
-    from actor_critic_tpu_torch.ops import gae_cuda
-    from actor_critic_tpu_torch.tree import named_leaves
+    from actor_critic_tpu_torch.ops import gae_cuda, vtrace_cuda
 
     preset = PRESETS[preset_name]
     mod, cfg = train.ALGOS[preset.algo], preset.config
+    kernel = vtrace_cuda if getattr(cfg, "correction", "") == "vtrace" else gae_cuda
     env = train.make_env(preset.env, preset.env_kwargs)
     n = GRAPH_CHECK_ITERATIONS
     runs = {}
@@ -485,25 +502,18 @@ def check_graph_equals_eager(preset_name: str) -> None:
 
             return step
 
-        gae_cuda.reset_launch_count()
+        kernel.reset_launch_count()
         t0 = time.perf_counter()
         state, metrics = loop.fused_train_loop(
             make_recording_step, mod.init_state, env, cfg, n, state=state, capturable=capturable)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        tensors = {f"param {k}": p.detach() for k, p in state.net.named_parameters()}
-        tensors.update({f"mu {k}": v for k, v in state.opt_state.mu.items()})
-        tensors.update({f"nu {k}": v for k, v in state.opt_state.nu.items()})
-        tensors["adam count"] = state.opt_state.count
-        tensors["rollout obs"] = state.rollout.obs
-        tensors.update({f"env {k}": v for k, v in named_leaves(state.rollout.env_state).items()})
-        tensors.update(ep_return=state.ep_return, ep_length=state.ep_length,
-                       avg_return=state.avg_return, step_counter=state.step_counter, actions=drawn)
+        tensors = dict(carried_tensors(state), actions=drawn,
+                       generator=state.generator.get_state())
         tensors.update({f"metric {k}": v for k, v in metrics.items()})
-        runs[capturable] = (tensors, (state.update_step, int(state.opt_state.count)),
-                            gae_cuda.launch_count(), seconds)
+        runs[capturable] = (tensors, state.update_step, kernel.launch_count(), seconds)
 
-    (eager, eager_counts, eager_launches, eager_s), (graph, graph_counts, graph_launches, graph_s) = (
+    (eager, eager_steps, eager_launches, eager_s), (graph, graph_steps, graph_launches, graph_s) = (
         runs[False], runs[True])
     assert sorted(eager) == sorted(graph)
     diffs = {k: float((graph[k].double() - eager[k].double()).abs().max()) for k in eager}
@@ -511,31 +521,97 @@ def check_graph_equals_eager(preset_name: str) -> None:
     drawn = graph["actions"]
     changed = [float((drawn[i] != drawn[i + 1]).float().mean())
                for i in range(loop.WARMUP_ITERATIONS, n - 1)]
+    name = kernel.__name__.rsplit(".", 1)[-1].removesuffix("_cuda")
     print(
         f"graph vs eager, {preset_name} (E={cfg.num_envs}, T={cfg.rollout_steps}), {n} iterations "
         f"({loop.WARMUP_ITERATIONS} eager warm-up, then replays): max abs difference {worst:.3e} "
-        f"over {len(diffs)} tensors (worst: {max(diffs, key=diffs.get)}); update_step, Adam count "
-        f"{graph_counts} (eager {eager_counts}); GAE launches {graph_launches} (eager "
-        f"{eager_launches}); share of actions changed between consecutive replays "
-        f"{', '.join(f'{c:.3f}' for c in changed)}; {graph_s:.2f} s (eager {eager_s:.2f} s, "
-        f"capture included)",
+        f"over {len(diffs)} tensors (worst: {max(diffs, key=diffs.get)}), the generator's state "
+        f"{'equal' if diffs['generator'] == 0 else 'DIFFERENT'}; update_step {graph_steps} (eager "
+        f"{eager_steps}); {name} launches {graph_launches} (eager {eager_launches}); share of "
+        f"actions changed between consecutive replays {', '.join(f'{c:.3f}' for c in changed)}; "
+        f"{graph_s:.2f} s (eager {eager_s:.2f} s, capture included)",
         flush=True,
     )
     assert worst <= 1e-6, {k: d for k, d in diffs.items() if d > 1e-6}
-    assert graph_counts == eager_counts and graph_counts[0] == n, (graph_counts, eager_counts)
+    assert graph_steps == eager_steps == n, (graph_steps, eager_steps)
     assert graph_launches == eager_launches == n, (graph_launches, eager_launches)
     assert all(c > 0 for c in changed), changed
+
+
+def check_eval_graphs() -> None:
+    """Each eval as replays of `BlockedEval`'s captured blocks (what
+    `train.main` runs on the card) against the plain eager loop
+    (`common.evaluate`) from one state of the eval generator: the returns
+    equal (0.0) and the generator's state after equal, for `a2c_cartpole`'s
+    and `impala_pong`'s greedy evals and `a2c_mixture`'s greedy eval and
+    its four typed evals, which share one set of graphs (the type enters
+    through the eager reset as a device tensor). Prints each eval's time:
+    eager, the first graph call (capture included) and a replayed call,
+    and the captures' own seconds."""
+    import torch
+
+    from actor_critic_tpu_torch import train
+    from actor_critic_tpu_torch.algos.common import default_eval_steps, evaluate
+    from actor_critic_tpu_torch.config import PRESETS
+    from actor_critic_tpu_torch.envs import mixture
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = float(fn())
+        return out, time.perf_counter() - t0
+
+    gen = torch.Generator(device="cuda")
+    for preset_name in ("a2c_cartpole", "impala_pong", "a2c_mixture"):
+        preset = PRESETS[preset_name]
+        mod, cfg = train.ALGOS[preset.algo], preset.config
+        env = train.make_env(preset.env, preset.env_kwargs)
+        state = mod.init_state(env, cfg, seed=4, device="cuda")
+        act = lambda obs: state.net(obs)[0].mode()
+        steps = default_eval_steps(env)
+        cases = [("greedy", mod.make_eval_fn(env, cfg), 32, None)]
+        if isinstance(env, mixture.MixtureEnv):
+            typed = mixture.make_typed_eval(env)
+            type_ids = torch.arange(env.n_types, device="cuda")
+            cases += [(f"typed {name}", typed, 16, type_ids[t])
+                      for t, name in enumerate(env.member_names)]
+        for label, fn, num_envs, tid in cases:
+            call = (lambda: fn(state, gen)) if tid is None else (lambda: fn(state, gen, tid))
+            reset = None if tid is None else (lambda k, g, tid=tid: env.reset_typed(k, g, tid))
+            gen.manual_seed(21)
+            eager, eager_s = timed(lambda: evaluate(env, act, gen, num_envs, steps, reset))
+            eager_gen = gen.get_state()
+            results = []
+            for _ in range(2):  # the first call captures, the second only replays
+                gen.manual_seed(21)
+                results.append((*timed(call), gen.get_state()))
+            (first, first_s, first_gen), (again, again_s, again_gen) = results
+            (blocked,) = fn.evals.values()
+            print(f"eval {preset_name} {label} ({num_envs} envs, {steps} steps): return "
+                  f"{again:.4f}, eager {eager:.4f}; {again_s * 1e3:.1f} ms as graph replays "
+                  f"(first call {first_s * 1e3:.1f} ms, captures "
+                  f"{', '.join(f'{n} steps {c:.3f} s' for n, c in blocked.capture_s.items())}), "
+                  f"eager {eager_s * 1e3:.1f} ms", flush=True)
+            assert first == again == eager, (preset_name, label, first, again, eager)
+            assert torch.equal(first_gen, eager_gen) and torch.equal(again_gen, eager_gen), (
+                preset_name, label)
+        if isinstance(env, mixture.MixtureEnv):
+            assert len(typed.evals) == 1 and sorted(next(iter(typed.evals.values())).graphs) == sorted(
+                {16, steps % 16} - {0}), "one set of typed-eval graphs serves every member type"
 
 
 def drive(argv: list[str], show_every: int) -> tuple[list[dict], dict, dict[str, int]]:
     """Run `train.main(argv)` with every kernel's launch count reset just
     before and read just after; returns (logged rows, summary row,
     launches). Prints the first and last rows, every `show_every`-th, the
-    summary, and the lines that are not JSON (the curriculum's)."""
+    summary, and the lines that are not JSON (the curriculum's, the
+    resume's), but not the run's config line."""
     from actor_critic_tpu_torch import train
     from actor_critic_tpu_torch.ops import gae_cuda, vtrace_cuda
 
     buf = io.StringIO()
+    if "--metrics" not in argv:
+        argv = argv + ["--metrics", f"{SCRATCH}/metrics.jsonl"]
     gae_cuda.reset_launch_count()
     vtrace_cuda.reset_launch_count()
     with contextlib.redirect_stdout(buf):
@@ -544,7 +620,7 @@ def drive(argv: list[str], show_every: int) -> tuple[list[dict], dict, dict[str,
     assert rc == 0, f"train.main returned {rc}"
     lines = buf.getvalue().splitlines()
     for line in lines:
-        if not line.startswith("{"):
+        if not line.startswith(("{", "algo=")):
             print(line, flush=True)
     rows = [json.loads(line) for line in lines if line.startswith("{")]
     logged, summary = [r for r in rows if "iter" in r], rows[-1]
@@ -641,8 +717,8 @@ def run_ppo_cartpole() -> dict[str, int]:
 
 def run_impala_pong() -> dict[str, int]:
     """Train the impala_pong preset at full width (E=64, T=20, 84 px) through
-    the CLI's main(), every iteration logged; returns each kernel's
-    launches during that run."""
+    the CLI's main(), the step replayed as a CUDA graph, every iteration
+    logged; returns each kernel's launches during that run."""
     import math
 
     n = IMPALA_ITERATIONS
@@ -660,9 +736,8 @@ def run_impala_pong() -> dict[str, int]:
     assert ev is not None and math.isfinite(ev), logged[-1]
     per_iter_s, steps_per_iter = per_iteration(logged, summary)
     print(
-        f"main path impala_pong: {n} iterations of {steps_per_iter:.0f} env steps, "
-        f"{per_iter_s * 1e3:.3f} ms/iteration after the first, "
-        f"{steps_per_iter / per_iter_s:.0f} env-steps/s; {episodes:.0f} episodes finished, "
+        f"main path impala_pong (CUDA graph): {n} iterations of {steps_per_iter:.0f} env steps, "
+        f"{graph_timing(logged, summary)}; {episodes:.0f} episodes finished, "
         f"mean_rho {min(r['mean_rho'] for r in logged):.6f}..{max(r['mean_rho'] for r in logged):.6f}, "
         f"greedy eval {ev:.3f}; launches {launches}",
         flush=True,
@@ -680,8 +755,8 @@ def run_a3c_pong() -> dict[str, int]:
     assert launches == {"gae": n, "vtrace": 0}, launches
     assert all(r["mean_rho"] == 1.0 for r in logged), logged
     per_iter_s, _ = per_iteration(logged, summary)
-    print(f"main path a3c_pong: {n} iterations, {per_iter_s * 1e3:.3f} ms/iteration after "
-          f"the first; launches {launches}", flush=True)
+    print(f"main path a3c_pong (CUDA graph from iteration 3): {n} iterations, "
+          f"{per_iter_s * 1e3:.3f} ms/iteration after the first; launches {launches}", flush=True)
     return launches
 
 
@@ -750,6 +825,99 @@ def run_a2c_mixture_curriculum() -> None:
         f"{before['fleet_share_maze']:.4f} -> {after['fleet_share_maze']:.4f}; launches {launches}",
         flush=True,
     )
+
+
+def final_checkpoint(ckpt_dir: str, step: int) -> dict:
+    import torch
+
+    return torch.load(f"{ckpt_dir}/{step}/state.pt", map_location="cpu", weights_only=True)
+
+
+def checkpoint_diff(a: dict, b: dict) -> tuple[float, int]:
+    """(largest absolute difference over every carried tensor of two
+    checkpoints, 0 or 1 for the generator's state equal or not)."""
+    assert sorted(a["tensors"]) == sorted(b["tensors"])
+    worst = max(float((a["tensors"][k].double() - b["tensors"][k].double()).abs().max())
+                for k in a["tensors"])
+    return worst, int(not bool((a["generator"] == b["generator"]).all()))
+
+
+def run_resume(preset_name: str, extra: list[str]) -> None:
+    """`train.main` for RESUME_ITERATIONS iterations straight, and for
+    RESUME_AT then `--resume` to RESUME_ITERATIONS from the checkpoint (a
+    fresh init restored in place, its own warm-up and capture), both
+    through the CUDA graph; the two final checkpoints must agree at 0.0 over
+    every carried tensor and the generator's state, and the resumed leg's
+    launches be its iterations. With a curriculum (`extra`), the stage is
+    crossed at the first leg's eval and installed before its save: the
+    resumed leg reads stage 1 back from the device and does not re-fire."""
+    import shutil
+
+    n, k = RESUME_ITERATIONS, RESUME_AT
+    base = ["--preset", preset_name, "--seed", "3", "--log-every", "4", *extra]
+    dirs = {leg: f"{SCRATCH}/resume_{preset_name}_{leg}" for leg in ("straight", "legs")}
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    kernel = "vtrace" if preset_name == "impala_pong" else "gae"
+    t0 = time.perf_counter()
+    straight, _, l_straight = drive(base + ["--iterations", str(n), "--ckpt-dir", dirs["straight"],
+                                            "--save-every", "0"], show_every=n)
+    _, _, l_first = drive(base + ["--iterations", str(k), "--ckpt-dir", dirs["legs"],
+                                  "--save-every", str(k)], show_every=n)
+    resumed, _, l_resumed = drive(base + ["--iterations", str(n), "--ckpt-dir", dirs["legs"],
+                                          "--save-every", str(k), "--resume"], show_every=n)
+    worst, gen_differs = checkpoint_diff(final_checkpoint(dirs["straight"], n),
+                                         final_checkpoint(dirs["legs"], n))
+    rows = {r["iter"]: r for r in resumed}
+    stage = f"; stage read back after the resume {rows[n]['fleet_stage']}" if extra else ""
+    print(f"resume {preset_name}: {n} straight vs {k} + resumed {n - k}, through the CUDA graph: "
+          f"max abs difference {worst:.3e} over every carried tensor, generator state "
+          f"{'equal' if not gen_differs else 'DIFFERENT'}; {kernel} launches {l_straight[kernel]} / "
+          f"{l_first[kernel]} + {l_resumed[kernel]}{stage}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    assert worst == 0.0 and not gen_differs, (worst, gen_differs)
+    assert (l_straight[kernel], l_first[kernel], l_resumed[kernel]) == (n, k, n - k)
+    assert sorted(rows) == [n], sorted(rows)
+    if extra:
+        straight_rows = {r["iter"]: r for r in straight}
+        assert straight_rows[k]["curriculum_stage"] == 1 and rows[n]["fleet_stage"] == 1, rows
+        assert rows[n]["curriculum_stage"] == 1
+        strip = lambda r: {key: v for key, v in r.items() if key != "wall_s"}
+        assert strip(rows[n]) == strip(straight_rows[n]), (rows[n], straight_rows[n])
+
+
+def run_chunk() -> None:
+    """`--chunk 4` against `--chunk 1` on a2c_cartpole at full width through
+    `train.main`, CHUNK_ITERATIONS iterations: two eager, two replays of the
+    one-step graph (the short chunk that realigns), then two replays of the
+    4-step graph. The final checkpoints agree at 0.0 and GAE runs once an
+    iteration in both."""
+    import shutil
+
+    n = CHUNK_ITERATIONS
+    out = {}
+    for chunk in (1, CHUNK):
+        d = f"{SCRATCH}/chunk{chunk}"
+        shutil.rmtree(d, ignore_errors=True)
+        t0 = time.perf_counter()
+        logged, summary, launches = drive(
+            ["--preset", "a2c_cartpole", "--iterations", str(n), "--chunk", str(chunk),
+             "--ckpt-dir", d, "--save-every", "0", "--log-every", str(CHUNK)], show_every=n)
+        out[chunk] = (final_checkpoint(d, n), launches, logged, summary,
+                      time.perf_counter() - t0)
+    (s1, l1, rows1, sum1, t1), (s4, l4, rows4, sum4, t4) = out[1], out[CHUNK]
+    worst, gen_differs = checkpoint_diff(s1, s4)
+    per = lambda rows: (rows[-1]["wall_s"] - rows[-2]["wall_s"]) / CHUNK * 1e3
+    print(f"--chunk {CHUNK} vs --chunk 1, a2c_cartpole, {n} iterations: max abs difference "
+          f"{worst:.3e} over every carried tensor, generator state "
+          f"{'equal' if not gen_differs else 'DIFFERENT'}; GAE launches {l4['gae']} (chunk 1: "
+          f"{l1['gae']}); {per(rows4):.3f} ms/iteration over the last chunk replay, "
+          f"{per(rows1):.3f} over the last 4 one-step replays; {t4:.1f} s (chunk 1: {t1:.1f} s)",
+          flush=True)
+    assert worst == 0.0 and not gen_differs, (worst, gen_differs)
+    assert l1 == l4 == {"gae": n, "vtrace": 0}, (l1, l4)
+    assert {k: v for k, v in sum1.items() if k != "wall_s"} == {
+        k: v for k, v in sum4.items() if k != "wall_s"}
 
 
 def check_impala_learns() -> None:
@@ -847,6 +1015,11 @@ def profile_step(preset_name: str, n: int = 3) -> None:
         else:
             print(f"{preset_name} {label}: {host_ms:.3f} ms/step (host clock, synchronised); "
                   f"device time not measured (the profiler recorded none)", flush=True)
+        for name, (count, us) in kernels.items():
+            for kernel in ("gae_kernel", "vtrace_kernel"):
+                if kernel in name:
+                    print(f"{preset_name} {label}: {kernel} {us / count:.3f} us a launch on the "
+                          f"device (torch.profiler, {count} launches)", flush=True)
         if label == "eager":
             for name, (count, us) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]:
                 print(f"  {us / n:10.1f} us/step {count // n:6d} launches/step  {name[:100]}",
@@ -882,15 +1055,19 @@ def main() -> int:
               f"{e['ms'] / e['bound_ms']:.2f}x its bound", flush=True)
     check_update_on_card()
     check_impala_update_on_card()
-    check_graph_equals_eager("a2c_cartpole")
-    check_graph_equals_eager("ppo_cartpole")
-    check_graph_equals_eager("a2c_mixture")
+    for preset_name in ("a2c_cartpole", "ppo_cartpole", "a2c_mixture", "impala_pong", "a3c_pong"):
+        check_graph_equals_eager(preset_name)
+    check_eval_graphs()
     # Each kernel's launches on its own main path.
     launches = {"gae": run_a2c_cartpole()["gae"], "vtrace": run_impala_pong()["vtrace"]}
     run_ppo_cartpole()
     run_a3c_pong()
     run_a2c_mixture()
     run_a2c_mixture_curriculum()
+    run_resume("a2c_cartpole", [])
+    run_resume("impala_pong", [])
+    run_resume("a2c_mixture", ["--eval-every", str(RESUME_AT), "--curriculum=-1e9:0,0,0,1"])
+    run_chunk()
     check_impala_learns()
     profile_step("a2c_cartpole")
     # One step each way for the steps of ~21,000–24,000 launches: the

@@ -256,3 +256,43 @@ def test_train_runs_on_cpu_and_counts_steps():
     assert all(np.isfinite(float(v)) for v in metrics.values())
     ev = ta2c.make_eval_fn(make_cartpole(), cfg)(state, torch.Generator().manual_seed(1), 4, 50)
     assert 1.0 <= float(ev) <= 50.0
+
+
+@pytest.mark.parametrize("action_dim", [1, 2])
+def test_gaussian_loss_aux_and_grads_match_jax(action_dim):
+    """A2C on continuous actions (`--algo a2c --env jax:pendulum`): the
+    Gaussian net of `make_network` with the JAX net's params converted by
+    `weights.from_flax`, the same loss, aux metrics and grads at 1e-5."""
+    from actor_critic_tpu.envs import make_point_mass as make_jax_point_mass
+    from actor_critic_tpu.envs import make_pendulum as make_jax_pendulum
+    from actor_critic_tpu_torch.envs import make_pendulum, make_point_mass
+
+    jenv, tenv = ((make_jax_pendulum(), make_pendulum()) if action_dim == 1
+                  else (make_jax_point_mass(), make_point_mass()))
+    obs_dim = jenv.spec.obs_shape[0]
+    cfg, jcfg = ta2c.A2CConfig(), ja2c.A2CConfig()
+    jnet = ja2c.make_network(jenv, jcfg)
+    params = jnet.init(jax.random.key(4), jnp.zeros((1, obs_dim), jnp.float32))
+    tnet = ta2c.make_network(tenv, cfg)
+    assert type(tnet).__name__ == "ActorCriticGaussian"
+    tnet.load_state_dict(weights.from_flax(jax.device_get(params)))
+    T, E = 8, 16
+    rng = np.random.default_rng(5)
+    b = _batch(T, E, seed=6)
+    b["obs"] = rng.normal(size=(T, E, obs_dim)).astype(np.float32)
+    b["final_obs"] = rng.normal(size=(T, E, obs_dim)).astype(np.float32)
+    b["action"] = rng.normal(size=(T, E, jenv.spec.action_dim)).astype(np.float32)
+    adv = rng.normal(size=(T, E)).astype(np.float32)
+    ret = rng.normal(size=(T, E)).astype(np.float32)
+    (jloss, jaux), jgrads = jax.value_and_grad(ja2c.a2c_loss, has_aux=True)(
+        params, jnet.apply, _jtraj(b), jnp.asarray(adv), jnp.asarray(ret), jcfg)
+    tloss, taux = ta2c.a2c_loss(tnet, _ttraj(b), torch.from_numpy(adv), torch.from_numpy(ret), cfg)
+    tparams = dict(tnet.named_parameters())
+    tgrads = dict(zip(tparams, torch.autograd.grad(tloss, list(tparams.values()))))
+    np.testing.assert_allclose(float(tloss.detach()), float(jloss), **GRAD_TOL)
+    for k in jaux:
+        np.testing.assert_allclose(float(taux[k]), float(jaux[k]), **GRAD_TOL, err_msg=k)
+    jg = _flat_grads_flax(jgrads)
+    assert sorted(jg) == sorted(tgrads)
+    for k in jg:
+        np.testing.assert_allclose(tgrads[k].numpy(), jg[k], **GRAD_TOL, err_msg=k)

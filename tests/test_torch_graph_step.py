@@ -1,5 +1,6 @@
-"""What a CUDA graph of the A2C and PPO train steps relies on, checked on the
-CPU, where the same step runs eagerly (`algos/loop.py`):
+"""What a CUDA graph of the A2C, PPO and IMPALA/A3C train steps and of the
+evals relies on, checked on the CPU, where the same code runs eagerly
+(`algos/loop.py`, `algos/common.py::BlockedEval`):
 
 - every tensor the train state carries from one iteration to the next
   keeps its storage across steps (a replay reads and writes the addresses
@@ -10,7 +11,14 @@ CPU, where the same step runs eagerly (`algos/loop.py`):
   `linear_schedule`, optax's bias corrections);
 - which trainers the loop captures, and that it runs the CPU eagerly;
 - the same of the mixture fleet's nested state (`a2c_mixture` at a tiny
-  size), and of a `state_hook` that installs curriculum weights.
+  size), and of a `state_hook` that installs curriculum weights;
+- IMPALA/A3C on Pong (RMSProp's moments, the actors' copy, which changes
+  only on refresh iterations);
+- the eval in blocks of `EVAL_CHECK_EVERY` steps over static buffers (what
+  the card captures) returns what the plain loop returns, with the same
+  draws, for the greedy eval and the mixture's typed evals, at a length
+  with a tail block;
+- `--chunk`'s loop (k steps a dispatch) equals the per-iteration loop.
 """
 
 import numpy as np
@@ -18,11 +26,18 @@ import pytest
 import torch
 
 from actor_critic_tpu_torch.algos import a2c, impala, loop, ppo
+from actor_critic_tpu_torch.algos.common import (
+    EVAL_CHECK_EVERY,
+    BlockedEval,
+    carried_tensors,
+    evaluate,
+)
 from actor_critic_tpu_torch.envs import make_cartpole, make_mixture, make_pong
-from actor_critic_tpu_torch.envs.mixture import set_fleet_weights
+from actor_critic_tpu_torch.envs.mixture import make_typed_eval, set_fleet_weights
 from actor_critic_tpu_torch.optim import (
     B1,
     B2,
+    AdamState,
     _bias_correction_table,
     linear_schedule,
     scalars_at,
@@ -35,22 +50,32 @@ TRAINERS = {
     "ppo": (ppo, ppo.PPOConfig(num_envs=8, rollout_steps=4, epochs=2, num_minibatches=2,
                                anneal_iters=5, lr_final=0.0, clip_eps_final=0.1,
                                entropy_coef=0.01, entropy_coef_final=0.0)),
+    "impala": (impala, impala.ImpalaConfig(num_envs=4, rollout_steps=4, actor_refresh_every=2)),
+    "a3c": (impala, impala.ImpalaConfig(num_envs=4, rollout_steps=4, actor_refresh_every=2,
+                                        correction="none", lam=0.95)),
 }
-# The trainers' step on each env: CartPole, and A2C on the four-type
-# mixture fleet (a nested state: one slot per member type).
+# The trainers' step on each env: CartPole, A2C on the four-type mixture
+# fleet (a nested state: one slot per member type), and IMPALA/A3C on
+# Pong's pixels at a tiny size.
 STEP_CASES = {
     "a2c": ("a2c", make_cartpole),
     "ppo": ("ppo", make_cartpole),
     "a2c_mixture": ("a2c", lambda: make_mixture(randomize=0.2, redraw_types=True)),
+    "impala_pong": ("impala", lambda: make_pong(size=42)),
+    "a3c_pong": ("a3c", lambda: make_pong(size=42)),
 }
 
 
 def _carried(state) -> dict[str, torch.Tensor]:
     """Every tensor a train step reads from `state` and writes back."""
     out = {f"param {k}": p for k, p in state.net.named_parameters()}
-    out.update({f"mu {k}": v for k, v in state.opt_state.mu.items()})
-    out.update({f"nu {k}": v for k, v in state.opt_state.nu.items()})
-    out["adam count"] = state.opt_state.count
+    if isinstance(state, impala.ImpalaTrainState):
+        out.update({f"actor_net {k}": p for k, p in state.actor_net.named_parameters()})
+    opt = state.opt_state
+    out.update({f"nu {k}": v for k, v in opt.nu.items()})
+    if isinstance(opt, AdamState):
+        out.update({f"mu {k}": v for k, v in opt.mu.items()})
+        out["count"] = opt.count
     out["rollout obs"] = state.rollout.obs
     out.update({f"env {k}": v for k, v in named_leaves(state.rollout.env_state).items()})
     out.update(ep_return=state.ep_return, ep_length=state.ep_length,
@@ -66,6 +91,9 @@ def test_train_step_writes_the_state_in_place(name):
     state = mod.init_state(env, cfg, seed=0, device="cpu")
     step = mod.make_train_step(env, cfg)
     before = {k: (t.data_ptr(), t.clone()) for k, t in _carried(state).items()}
+    # What a checkpoint holds and the card's graph check compares is this list.
+    assert {k: t.data_ptr() for k, t in carried_tensors(state).items()} == {
+        k: ptr for k, (ptr, _) in before.items()}
     # Checked after each step: after a rebinding, the first step's new tensor
     # is allocated while the old one is alive, so its address differs.
     for it in (1, 2):
@@ -74,14 +102,33 @@ def test_train_step_writes_the_state_in_place(name):
         assert sorted(now) == sorted(before)
         moved = [k for k, (ptr, _) in before.items() if now[k].data_ptr() != ptr]
         assert not moved, f"rebound after step {it}: {moved}"
+        if trainer in ("impala", "a3c"):
+            # The actors' copy moves only at a refresh (every 2nd step), to
+            # the learner's parameters.
+            actor = {k: v for k, v in now.items() if k.startswith("actor_net ")}
+            if it % cfg.actor_refresh_every:
+                assert all(torch.equal(v, before[k][1]) for k, v in actor.items())
+            else:
+                assert all(torch.equal(v, now[k.replace("actor_net", "param")])
+                           for k, v in actor.items())
     # And the step did write them: everything but the Adam moments of
     # parameters without a gradient has new values.
     changed = {k for k, (_, old) in before.items() if not torch.equal(now[k], old)}
-    env_leaves = ("env x", "env t") if name != "a2c_mixture" else tuple(
-        f"env members.{i}.t" for i in range(4) if bool((state.rollout.env_state.type_id == i).any()))
+    if name == "a2c_mixture":
+        env_leaves = tuple(f"env members.{i}.t" for i in range(4)
+                           if bool((state.rollout.env_state.type_id == i).any()))
+    else:
+        env_leaves = ("env ball_x", "env t") if name.endswith("pong") else ("env x", "env t")
     assert env_leaves
-    for k in ("rollout obs", "ep_return", "ep_length", "step_counter", "adam count",
-              "param policy.weight", "mu policy.weight", "nu value.bias", *env_leaves):
+    expected = ["rollout obs", "ep_length", "step_counter", "param policy.weight",
+                "nu value.bias", *env_leaves]
+    if not name.endswith("pong"):  # no point falls in Pong's first 8 steps
+        expected.append("ep_return")
+    if isinstance(state.opt_state, AdamState):
+        expected += ["count", "mu policy.weight"]
+    else:
+        expected += ["actor_net policy.weight"]
+    for k in expected:
         assert k in changed, k
     assert int(state.step_counter) == state.update_step == 2
 
@@ -175,10 +222,74 @@ def test_table_lookups_past_its_end_stay_exact(count):
 
 
 def test_capturable_flags_and_cpu_loop_runs_eagerly():
-    assert (a2c.CAPTURABLE, ppo.CAPTURABLE, impala.CAPTURABLE) == (True, True, False)
+    assert (a2c.CAPTURABLE, ppo.CAPTURABLE, impala.CAPTURABLE) == (True, True, True)
     mod, cfg = TRAINERS["ppo"]
     state, metrics = loop.fused_train_loop(
         mod.make_train_step, mod.init_state, make_cartpole(), cfg,
         loop.WARMUP_ITERATIONS + 2, device="cpu", capturable=True)
     assert state.update_step == loop.WARMUP_ITERATIONS + 2
     assert all(np.isfinite(float(v)) for v in metrics.values())
+
+
+# Eval cases: (env maker, typed-eval member or None, num_steps). CartPole's
+# untrained greedy episodes all end in the first block (the early stop);
+# the mixture's pinned Pendulum fleet never terminates, so every block and
+# the tail run; Pong's pixels go through the CNN.
+EVAL_CASES = {
+    "cartpole": (make_cartpole, None, 3 * EVAL_CHECK_EVERY + 5),
+    "pong": (lambda: make_pong(size=42, max_steps=30), None, 2 * EVAL_CHECK_EVERY + 3),
+    **{f"mixture_type{t}": (lambda: make_mixture(randomize=0.2, redraw_types=True), t,
+                            2 * EVAL_CHECK_EVERY + 5) for t in range(4)},
+}
+
+
+@pytest.mark.parametrize("name", sorted(EVAL_CASES))
+def test_blocked_eval_equals_the_plain_loop(name):
+    """`BlockedEval`, run eagerly, against `evaluate` from one generator
+    state: the same return and the same generator state after, twice over
+    the same buffers (a later eval), with the typed reset given its type as
+    a tensor, as the CLI passes it on the card."""
+    make_env, type_id, num_steps = EVAL_CASES[name]
+    env = make_env()
+    trainer = "impala" if name == "pong" else "a2c"
+    mod, cfg = TRAINERS[trainer]
+    state = mod.init_state(env, cfg, seed=0, device="cpu")
+    act = lambda obs: state.net(obs)[0].mode()
+    reset = env.reset if type_id is None else (
+        lambda k, g: env.reset_typed(k, g, torch.tensor(type_id)))
+    blocked = BlockedEval(env, act, 6, num_steps)
+    assert blocked.blocks[-1] == num_steps % EVAL_CHECK_EVERY
+    for seed in (5, 6):
+        g_plain, g_blocked = (torch.Generator().manual_seed(seed) for _ in range(2))
+        want = evaluate(env, act, g_plain, 6, num_steps, reset)
+        got = blocked(g_blocked, reset)
+        assert torch.equal(got, want), (float(got), float(want))
+        assert torch.equal(g_blocked.get_state(), g_plain.get_state())
+    if type_id is not None:
+        assert torch.all(blocked.buffers[0].type_id == type_id)
+        # The typed eval through the CLI's function gives the same return.
+        ev = make_typed_eval(env)(state, torch.Generator().manual_seed(6), torch.tensor(type_id),
+                                  6, num_steps)
+        assert torch.equal(ev, want)
+
+
+@pytest.mark.parametrize("trainer", ["a2c", "impala"])
+def test_chunked_loop_equals_per_iteration(trainer):
+    """`chunk=4` over 10 iterations (two chunks and a tail of 2) equals the
+    per-iteration loop, bit for bit, and logs at the chunk boundaries and
+    the end."""
+    mod, cfg = TRAINERS[trainer]
+    env = make_cartpole() if trainer == "a2c" else make_pong(size=42)
+    runs = {}
+    for chunk in (1, 4):
+        logged = []
+        state, metrics = loop.fused_train_loop(
+            mod.make_train_step, mod.init_state, env, cfg, 10, device="cpu", chunk=chunk,
+            log_every=4, log_fn=lambda it, m, logged=logged: logged.append(it))
+        runs[chunk] = ({k: t.clone() for k, t in carried_tensors(state).items()},
+                       metrics, logged, state.generator.get_state())
+    (t1, m1, log1, g1), (t4, m4, log4, g4) = runs[1], runs[4]
+    assert all(torch.equal(t1[k], t4[k]) for k in t1)
+    assert all(torch.equal(m1[k], m4[k]) for k in m1)
+    assert torch.equal(g1, g4)
+    assert log1 == [1, 4, 8, 10] and log4 == [4, 8, 10]

@@ -45,6 +45,17 @@ def test_port_imports_nothing_of_jax(path):
     assert not (_imported_roots(path) & FORBIDDEN), path
 
 
+def test_import_scan_covers_every_module_of_the_port():
+    """The scan takes every module under the package (new ones included) and
+    the smoke script."""
+    scanned = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for name in ("chip_smoke.py", "actor_critic_tpu_torch/train.py",
+                 "actor_critic_tpu_torch/utils/checkpoint.py",
+                 "actor_critic_tpu_torch/utils/cadence.py",
+                 "actor_critic_tpu_torch/utils/logging.py"):
+        assert name in scanned, name
+
+
 def test_import_scan_sees_the_forbidden_forms(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text(
