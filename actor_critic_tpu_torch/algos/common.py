@@ -7,6 +7,9 @@ hand-written kernels: `gae_targets` through the GAE kernel
 (`ops/gae_cuda.py`), `corrected_advantages` through the V-trace kernel
 (`ops/vtrace_cuda.py`) or GAE.
 
+The off-policy trainers (`ddpg.py`, `sac.py`) share `OffPolicyTransition`,
+`OffPolicyState`, `offpolicy_rollout` and `make_greedy_eval` from here.
+
 Unlike JAX's immutable pytrees, `TrainState` is a mutable dataclass, and
 every tensor it carries from one iteration to the next is updated in place
 (parameters, optimizer moments and count, the rollout's obs and env state,
@@ -54,6 +57,21 @@ class RolloutState(NamedTuple):
 
     env_state: Any
     obs: torch.Tensor
+
+
+class OffPolicyTransition(NamedTuple):
+    """One replay-ready transition (DDPG/TD3/SAC). `next_obs` is the
+    pre-reset successor (the env's `final_obs`), so the TD bootstrap
+    r + γ·(1−terminated)·Q(next_obs, ·) is right across terminations
+    (masked) and time-limit truncations (bootstrapped through); `done` is
+    kept for the episode accounting."""
+
+    obs: torch.Tensor
+    action: torch.Tensor
+    reward: torch.Tensor
+    next_obs: torch.Tensor
+    terminated: torch.Tensor
+    done: torch.Tensor
 
 
 class ScheduleTable(NamedTuple):
@@ -113,15 +131,77 @@ class TrainState:
         return int(self.step_counter)
 
 
-def carried_tensors(state: TrainState) -> dict[str, torch.Tensor]:
+@dataclasses.dataclass
+class OffPolicyState:
+    """The fused off-policy trainers' state (DDPG/TD3's `OffPolicyState`,
+    SAC's `SACState` in the JAX package): the learner (its nets, targets,
+    optimizers and replay ring), the env batch, the trainer's generator
+    (exploration, resets, replay draws, target noise), the env-step count
+    that gates the warm-up, the episode accounting and the count of train
+    steps. Every tensor is written in place."""
+
+    learner: Any
+    rollout: RolloutState
+    generator: torch.Generator
+    env_steps: torch.Tensor  # 0-dim int64: env steps so far, saturating at 2^30
+    ep_return: torch.Tensor
+    ep_length: torch.Tensor
+    avg_return: torch.Tensor
+    step_counter: torch.Tensor  # [1] int64: train steps (`update_step` reads it)
+
+    @property
+    def update_step(self) -> int:
+        """Train steps taken; reading it waits for the device."""
+        return int(self.step_counter)
+
+
+def named_carried(obj: Any, prefix: str) -> dict[str, torch.Tensor]:
+    """The tensors under `obj` by name: a module's parameters (`<prefix>
+    <param>`), an Adam state's moments and count (`<prefix> mu <param>`,
+    `<prefix> nu <param>`, `<prefix> count`), a tuple's leaves by path
+    (`<prefix> <path>`: the ring's storage, cursor and stats, the rollout),
+    a dataclass's fields (`<prefix>.<field>`); generators, tables and
+    other constants carry nothing."""
+    if isinstance(obj, nn.Module):
+        return {f"{prefix} {k}": p.detach() for k, p in obj.named_parameters()}
+    if isinstance(obj, AdamState):
+        out = {f"{prefix} mu {k}": t for k, t in obj.mu.items()}
+        out.update({f"{prefix} nu {k}": t for k, t in obj.nu.items()})
+        out[f"{prefix} count"] = obj.count
+        return out
+    if isinstance(obj, tuple):
+        return {f"{prefix} {k}": t for k, t in named_leaves(obj).items()}
+    if isinstance(obj, torch.Tensor):
+        return {prefix: obj}
+    if dataclasses.is_dataclass(obj):
+        out = {}
+        for f in dataclasses.fields(obj):
+            out.update(named_carried(getattr(obj, f.name),
+                                      f"{prefix}.{f.name}" if prefix else f.name))
+        return out
+    return {}
+
+
+def carried_tensors(state: Union[TrainState, OffPolicyState]) -> dict[str, torch.Tensor]:
     """Every tensor a train step reads from `state` and writes back, by
-    name: the learner's parameters (`param <name>`) and any other network's
-    (IMPALA's `actor_net <name>`), the optimizer's moments and count (`mu
-    <name>`, `nu <name>`, `count`), the rollout obs and every env-state leaf
-    (`env <path>`, the mixture's weights and stage among them), the episode
-    accounting and the step counter. What a checkpoint holds besides the
-    generator's state, and what a graph replay must leave where eager
-    execution would."""
+    name. What a checkpoint holds besides the generator's state, and what a
+    graph replay must leave where eager execution would.
+
+    On-policy (`TrainState`): the learner's parameters (`param <name>`) and
+    any other network's (IMPALA's `actor_net <name>`), the optimizer's
+    moments and count (`mu <name>`, `nu <name>`, `count`), the rollout obs
+    and every env-state leaf (`env <path>`, the mixture's weights and stage
+    among them), the episode accounting and the step counter.
+
+    Off-policy (`OffPolicyState`): each field by name through
+    `named_carried`: the actor, critic and target parameters
+    (`learner.actor <name>`, …), both Adam states (and SAC's `log_alpha`
+    and its Adam), every ring leaf, `insert_pos`, `size` and every
+    quant-stat leaf (`learner.replay storage.obs`, `learner.replay
+    quant.obs.mean`, …), `update_count`, the rollout, `env_steps`, the
+    episode accounting and the step counter."""
+    if isinstance(state, OffPolicyState):
+        return named_carried(state, "")
     out: dict[str, torch.Tensor] = {}
     for f in dataclasses.fields(state):
         v = getattr(state, f.name)
@@ -230,6 +310,52 @@ def rollout_loop(
     for buf, new in zip(tree_leaves(rstate), tree_leaves(RolloutState(env_state, obs)),
                         strict=True):
         buf.copy_(new)
+    return traj
+
+
+# The env-step count saturates here, so a long run's count can never wrap
+# and turn the warm-up gate back on.
+ENV_STEPS_SATURATE = 1 << 30
+
+
+@torch.no_grad()
+def offpolicy_rollout(
+    env: TorchEnv,
+    act_fn: Callable[[nn.Module, torch.Tensor, torch.Generator, torch.Tensor], torch.Tensor],
+    actor: nn.Module,
+    rstate: RolloutState,
+    generator: torch.Generator,
+    num_steps: int,
+    env_steps: torch.Tensor,
+) -> OffPolicyTransition:
+    """Collect `num_steps` exploration steps from the env batch (the
+    counterpart of JAX's `offpolicy_rollout`). `act_fn(actor, obs,
+    generator, env_steps) -> action` owns the exploration policy (noise,
+    the warm-up's uniform actions), given the env-step count before the
+    step. Returns time-major [K, E, ...] transitions and advances `rstate`
+    and `env_steps` (0-dim, saturating at `ENV_STEPS_SATURATE`) in place."""
+    env_state, obs = rstate.env_state, rstate.obs
+    steps_now = env_steps
+    steps = []
+    for _ in range(num_steps):
+        action = act_fn(actor, obs, generator, steps_now)
+        out = env.step(env_state, action, generator)
+        steps.append(OffPolicyTransition(
+            obs=obs,
+            action=action,
+            reward=out.reward,
+            next_obs=out.info["final_obs"],
+            terminated=out.info["terminated"],
+            done=out.done,
+        ))
+        steps_now = torch.clamp(steps_now + obs.shape[0], max=ENV_STEPS_SATURATE)
+        env_state, obs = out.state, out.obs
+    # Stacked before the copies: the first step's obs is `rstate.obs` itself.
+    traj = OffPolicyTransition(*(torch.stack(field) for field in zip(*steps)))
+    for buf, new in zip(tree_leaves(rstate), tree_leaves(RolloutState(env_state, obs)),
+                        strict=True):
+        buf.copy_(new)
+    env_steps.copy_(steps_now)
     return traj
 
 
@@ -461,9 +587,16 @@ class BlockedEval:
         return _first_episode_mean(self.buffers[2], alive)
 
 
-def make_net_eval(env: TorchEnv):
+def _mode_action(net: nn.Module, obs: torch.Tensor) -> torch.Tensor:
+    return net(obs)[0].mode()
+
+
+def make_net_eval(
+    env: TorchEnv, act: Callable[[nn.Module, torch.Tensor], torch.Tensor] = _mode_action
+):
     """`run(net, generator, num_envs, num_steps, reset_fn=None)`: the greedy
-    (mode-action) eval of `net` on `env` through a `BlockedEval` (graph
+    eval of `net` on `env`, its action `act(net, obs)` (by default the mode
+    of an actor-critic net's distribution), through a `BlockedEval` (graph
     replays on the card), one per (net, num_envs, num_steps), kept for the
     later calls. A `reset_fn` (the mixture's type-pinned reset) is run
     eagerly at each call, so one set of graphs serves every reset of that
@@ -474,7 +607,7 @@ def make_net_eval(env: TorchEnv):
             reset_fn=None) -> torch.Tensor:
         key = (net, num_envs, num_steps)
         if key not in evals:
-            evals[key] = BlockedEval(env, lambda obs: net(obs)[0].mode(), num_envs, num_steps)
+            evals[key] = BlockedEval(env, lambda obs: act(net, obs), num_envs, num_steps)
         return evals[key](generator, reset_fn or env.reset)
 
     run.evals = evals
@@ -498,6 +631,27 @@ def make_mode_eval(env: TorchEnv):
     def eval_fn(state: TrainState, generator: torch.Generator,
                 num_envs: int = 32, num_steps: int = default_steps) -> torch.Tensor:
         return run(state.net, generator, num_envs, num_steps)
+
+    eval_fn.evals = run.evals
+    return eval_fn
+
+
+def make_greedy_eval(
+    env: TorchEnv,
+    act: Callable[[nn.Module, torch.Tensor], torch.Tensor],
+    module_of: Callable[[Any], nn.Module],
+):
+    """The off-policy trainers' eval (JAX's `make_greedy_eval`): `act(actor,
+    obs)` is the greedy action (the noiseless actor, the tanh-mean) and
+    `module_of(state)` the acting module. Returns `eval_fn(state,
+    generator, num_envs=32, num_steps=default_eval_steps(env))`, replayed
+    as CUDA graphs on the card (`make_net_eval`)."""
+    default_steps = default_eval_steps(env)
+    run = make_net_eval(env, act)
+
+    def eval_fn(state, generator: torch.Generator, num_envs: int = 32,
+                num_steps: int = default_steps) -> torch.Tensor:
+        return run(module_of(state), generator, num_envs, num_steps)
 
     eval_fn.evals = run.evals
     return eval_fn
@@ -537,7 +691,9 @@ def episode_metrics_update(
     return ep_return, ep_length, avg_return, metrics
 
 
-def fold_episodes(state: TrainState, traj: Transition) -> dict[str, torch.Tensor]:
+def fold_episodes(
+    state: Union[TrainState, OffPolicyState], traj: Union[Transition, OffPolicyTransition]
+) -> dict[str, torch.Tensor]:
     """`episode_metrics_update` on `state`'s accounting, written back in
     place; returns the episode metrics."""
     ep_return, ep_length, avg_return, metrics = episode_metrics_update(
@@ -549,6 +705,6 @@ def fold_episodes(state: TrainState, traj: Transition) -> dict[str, torch.Tensor
     return metrics
 
 
-def advance(state: TrainState) -> None:
+def advance(state: Union[TrainState, OffPolicyState]) -> None:
     """Count one train step, on the device, in place."""
     state.step_counter.add_(1)

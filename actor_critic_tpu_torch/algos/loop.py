@@ -5,7 +5,7 @@
 The JAX package runs a fused iteration as one compiled program
 (`jax.jit(step, donate_argnums=0)`). On the card the port's counterpart is
 a CUDA graph: for a trainer whose step is capturable (`CAPTURABLE` in
-`a2c.py`, `ppo.py` and `impala.py`) the loop runs the first
+`a2c.py`, `ppo.py`, `impala.py`, `ddpg.py` and `sac.py`) the loop runs the first
 `WARMUP_ITERATIONS` iterations of the process eagerly on a side stream,
 which torch needs before it captures autograd, cuBLAS and cuDNN work; they
 are real iterations, logged, counted and annealed. It then captures the

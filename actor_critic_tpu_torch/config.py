@@ -1,14 +1,16 @@
 """Named presets and `key=value` overrides (counterpart of
 `actor_critic_tpu/config.py`).
 
-The presets ported so far: `a2c_cartpole`, `ppo_cartpole`, the
-IMPALA/A3C trio on the Pong-like pixel env, `impala_pong`,
-`impala_pong_learn` and `a3c_pong`, and `a2c_mixture` on the four-type
-scenario fleet. Their values are held equal to the JAX presets' by a
-test. `resolve` turns the CLI's `--preset`, `--algo`, `--env`, `--set`
-and `--env-set` into a `Preset`, as the JAX function does (a test holds
-the two against each other); the algorithms the port has no trainer for
-yet (`UNPORTED_ALGOS`) are refused there.
+The JAX package's ten presets, in its order, their values held equal to
+the JAX presets' by a test: `a2c_cartpole`, `ppo_cartpole`, the four
+MuJoCo presets (`ppo_halfcheetah`, `ddpg_walker2d`, `td3_walker2d`,
+`sac_humanoid`, whose `host:` env comes with a later slice; their
+learners run on a pure env with `--env jax:<name>`), the IMPALA/A3C trio
+on the Pong-like pixel env (`impala_pong`, `impala_pong_learn`,
+`a3c_pong`), and `a2c_mixture` on the four-type scenario fleet. `resolve`
+turns the CLI's `--preset`, `--algo`, `--env`, `--set` and `--env-set`
+into a `Preset`, as the JAX function does (a test holds the two against
+each other).
 """
 
 from __future__ import annotations
@@ -17,14 +19,14 @@ import dataclasses
 import typing
 from typing import Any, Optional, Union
 
-from actor_critic_tpu_torch.algos import a2c, impala, ppo
+from actor_critic_tpu_torch.algos import a2c, ddpg, impala, ppo, sac
 
 
 @dataclasses.dataclass(frozen=True)
 class Preset:
     """A runnable training setup: algorithm + environment + config."""
 
-    algo: str        # a2c | ppo | impala | a3c
+    algo: str        # a2c | ppo | ddpg | td3 | sac | impala | a3c
     env: str         # "jax:<name>" or a bare name of train.ENVS, or "mixture:<members>"
     config: Any      # the algorithm's frozen config dataclass
     iterations: int  # default --iterations
@@ -61,6 +63,55 @@ PRESETS: dict[str, Preset] = {
         ),
         iterations=100,
         description="PPO on batched CartPole-v1, GAE through the CUDA kernel",
+    ),
+    # The JAX package's four MuJoCo presets (BASELINE configs 2-4) keep
+    # their host env, whose path comes with a later slice: run as they
+    # are they exit with that message. Their learners run here on a pure
+    # env, `--preset ddpg_walker2d --env jax:pendulum` (the config stays
+    # the preset's when only the env changes).
+    "ppo_halfcheetah": Preset(
+        algo="ppo",
+        env="host:HalfCheetah-v5",
+        config=ppo.PPOConfig(
+            num_envs=8, rollout_steps=256, epochs=10, num_minibatches=32,
+            entropy_coef=0.0, lr=3e-4,
+            anneal_iters=1000, lr_final=0.0,
+        ),
+        iterations=1000,
+        description="PPO-clip on MuJoCo HalfCheetah-v5 (the host env path: not ported yet)",
+    ),
+    # Off-policy with the replay ring on the device: 64 env steps and 64
+    # updates an iteration, a 1M-transition ring, a 10k-step uniform
+    # warm-up.
+    "ddpg_walker2d": Preset(
+        algo="ddpg",
+        env="host:Walker2d-v5",
+        config=ddpg.DDPGConfig(
+            num_envs=1, steps_per_iter=64, updates_per_iter=64,
+            warmup_steps=10_000,
+        ),
+        iterations=16_000,
+        description="DDPG on MuJoCo Walker2d-v5 (the host env path: not ported yet)",
+    ),
+    "td3_walker2d": Preset(
+        algo="td3",
+        env="host:Walker2d-v5",
+        config=ddpg.td3_config(
+            num_envs=1, steps_per_iter=64, updates_per_iter=64,
+            warmup_steps=10_000,
+        ),
+        iterations=16_000,
+        description="TD3 on MuJoCo Walker2d-v5 (the host env path: not ported yet)",
+    ),
+    "sac_humanoid": Preset(
+        algo="sac",
+        env="host:Humanoid-v5",
+        config=sac.SACConfig(
+            num_envs=1, steps_per_iter=64, updates_per_iter=64,
+            warmup_steps=10_000,
+        ),
+        iterations=16_000,
+        description="SAC on MuJoCo Humanoid-v5 (the host env path: not ported yet)",
     ),
     # IMPALA with 64 actors, unroll 20 and a 4-step actor lag, Nature CNN
     # on 84×84×2 uint8 Pong frames.
@@ -119,11 +170,12 @@ PRESETS: dict[str, Preset] = {
 ALGO_CONFIGS: dict[str, Any] = {
     "a2c": a2c.A2CConfig,
     "ppo": ppo.PPOConfig,
+    "ddpg": ddpg.DDPGConfig,
+    "td3": ddpg.DDPGConfig,
+    "sac": sac.SACConfig,
     "impala": impala.ImpalaConfig,
     "a3c": impala.ImpalaConfig,
 }
-# The JAX package's off-policy trainers, which come with a later slice.
-UNPORTED_ALGOS = ("ddpg", "td3", "sac")
 
 
 def _coerce(raw: str, typ: Any) -> Any:
@@ -205,13 +257,13 @@ def parse_env_set_args(pairs: list[str]) -> dict[str, Any]:
 
 
 def default_config(algo: str) -> Any:
-    """The algorithm's default config (a3c: no importance correction)."""
-    if algo in UNPORTED_ALGOS:
-        raise NotImplementedError(
-            f"--algo {algo} is not ported yet (the off-policy trainers come later); "
-            f"ported: {sorted(ALGO_CONFIGS)}")
+    """The algorithm's default config, with the variants' settings (td3:
+    twin critics, policy delay, target smoothing; a3c: no importance
+    correction)."""
     if algo not in ALGO_CONFIGS:
         raise KeyError(f"unknown algo {algo!r}; valid: {sorted(ALGO_CONFIGS)}")
+    if algo == "td3":
+        return ddpg.td3_config()
     cfg = ALGO_CONFIGS[algo]()
     if algo == "a3c":
         cfg = dataclasses.replace(cfg, correction="none")

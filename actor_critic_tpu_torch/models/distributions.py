@@ -1,6 +1,9 @@
 """Action distributions (counterpart of `actor_critic_tpu/models/distributions.py`).
 
-`Categorical` and `DiagGaussian`; `TanhGaussian` comes with SAC.
+`Categorical`, `DiagGaussian` and SAC's `TanhGaussian`. A sample draws its
+noise from a torch generator; the tanh-Gaussian's sampling methods also
+take the standard-normal noise `eps` itself, so that a test can feed them
+the draws of the JAX package's keys.
 """
 
 from __future__ import annotations
@@ -11,6 +14,10 @@ from typing import Optional
 import torch
 
 _LOG_2PI = math.log(2.0 * math.pi)
+# The tanh-Gaussian's log-std clip (SAC-style), so exp() never over- or
+# underflows.
+LOG_STD_MIN = -20.0
+LOG_STD_MAX = 2.0
 
 
 class Categorical:
@@ -83,3 +90,62 @@ class DiagGaussian:
         per_dim = (other.log_std - self.log_std
                    + (var + (self.mean - other.mean) ** 2) / (2.0 * ovar) - 0.5)
         return torch.sum(per_dim, dim=-1)
+
+
+def _tanh_log_det_jacobian(pre_tanh: torch.Tensor) -> torch.Tensor:
+    """log |d tanh(x)/dx| = log(1 − tanh(x)²), computed stably as
+    2·(log 2 − x − softplus(−2x)). JAX's softplus is `logaddexp(x, 0)`;
+    `torch.nn.functional.softplus` returns x itself above its threshold of
+    20, so the port takes `torch.logaddexp` against zero too."""
+    neg2x = -2.0 * pre_tanh
+    softplus = torch.logaddexp(neg2x, torch.zeros((), dtype=neg2x.dtype, device=neg2x.device))
+    return 2.0 * (math.log(2.0) - pre_tanh - softplus)
+
+
+class TanhGaussian:
+    """Tanh-squashed diagonal Gaussian (SAC's actor): actions in (−1, 1)^d.
+    Build it with `create`, which clips `log_std` to [LOG_STD_MIN,
+    LOG_STD_MAX]."""
+
+    def __init__(self, mean: torch.Tensor, log_std: torch.Tensor):
+        self.mean = mean
+        self.log_std = log_std
+
+    @classmethod
+    def create(cls, mean: torch.Tensor, log_std: torch.Tensor) -> "TanhGaussian":
+        return cls(mean, torch.clamp(log_std, LOG_STD_MIN, LOG_STD_MAX))
+
+    @property
+    def base(self) -> DiagGaussian:
+        return DiagGaussian(self.mean, self.log_std)
+
+    def _pre_tanh(self, generator: Optional[torch.Generator], eps: Optional[torch.Tensor]):
+        if eps is None:
+            return self.base.sample(generator)
+        return self.mean + self.base.std * eps
+
+    def sample_and_log_prob(
+        self, generator: Optional[torch.Generator] = None, eps: Optional[torch.Tensor] = None
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """A reparameterised sample (noise from `generator`, or `eps`) and
+        its log-prob, the change of variables taken at the pre-tanh value."""
+        pre = self._pre_tanh(generator, eps)
+        logp = self.base.log_prob(pre) - torch.sum(_tanh_log_det_jacobian(pre), dim=-1)
+        return torch.tanh(pre), logp
+
+    def sample(
+        self, generator: Optional[torch.Generator] = None, eps: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        return torch.tanh(self._pre_tanh(generator, eps))
+
+    def log_prob(
+        self, action: torch.Tensor, pre_tanh: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """Log-prob of a squashed action; without `pre_tanh` the action is
+        clipped to ±(1 − 1e-6) before the atanh."""
+        if pre_tanh is None:
+            pre_tanh = torch.atanh(torch.clamp(action, -1.0 + 1e-6, 1.0 - 1e-6))
+        return self.base.log_prob(pre_tanh) - torch.sum(_tanh_log_det_jacobian(pre_tanh), dim=-1)
+
+    def mode(self) -> torch.Tensor:
+        return torch.tanh(self.mean)

@@ -1,12 +1,15 @@
 """Actor-critic networks (counterpart of `actor_critic_tpu/models/networks.py`).
 
-`MLPTorso`, `NatureCNN`, `ActorCriticDiscrete` and `ActorCriticGaussian`,
-in float32. Submodule names follow the flax parameter tree
+`MLPTorso`, `NatureCNN`, `ActorCriticDiscrete` and `ActorCriticGaussian`
+(the on-policy nets), and the off-policy `DeterministicActor`,
+`SquashedGaussianActor`, `QFunction` and `TwinQ` (ReLU torsos), in
+float32. Submodule names follow the flax parameter tree
 (`torso.dense_{i}`, `torso.conv_{i}`, `torso.Dense_0`, `pi_torso`,
-`vf_torso`, `policy`, `value`, `log_std`) so that `weights.from_flax` maps
-one onto the other by name. Initialisation matches the JAX package's:
-orthogonal with gain √2 on the torso, 0.01 on the policy head and 1.0 on
-the value head, zero biases, a zero `log_std`.
+`vf_torso`, `policy`, `value`, `log_std`, `action`, `mean`, `q`,
+`q1`/`q2`) so that `weights.from_flax` maps one onto the other by name.
+Initialisation matches the JAX package's: orthogonal with gain √2 on the
+torso, 0.01 on the policy, action, mean and log-std heads and 1.0 on the
+value and Q heads, zero biases, a zero `log_std` parameter.
 
 Pixel observations keep the JAX package's NHWC layout `[..., H, W, C]` at
 the public interface (the env's obs, the Transition); `NatureCNN`
@@ -17,14 +20,14 @@ that `Dense_0` sees flax's flatten order.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Union
+from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from actor_critic_tpu_torch.models.distributions import Categorical, DiagGaussian
+from actor_critic_tpu_torch.models.distributions import Categorical, DiagGaussian, TanhGaussian
 
 _INV_255 = float(np.float32(1.0) / np.float32(255.0))
 
@@ -40,16 +43,20 @@ def _dense(
 
 
 class MLPTorso(nn.Module):
-    """Tanh MLP torso shared by the actor and critic heads."""
+    """MLP torso shared by the actor and critic heads: tanh after each
+    layer (the on-policy nets), or ReLU (`activation=torch.relu`, the
+    off-policy actors and critics)."""
 
     def __init__(
         self,
         in_dim: int,
         hidden: Sequence[int] = (64, 64),
         generator: Optional[torch.Generator] = None,
+        activation: Callable[[torch.Tensor], torch.Tensor] = torch.tanh,
     ):
         super().__init__()
         self.num_layers = len(hidden)
+        self.activation = activation
         for i, h in enumerate(hidden):
             self.add_module(f"dense_{i}", _dense(in_dim, h, math.sqrt(2.0), generator))
             in_dim = h
@@ -58,7 +65,7 @@ class MLPTorso(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.float32)
         for i in range(self.num_layers):
-            x = torch.tanh(getattr(self, f"dense_{i}")(x))
+            x = self.activation(getattr(self, f"dense_{i}")(x))
         return x
 
 
@@ -154,3 +161,83 @@ class ActorCriticGaussian(nn.Module):
         mean = self.policy(self.pi_torso(obs)).float()
         value = self.value(self.vf_torso(obs))[..., 0].float()
         return DiagGaussian(mean, self.log_std.expand_as(mean)), value
+
+
+class DeterministicActor(nn.Module):
+    """DDPG/TD3's actor: a ReLU torso and a tanh-bounded action head
+    (`action`, gain 0.01); `forward(obs)` returns the action in (−1, 1)."""
+
+    def __init__(
+        self,
+        obs_dim: int,
+        action_dim: int,
+        hidden: Sequence[int] = (256, 256),
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.torso = MLPTorso(obs_dim, hidden, generator, activation=torch.relu)
+        self.action = _dense(self.torso.out_dim, action_dim, 0.01, generator)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(self.action(self.torso(obs)).float())
+
+
+class SquashedGaussianActor(nn.Module):
+    """SAC's actor: a ReLU torso, then `mean` and a state-dependent
+    `log_std` head (both gain 0.01); `forward(obs)` returns the
+    `TanhGaussian` (log-std clipped by `create`)."""
+
+    def __init__(
+        self,
+        obs_dim: int,
+        action_dim: int,
+        hidden: Sequence[int] = (256, 256),
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.torso = MLPTorso(obs_dim, hidden, generator, activation=torch.relu)
+        self.mean = _dense(self.torso.out_dim, action_dim, 0.01, generator)
+        self.log_std = _dense(self.torso.out_dim, action_dim, 0.01, generator)
+
+    def forward(self, obs: torch.Tensor) -> TanhGaussian:
+        z = self.torso(obs)
+        return TanhGaussian.create(self.mean(z).float(), self.log_std(z).float())
+
+
+class QFunction(nn.Module):
+    """Q(s, a): a ReLU torso over [obs, action] and a scalar head (`q`,
+    gain 1.0); `forward(obs, action)` returns q[...]."""
+
+    def __init__(
+        self,
+        obs_dim: int,
+        action_dim: int,
+        hidden: Sequence[int] = (256, 256),
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.torso = MLPTorso(obs_dim + action_dim, hidden, generator, activation=torch.relu)
+        self.q = _dense(self.torso.out_dim, 1, 1.0, generator)
+
+    def forward(self, obs: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
+        x = torch.cat([obs, action], dim=-1)
+        return self.q(self.torso(x))[..., 0].float()
+
+
+class TwinQ(nn.Module):
+    """TD3's and SAC's twin critics `q1` and `q2`; `forward(obs, action)`
+    returns (q1, q2)."""
+
+    def __init__(
+        self,
+        obs_dim: int,
+        action_dim: int,
+        hidden: Sequence[int] = (256, 256),
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.q1 = QFunction(obs_dim, action_dim, hidden, generator)
+        self.q2 = QFunction(obs_dim, action_dim, hidden, generator)
+
+    def forward(self, obs: torch.Tensor, action: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        return self.q1(obs, action), self.q2(obs, action)

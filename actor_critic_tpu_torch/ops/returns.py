@@ -1,7 +1,8 @@
 """Return / advantage computations as plain reverse loops over T.
 
-Counterpart of `actor_critic_tpu/ops/returns.py` (`gae`, `lambda_returns`,
-`vtrace`, `normalize_advantages`). These are the PLAIN versions of the GAE
+Counterpart of `actor_critic_tpu/ops/returns.py` (`discounted_returns`,
+`gae`, `lambda_returns`, `vtrace`, `n_step_returns`,
+`normalize_advantages`). These are the PLAIN versions of the GAE
 kernel in `ops/gae_cuda.py` and of the V-trace kernel in
 `ops/vtrace_cuda.py`: the wrappers use them for CPU tensors, and
 `chip_smoke.py` holds the kernels against them on the card.
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 # Cap on log importance ratios before the exp, the JAX package's
@@ -25,6 +27,24 @@ import torch
 # clips keep and far below float32 overflow, so a drifted behaviour policy
 # can never turn a ratio into inf (and inf · 0 into nan).
 LOG_RATIO_CAP = 20.0
+
+
+def discounted_returns(
+    rewards: torch.Tensor,
+    dones: torch.Tensor,
+    bootstrap_value: torch.Tensor,
+    gamma: float,
+) -> torch.Tensor:
+    """Monte-Carlo returns G_t = r_t + γ·(1−d_t)·G_{t+1}, bootstrapped with
+    G_T = `bootstrap_value`. XLA contracts the line into one fused
+    multiply-add, `fma(γ·(1−d), G′, r)`, and so does `addcmul`."""
+    dones = dones.to(rewards.dtype)
+    out = torch.empty_like(rewards)
+    g = bootstrap_value
+    for t in range(rewards.shape[0] - 1, -1, -1):
+        g = torch.addcmul(rewards[t], gamma * (1.0 - dones[t]), g)
+        out[t] = g
+    return out
 
 
 def gae(
@@ -112,6 +132,42 @@ def vtrace(
         rhos[t] = rho
         v_next, vs_next = v, vs[t]
     return VTraceOutput(vs=vs, pg_advantages=pg, clipped_rhos=rhos)
+
+
+def n_step_returns(
+    rewards: torch.Tensor,
+    values: torch.Tensor,
+    dones: torch.Tensor,
+    bootstrap_value: torch.Tensor,
+    gamma: float,
+    n: int,
+) -> torch.Tensor:
+    """n-step truncated returns G_t = Σ_{k<m} γ^k r_{t+k} + γ^m V(s_{t+m}),
+    m = min(n, T−t), the sum stopping at an episode's termination.
+    `values[t]` is V(s_t) and `bootstrap_value` V(s_T). All t at once, a
+    static loop over k < n, as the JAX function vmaps it. The discounts
+    are host constants as JAX has them: γ^k a Python (float64) product
+    rounded to float32 where it multiplies, γ^m a float32 power computed
+    as numpy computes it (`np.float32(γ) ** np.float32(m)`, which is what
+    XLA's float32 power gives)."""
+    T = rewards.shape[0]
+    dones = dones.to(rewards.dtype)
+    vals_ext = torch.cat([values, bootstrap_value[None]], dim=0)
+    t_idx = torch.arange(T, device=rewards.device)
+    shape = (T,) + (1,) * (rewards.dim() - 1)
+    g = torch.zeros_like(rewards)
+    alive = torch.ones_like(rewards)
+    disc = 1.0
+    for k in range(n):
+        idx = torch.clamp(t_idx + k, max=T - 1)
+        valid = ((t_idx + k) < T).to(rewards.dtype).reshape(shape)
+        g = g + disc * alive * valid * rewards[idx]
+        alive = alive * (1.0 - dones[idx] * valid)
+        disc = disc * gamma
+    m = np.minimum(n, T - np.arange(T))
+    boot_disc = torch.tensor(np.float32(gamma) ** m.astype(np.float32), device=rewards.device)
+    boot_idx = torch.clamp(t_idx + n, max=T)
+    return g + boot_disc.reshape(shape) * alive * vals_ext[boot_idx]
 
 
 def normalize_advantages(advantages: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

@@ -4,8 +4,12 @@
 `optax.chain(clip_by_global_norm(max_norm), adam(lr or linear_schedule))`,
 `ppo.make_optimizer` the same with `adam(..., eps=1e-5)`, and
 `impala.make_optimizer` builds
-`optax.chain(clip_by_global_norm(max_norm), rmsprop(lr, decay, eps))`.
-This module is those chains, step for step and in float32:
+`optax.chain(clip_by_global_norm(max_norm), rmsprop(lr, decay, eps))`;
+the off-policy trainers (`ddpg.py`, `sac.py`) build a plain
+`optax.adam(lr)` for each of their actor, critic and temperature, and keep
+its whole state where their update gate is false. This module is those
+optimizers (`ClippedAdam`, `ClippedRMSProp`, `Adam` with an optional
+device-side mask), step for step and in float32:
 
 - clip: `t / g_norm * max_norm` only when `g_norm >= max_norm` (optax's
   rule; `torch.nn.utils.clip_grad_norm_` adds 1e-6 and would drift);
@@ -30,7 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Mapping, Union
+from typing import Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -116,13 +120,13 @@ def _zeros_like(params: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
             for k, p in params.items()}
 
 
-class ClippedAdam:
-    """`chain(clip_by_global_norm(max_norm), adam(lr, eps=eps))`, lr a float
-    or a `LinearSchedule` of the step count."""
+class Adam:
+    """`optax.adam(lr, eps=eps)`, lr a float or a `LinearSchedule` of the
+    step count, with no gradient transform before it: what the off-policy
+    trainers build for their actor, critic and temperature."""
 
-    def __init__(self, lr: Union[float, LinearSchedule], max_norm: float, eps: float = EPS):
+    def __init__(self, lr: Union[float, LinearSchedule], eps: float = EPS):
         self.lr = lr if isinstance(lr, LinearSchedule) else LinearSchedule(lr, lr, 0)
-        self.max_norm = max_norm
         self.eps = eps
 
     def init(self, params: Mapping[str, torch.Tensor]) -> AdamState:
@@ -155,21 +159,51 @@ class ClippedAdam:
         grads: Mapping[str, torch.Tensor],
         state: AdamState,
         table: torch.Tensor,
+        mask: Optional[torch.Tensor] = None,
     ) -> None:
         """Apply one update to `params` and the moments in place, and count
         it in `state.count`. `table` is `scalar_table()` on the parameters'
         device; the step's (lr, bc1, bc2) is its row at `state.count`, looked
-        up on the device."""
+        up on the device. With `mask` (a 0-dim bool tensor on the device)
+        the parameters, moments and count take their new values only where
+        it is true, and keep the old ones otherwise, as the off-policy
+        trainers' `select(mask, new, old)` over the whole optimizer state;
+        the step is computed either way."""
         lr, bc1, bc2 = scalars_at(table, state.count).unbind()
-        grads = clip_by_global_norm(grads, self.max_norm)
         with torch.no_grad():
             for k, p in params.items():
                 g, mu, nu = grads[k], state.mu[k], state.nu[k]
-                mu.copy_((1 - B1) * g + B1 * mu)
-                nu.copy_((1 - B2) * (g * g) + B2 * nu)
-                update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-                p.add_(update * -lr)
-            state.count.add_(1)
+                new_mu = (1 - B1) * g + B1 * mu
+                new_nu = (1 - B2) * (g * g) + B2 * nu
+                update = (new_mu / bc1) / (torch.sqrt(new_nu / bc2) + self.eps)
+                if mask is None:
+                    mu.copy_(new_mu)
+                    nu.copy_(new_nu)
+                    p.add_(update * -lr)
+                else:
+                    torch.where(mask, new_mu, mu, out=mu)
+                    torch.where(mask, new_nu, nu, out=nu)
+                    torch.where(mask, p + update * -lr, p, out=p)
+            state.count.add_(1 if mask is None else mask)
+
+
+class ClippedAdam(Adam):
+    """`chain(clip_by_global_norm(max_norm), adam(lr, eps=eps))`, lr a float
+    or a `LinearSchedule` of the step count."""
+
+    def __init__(self, lr: Union[float, LinearSchedule], max_norm: float, eps: float = EPS):
+        super().__init__(lr, eps)
+        self.max_norm = max_norm
+
+    def step(
+        self,
+        params: Mapping[str, torch.Tensor],
+        grads: Mapping[str, torch.Tensor],
+        state: AdamState,
+        table: torch.Tensor,
+    ) -> None:
+        """Clip `grads` by their global norm, then `Adam.step`."""
+        super().step(params, clip_by_global_norm(grads, self.max_norm), state, table)
 
 
 @dataclasses.dataclass

@@ -6,6 +6,9 @@ its fused path):
     python -m actor_critic_tpu_torch.train --algo a2c --env jax:pendulum --set num_envs=16
     python -m actor_critic_tpu_torch.train --preset impala_pong --ckpt-dir runs/pong --resume
     python -m actor_critic_tpu_torch.train --preset a2c_cartpole --chunk 4
+    python -m actor_critic_tpu_torch.train --algo sac --env jax:pendulum
+    python -m actor_critic_tpu_torch.train --preset td3_walker2d --env jax:pendulum \
+        --replay-dtype mixed
     python -m actor_critic_tpu_torch.train --list-presets
 
 The flags keep the JAX CLI's spelling and meaning: `--preset`, or `--algo`
@@ -24,8 +27,11 @@ sidecar); `--curriculum SPEC` (a mixture env with `--eval-every`:
 re-weights the fleet's type draw as the eval return crosses the spec's
 thresholds, grammar `envs/mixture.py::parse_curriculum`; turns on
 `redraw_types` unless `--env-set` says otherwise; the stage rides the
-checkpoint). `--device cpu` runs on the CPU; by default the run is on the
-card, where each iteration after the first two is a CUDA-graph replay
+checkpoint); `--replay-dtype fp32|mixed|int8` (the off-policy trainers'
+ring codecs, `replay/quantize.py`; the same as `--set replay_dtype=...`,
+refused for an algorithm with no ring). `--device cpu` runs on the CPU;
+by default the run is on the card, where each iteration after the first
+two is a CUDA-graph replay
 (`algos/loop.py`) and each eval a replay of captured blocks
 (`algos/common.py::BlockedEval`).
 
@@ -37,8 +43,12 @@ Every eval starts the eval generator from `seed + 1`, as the JAX CLI
 evaluates with one fixed key, so a resumed run evaluates as the straight
 one. Each row's `wall_s` leaves the evals out.
 
-Not ported yet, and refused with a message that says so: `--algo
-ddpg|td3|sac`, `host:`/`native:` envs, and the flags of the paths that
+The off-policy trainers (`--algo ddpg|td3|sac`) run on the pure envs; the
+MuJoCo presets' learners run there too, `--preset sac_humanoid --env
+jax:pendulum`, since a preset keeps its config when only the env changes.
+
+Not ported yet, and refused with a message that says so: `host:`/`native:`
+envs (so the MuJoCo presets as they are), and the flags of the paths that
 come later (`UNPORTED_FLAGS`).
 """
 
@@ -56,11 +66,10 @@ import warnings
 import torch
 
 from actor_critic_tpu_torch import resolve_device
-from actor_critic_tpu_torch.algos import a2c, impala, ppo
+from actor_critic_tpu_torch.algos import a2c, ddpg, impala, ppo, sac
 from actor_critic_tpu_torch.algos.loop import fused_train_loop
 from actor_critic_tpu_torch.config import (
     PRESETS,
-    UNPORTED_ALGOS,
     parse_env_set_args,
     parse_set_args,
     resolve,
@@ -89,12 +98,12 @@ ENVS = {
     "point_mass": make_point_mass,
     "bandit": make_bandit,
 }
-ALGOS = {"a2c": a2c, "ppo": ppo, "impala": impala, "a3c": impala}
+ALGOS = {"a2c": a2c, "ppo": ppo, "ddpg": ddpg, "td3": ddpg, "sac": sac,
+         "impala": impala, "a3c": impala}
 # The JAX CLI's flags whose paths are not ported yet, with the path each
 # belongs to (ROADMAP.md Queue 1). Each is refused with that message.
 UNPORTED_FLAGS = {
-    "--replay-dtype": "the off-policy trainers and the replay ring",
-    "--no-save-replay": "the off-policy trainers and the replay ring",
+    "--no-save-replay": "the host env path",
     "--workers": "the host env path",
     "--eval-envs": "the host env path",
     "--eval-steps": "the host env path",
@@ -236,7 +245,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--preset", help="named preset (see --list-presets)")
-    p.add_argument("--algo", help="a2c|ppo|impala|a3c (ddpg|td3|sac: not ported yet)")
+    p.add_argument("--algo", help="a2c|ppo|ddpg|td3|sac|impala|a3c")
     p.add_argument("--env", help="jax:<name> or mixture:<members>")
     p.add_argument("--iterations", type=int, help="train-step iterations")
     p.add_argument("--seed", type=int, default=0)
@@ -264,6 +273,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--ckpt-dir", help="checkpoint directory")
     p.add_argument("--save-every", type=int, default=100)
     p.add_argument("--resume", action="store_true", help="resume from --ckpt-dir")
+    p.add_argument(
+        "--replay-dtype", choices=("fp32", "mixed", "int8"), default=None,
+        help="off-policy algos (ddpg/td3/sac): the replay ring's storage codecs "
+        "(replay/quantize.py): 'mixed' stores obs and rewards as int8 behind running "
+        "mean/scale standardization with fp32 actions, 'int8' also the bounded "
+        "actions; default fp32. The same as --set replay_dtype=...; never change it "
+        "on a resumed run")
     p.add_argument("--list-presets", action="store_true")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     for flag in UNPORTED_FLAGS:
@@ -301,13 +317,20 @@ def snap_cadences(args: argparse.Namespace) -> None:
             setattr(args, name, new)
 
 
+def steps_per_iteration(algo: str, cfg) -> int:
+    """Env steps an iteration takes: T·E on-policy, K·E off-policy."""
+    if hasattr(cfg, "rollout_steps"):
+        return cfg.rollout_steps * cfg.num_envs
+    return cfg.steps_per_iter * cfg.num_envs
+
+
 def run_fused(env: TorchEnv, preset, args: argparse.Namespace, logger: JsonlLogger,
               device: torch.device) -> dict:
     """Train `preset` on `env` through `fused_train_loop`, with the evals,
     the curriculum and the checkpoints the flags ask for; returns the last
     metrics."""
     mod, cfg = ALGOS[preset.algo], preset.config
-    steps_per_iter = cfg.num_envs * cfg.rollout_steps
+    steps_per_iter = steps_per_iteration(preset.algo, cfg)
     state = mod.init_state(env, cfg, args.seed, device)
     ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
     if ckpt is not None and args.resume and ckpt.latest_step() is not None:
@@ -385,14 +408,18 @@ def main(argv=None) -> int:
         for name, pre in PRESETS.items():
             print(f"{name:18s} {pre.algo:7s} {pre.env:40s} {pre.description}")
         return 0
-    if args.algo in UNPORTED_ALGOS:
-        raise SystemExit(f"--algo {args.algo} is not ported yet (the off-policy trainers come "
-                         f"in a later slice); ported: {sorted(ALGOS)}")
     try:
         preset = resolve(args.preset, args.algo, args.env, parse_set_args(args.set),
                          env_overrides=parse_env_set_args(args.env_set))
     except (KeyError, ValueError) as e:
         raise SystemExit(str(e)) from e
+    if args.replay_dtype is not None:
+        if not hasattr(preset.config, "replay_dtype"):
+            raise SystemExit(
+                f"--replay-dtype applies to the off-policy algos (ddpg/td3/sac) with a "
+                f"replay ring on the device; {preset.algo} has no replay storage")
+        preset = dataclasses.replace(
+            preset, config=dataclasses.replace(preset.config, replay_dtype=args.replay_dtype))
     if args.iterations is None:
         args.iterations = preset.iterations
     if args.chunk < 1:
@@ -419,7 +446,7 @@ def main(argv=None) -> int:
         "env": preset.env,
         "device": str(device),
         "iterations": args.iterations,
-        "env_steps": args.iterations * cfg.num_envs * cfg.rollout_steps,
+        "env_steps": args.iterations * steps_per_iteration(preset.algo, cfg),
         **{k: finite_or_none(v) for k, v in final.items()},
     }), flush=True)
     return 0

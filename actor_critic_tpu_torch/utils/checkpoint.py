@@ -5,8 +5,10 @@ A checkpoint is one `torch.save` file per iteration count, `<dir>/<step>/
 state.pt`, holding every tensor the train step carries
 (`algos.common.carried_tensors`: parameters, optimizer moments and count,
 rollout obs and env state with the mixture's weights and stage, episode
-accounting, step counter, IMPALA's actor copy) and the trainer
-generator's state; `<dir>/<step>/metrics.json` beside it holds the
+accounting, step counter, IMPALA's actor copy; for the off-policy states
+also the replay ring's every leaf, cursor, count and codec stats, the
+target nets, every Adam state, SAC's log α, the update and env-step
+counts) and the trainer generator's state; `<dir>/<step>/metrics.json` beside it holds the
 iteration's metrics, so that a resume with nothing left to run still
 reports them. A step is written under a temporary name and renamed into
 place, and the oldest beyond `max_to_keep` are removed.
@@ -25,11 +27,11 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
-from actor_critic_tpu_torch.algos.common import TrainState, carried_tensors
+from actor_critic_tpu_torch.algos.common import OffPolicyState, TrainState, carried_tensors
 from actor_critic_tpu_torch.utils.cadence import finite_or_none
 
 STATE_FILE, METRICS_FILE = "state.pt", "metrics.json"
@@ -61,7 +63,8 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def save(self, step: int, state: TrainState, metrics: Optional[dict] = None) -> None:
+    def save(self, step: int, state: Union[TrainState, OffPolicyState],
+             metrics: Optional[dict] = None) -> None:
         """Write `state` (and the scalar `metrics`) as the checkpoint of
         iteration `step`, replacing one already there. Reads the tensors to
         the host, so it waits for the device."""
@@ -82,7 +85,7 @@ class Checkpointer:
         for old in self.all_steps()[:-self.max_to_keep]:
             shutil.rmtree(self._path(old))
 
-    def restore(self, state: TrainState, step: Optional[int] = None) -> int:
+    def restore(self, state: Union[TrainState, OffPolicyState], step: Optional[int] = None) -> int:
         """Copy the checkpoint of iteration `step` (default: the latest) into
         `state` in place; returns the step. Raises FileNotFoundError when
         there is none, ValueError when its tensors are not the state's."""

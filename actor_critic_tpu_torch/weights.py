@@ -7,7 +7,11 @@ under the same path with dots (`torso/dense_0` → `torso.dense_0`). A flax
 `weight [out, in, kh, kw]`, which is `permute(3, 2, 0, 1)` of it (a plain
 transpose would also swap kh and kw: invisible in the shapes of square
 kernels, wrong in the values). A bare parameter such as
-`ActorCriticGaussian`'s `log_std` keeps its name and values. Both sides are plain numpy / torch here,
+`ActorCriticGaussian`'s `log_std` keeps its name and values; the
+off-policy nets map the same way (`torso`, `action`, `mean`, `log_std`, `q`,
+`q1`/`q2`: SAC's `log_std` head is a Dense, so its leaves are `kernel` and
+`bias`), and an optax `adam` state without a clip before it converts by
+`adam_state_from_optax` as the clipped chain's does. Both sides are plain numpy / torch here,
 so this module needs neither JAX nor the JAX package: the caller hands it
 `jax.device_get(params)`.
 """

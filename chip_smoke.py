@@ -18,7 +18,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    the loop's CUDA-graph path against the same iterations run eagerly from
    the same seed, every carried tensor compared (for the mixture: every
    member slot, the types, the curriculum weights and stage; for IMPALA:
-   the actors' copy and RMSProp's moments) and the generator's state; then
+   the actors' copy and RMSProp's moments) and the generator's state; the
+   same for the off-policy learners of `ddpg_walker2d`, `td3_walker2d` and
+   `sac_humanoid` on `jax:pendulum` with the warm-up cut to 128 env steps
+   (8 iterations: the 1M ring, its stats, targets, every Adam state, log α;
+   the update gate must first open on a replayed iteration); then
    each eval as replays of captured blocks against the eager loop from one
    generator state (`a2c_cartpole`'s and `impala_pong`'s greedy evals,
    `a2c_mixture`'s greedy eval and its four typed evals through one set of
@@ -44,10 +48,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      checkpoints equal at 0.0 over every carried tensor and the generator;
    - `--chunk 4` against `--chunk 1` on `a2c_cartpole`, the final
      checkpoints equal at 0.0 and GAE launched once an iteration;
+   - the off-policy trainers: the learners of `ddpg_walker2d`,
+     `td3_walker2d` and `sac_humanoid` at their published width (E=1,
+     K=J=64, batch 256, hidden (256, 256), a 1M-transition ring) on
+     `jax:pendulum`, each for 200 iterations across its preset's
+     10,000-step warm-up (the gate opens at iteration 157, inside the
+     replays), update count read back from the final checkpoint; SAC
+     learning Pendulum (best greedy eval >= -250 in 2,000 iterations) and
+     TD3 the point mass (> -1.0) through the graph; `td3_walker2d` with
+     `--replay-dtype mixed` 8 straight against 4 + `--resume` 4, and
+     `sac_humanoid` `--chunk 4` against `--chunk 1`, at 0.0; and SAC's 64
+     updates at Humanoid-v5's shapes (obs 348, action 17) over a full 1M
+     ring in fp32 and mixed as one captured graph (ms an update, launches,
+     peak memory);
    then IMPALA's learning check on the two-state MDP, and where a train
-   step's time goes for `a2c_cartpole`, `ppo_cartpole`, `a2c_mixture` and
-   `impala_pong` (eager and as graph replays, in the same call; host clock
-   and torch.profiler, V-trace's own time inside the graph);
+   step's time goes for `a2c_cartpole`, `ppo_cartpole`, `a2c_mixture`,
+   `impala_pong` and `sac_humanoid` on `jax:pendulum` (eager and as graph
+   replays, in the same call; host clock and torch.profiler, V-trace's own
+   time inside the graph);
 6. a `{"kernels": [...]}` line, then the card's name and power limit;
 7. last line: `{"ok": true, "device": {"platform": "gpu", ...}}`.
 
@@ -631,14 +649,15 @@ def drive(argv: list[str], show_every: int) -> tuple[list[dict], dict, dict[str,
     return logged, summary, launches
 
 
-def check_rows(logged: list[dict], iterations: int) -> None:
-    """Every iteration 1..`iterations` logged or the first and last; finite
-    losses on every logged row."""
+def check_rows(logged: list[dict], iterations: int,
+               keys: tuple[str, ...] = ("loss", "pg_loss", "v_loss", "entropy")) -> None:
+    """Every iteration 1..`iterations` logged or the first and last; the
+    losses `keys` finite on every logged row."""
     import math
 
     assert logged[0]["iter"] == 1 and logged[-1]["iter"] == iterations, (logged[0], logged[-1])
     for r in logged:
-        for k in ("loss", "pg_loss", "v_loss", "entropy"):
+        for k in keys:
             assert r[k] is not None and math.isfinite(r[k]), (r["iter"], k, r[k])
 
 
@@ -947,15 +966,351 @@ def check_impala_learns() -> None:
     assert 50.0 < float(values[0]) <= 110.0, values
 
 
-def profile_step(preset_name: str, n: int = 3) -> None:
-    """Where a full-width train step of a preset goes, in one call:
-    host-clock rollout and update times of `n` eager steps; then the step
-    run eagerly and, for a capturable trainer, as replays of the loop's
-    CUDA graph, each with its host-clock time per step over `n` steps
-    (synchronised) and its device busy time, busy share and kernel
-    launches per step from torch.profiler over `n` more (top kernels for
-    the eager step). The busy share is the busy time over the unprofiled
-    host-clock time."""
+# ------------------------------------------------------------------ off-policy
+# The MuJoCo presets' learners on `jax:pendulum`, each at its published
+# width (E=1, K=J=64, batch 256, hidden (256, 256), a 1M-transition ring).
+OFFPOLICY_PRESETS = ("ddpg_walker2d", "td3_walker2d", "sac_humanoid")
+OFFPOLICY_ENV = "jax:pendulum"
+OFFPOLICY_GRAPH_ITERATIONS = 8   # 2 eager, a capture, replays; the gate opens at 4
+OFFPOLICY_GRAPH_WARMUP = 128     # env steps: iterations 1-2; the 256-row batch is in at 4
+OFFPOLICY_MAIN_ITERATIONS = 200  # the presets' own 10,000-step warm-up ends at 157
+SAC_LEARN_ITERATIONS, SAC_LEARN_EVAL_EVERY = 2000, 500
+HUMANOID_OBS, HUMANOID_ACT = 348, 17  # Humanoid-v5 (gymnasium 1.2.2)
+
+
+def offpolicy_setup(preset_name: str, **overrides):
+    """(module, config, env) of an off-policy preset's learner on
+    `jax:pendulum`, `overrides` applied to its config."""
+    from actor_critic_tpu_torch import train
+    from actor_critic_tpu_torch.config import PRESETS
+
+    preset = PRESETS[preset_name]
+    cfg = dataclasses.replace(preset.config, **overrides)
+    return train.ALGOS[preset.algo], cfg, train.make_env(OFFPOLICY_ENV, {})
+
+
+def check_offpolicy_graph_equals_eager(preset_name: str) -> None:
+    """The loop's CUDA-graph path against eager execution for an off-policy
+    preset's learner on Pendulum at full width, with the warm-up cut to 128
+    env steps: OFFPOLICY_GRAPH_ITERATIONS iterations each way from one seed.
+    Every carried tensor (the 1M-slot ring, its cursor, count and stats,
+    both nets, the targets, every Adam state, log α, the counts), the last
+    metrics and the generator's state agree at 1e-6 (expected 0.0). The
+    update count is read after every iteration: its first rise must fall on
+    a replayed iteration (the gate opens on the device, not at capture);
+    for TD3 the actor's Adam count is half the critic's."""
+    import torch
+
+    from actor_critic_tpu_torch.algos import loop
+    from actor_critic_tpu_torch.algos.common import carried_tensors
+
+    mod, cfg, env = offpolicy_setup(preset_name, warmup_steps=OFFPOLICY_GRAPH_WARMUP)
+    n = OFFPOLICY_GRAPH_ITERATIONS
+    runs = {}
+    for capturable in (False, True):
+        counts: list[int] = []
+
+        def hook(it, state, counts=counts):
+            if it > 0:
+                counts.append(int(state.learner.update_count))
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = loop.fused_train_loop(
+            mod.make_train_step, mod.init_state, env, cfg, n, seed=5, device="cuda",
+            capturable=capturable, state_hook=hook)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        tensors = dict(carried_tensors(state), generator=state.generator.get_state())
+        tensors.update({f"metric {k}": v for k, v in metrics.items()})
+        runs[capturable] = (tensors, counts, seconds, state)
+    (eager, eager_counts, eager_s, _), (graph, counts, graph_s, state) = runs[False], runs[True]
+    assert sorted(eager) == sorted(graph)
+    diffs = {k: float((graph[k].double() - eager[k].double()).abs().max()) for k in eager}
+    worst = max(diffs.values())
+    first_rise = next(i + 1 for i, c in enumerate(counts) if c > 0)
+    learner = state.learner
+    actor_count, critic_count = int(learner.actor_opt.count), int(learner.critic_opt.count)
+    print(
+        f"graph vs eager, {preset_name} on {OFFPOLICY_ENV} (E={cfg.num_envs}, K=J="
+        f"{cfg.steps_per_iter}, batch {cfg.batch_size}, ring {cfg.buffer_capacity}, warm-up "
+        f"{cfg.warmup_steps}), {n} iterations ({loop.WARMUP_ITERATIONS} eager, then replays): "
+        f"max abs difference {worst:.3e} over {len(diffs)} tensors (worst: "
+        f"{max(diffs, key=diffs.get)}), the generator's state "
+        f"{'equal' if diffs['generator'] == 0 else 'DIFFERENT'}; update_count by iteration "
+        f"{counts} (eager {eager_counts}), first rise at iteration {first_rise}; Adam counts "
+        f"actor {actor_count}, critic {critic_count}; {graph_s:.2f} s (eager {eager_s:.2f} s, "
+        f"capture included)", flush=True)
+    assert worst <= 1e-6, {k: d for k, d in diffs.items() if d > 1e-6}
+    assert counts == eager_counts, (counts, eager_counts)
+    assert first_rise > loop.WARMUP_ITERATIONS, first_rise
+    assert counts[-1] == (n - first_rise + 1) * cfg.updates_per_iter, counts
+    if getattr(cfg, "policy_delay", 1) == 2:
+        assert 2 * actor_count == critic_count, (actor_count, critic_count)
+
+
+def run_offpolicy_main(preset_name: str) -> None:
+    """An off-policy preset's learner at full width through `train.main`
+    (`--preset <name> --env jax:pendulum`) for OFFPOLICY_MAIN_ITERATIONS
+    iterations, across the preset's own 10,000-step warm-up, the step
+    replayed as a CUDA graph from iteration 3; the final checkpoint gives
+    back the update count (it must have risen) and the ring's size. Prints
+    ms an iteration over the replays before and after the gate opens,
+    env-steps/s and updates/s."""
+    import math
+    import shutil
+
+    n = OFFPOLICY_MAIN_ITERATIONS
+    d = f"{SCRATCH}/main_{preset_name}"
+    shutil.rmtree(d, ignore_errors=True)
+    logged, summary, launches = drive(
+        ["--preset", preset_name, "--env", OFFPOLICY_ENV, "--iterations", str(n),
+         "--log-every", "1", "--eval-every", str(n), "--seed", "0", "--ckpt-dir", d,
+         "--save-every", "0"], show_every=50)
+    check_rows(logged, n, keys=("critic_loss", "actor_loss", "q_mean"))
+    assert launches == {"gae": 0, "vtrace": 0}, launches
+    saved = final_checkpoint(d, n)["tensors"]
+    updates, size = int(saved["learner.update_count"]), int(saved["learner.replay size"])
+    env_steps = int(saved["env_steps"])
+    _, cfg, _ = offpolicy_setup(preset_name)
+    opened = -(-cfg.warmup_steps // (cfg.steps_per_iter * cfg.num_envs))  # iteration 157
+    assert updates == (n - opened + 1) * cfg.updates_per_iter, (updates, opened)
+    assert size == env_steps == n * cfg.steps_per_iter * cfg.num_envs, (size, env_steps)
+    for k, v in summary.items():
+        assert not isinstance(v, float) or math.isfinite(v), (k, v)
+    rows = {r["iter"]: r for r in logged}
+    ev = logged[-1].get("eval_return")
+    assert ev is not None and math.isfinite(ev), logged[-1]
+    per = lambda a, b: (rows[b]["wall_s"] - rows[a]["wall_s"]) / (b - a)
+    before, after = per(3, opened - 1), per(opened + 1, n)
+    spi = cfg.steps_per_iter * cfg.num_envs
+    print(
+        f"main path {preset_name} on {OFFPOLICY_ENV} (CUDA graph from iteration 3): {n} "
+        f"iterations of {spi} env steps and {cfg.updates_per_iter} updates; eager iteration 1 "
+        f"{rows[1]['wall_s'] * 1e3:.1f} ms, iteration 2 {per(1, 2) * 1e3:.1f} ms; "
+        f"{before * 1e3:.3f} ms/iteration over the replays before the gate opens (3-{opened - 1}),"
+        f" {after * 1e3:.3f} after it ({opened + 1}-{n}): {spi / after:.0f} env-steps/s, "
+        f"{cfg.updates_per_iter / after:.0f} updates/s; update_count {updates} (the gate opened "
+        f"at iteration {opened}), ring size {size}; critic_loss {rows[n]['critic_loss']:.4f}, "
+        f"greedy eval {ev:.3f}", flush=True)
+
+
+def run_offpolicy_learning() -> None:
+    """Learning on the card through the CUDA graph: SAC on Pendulum at
+    tests/test_sac.py::test_sac_learns_jax_pendulum_fused's config (E=8,
+    K=J=8, hidden (128, 128), batch 128, warm-up 1,000; 2,000 iterations, a
+    greedy eval of 8 envs × 200 steps every 500; best >= -250), and TD3 on
+    the point mass at tests/test_ddpg.py::test_td3_learns_point_mass's
+    (250 iterations, seed 2; greedy return of 32 envs × 16 steps > -1.0)."""
+    import torch
+
+    from actor_critic_tpu_torch.algos import ddpg, loop, sac
+    from actor_critic_tpu_torch.envs import make_pendulum, make_point_mass
+
+    env = make_pendulum()
+    cfg = sac.SACConfig(num_envs=8, steps_per_iter=8, updates_per_iter=8, hidden=(128, 128),
+                        batch_size=128, warmup_steps=1000)
+    eval_fn = sac.make_eval_fn(env, cfg)
+    gen = torch.Generator(device="cuda")
+    evals = {}
+
+    def hook(it, state):
+        if it > 0 and it % SAC_LEARN_EVAL_EVERY == 0:
+            gen.manual_seed(1)
+            evals[it] = float(eval_fn(state, gen, 8, 200))
+
+    t0 = time.perf_counter()
+    loop.fused_train_loop(sac.make_train_step, sac.init_state, env, cfg, SAC_LEARN_ITERATIONS,
+                          seed=0, device="cuda", capturable=True, state_hook=hook)
+    torch.cuda.synchronize()
+    sac_s = time.perf_counter() - t0
+    best = max(evals.values())
+    print(f"SAC learns Pendulum on the card ({SAC_LEARN_ITERATIONS} iterations through the "
+          f"graph, {sac_s:.1f} s with the evals): greedy evals {evals}, best {best:.3f} "
+          f"(bar -250)", flush=True)
+    assert best >= -250.0, evals
+
+    env = make_point_mass()
+    cfg = ddpg.td3_config(num_envs=16, steps_per_iter=4, updates_per_iter=4,
+                          buffer_capacity=32768, batch_size=64, hidden=(32, 32), actor_lr=1e-3,
+                          critic_lr=1e-3, warmup_steps=256, exploration_noise=0.2)
+    t0 = time.perf_counter()
+    state, _ = ddpg.train(env, cfg, num_iterations=250, seed=2, device="cuda")
+    gen.manual_seed(99)
+    ret = float(ddpg.make_eval_fn(env, cfg)(state, gen, 32, 16))
+    print(f"TD3 learns the point mass on the card (250 iterations through the graph, "
+          f"{time.perf_counter() - t0:.1f} s): greedy return {ret:.4f} (bar -1.0)", flush=True)
+    assert ret > -1.0, ret
+
+
+def run_offpolicy_resume_and_chunk() -> None:
+    """`td3_walker2d` on Pendulum with `--replay-dtype mixed` (warm-up cut to
+    128 env steps so that the legs update): RESUME_ITERATIONS straight
+    against RESUME_AT plus a resumed rest through `train.main`, the final
+    checkpoints equal at 0.0 (the int8 ring, its stats, both targets, both
+    Adam states, the counts) and the generator's state equal; then
+    `--chunk 4` against `--chunk 1` for `sac_humanoid` on Pendulum over
+    CHUNK_ITERATIONS, the same."""
+    import shutil
+
+    import torch
+
+    n, k = RESUME_ITERATIONS, RESUME_AT
+    base = ["--preset", "td3_walker2d", "--env", OFFPOLICY_ENV, "--replay-dtype", "mixed",
+            "--set", f"warmup_steps={OFFPOLICY_GRAPH_WARMUP}", "--seed", "3"]
+    dirs = {leg: f"{SCRATCH}/resume_td3_{leg}" for leg in ("straight", "legs")}
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    drive(base + ["--iterations", str(n), "--ckpt-dir", dirs["straight"], "--save-every", "0"],
+          show_every=n)
+    drive(base + ["--iterations", str(k), "--ckpt-dir", dirs["legs"], "--save-every", str(k)],
+          show_every=n)
+    drive(base + ["--iterations", str(n), "--ckpt-dir", dirs["legs"], "--save-every", str(k),
+                  "--resume"], show_every=n)
+    a, b = final_checkpoint(dirs["straight"], n), final_checkpoint(dirs["legs"], n)
+    worst, gen_differs = checkpoint_diff(a, b)
+    updates = int(a["tensors"]["learner.update_count"])
+    print(f"resume td3_walker2d on {OFFPOLICY_ENV} (mixed ring): {n} straight vs {k} + resumed "
+          f"{n - k}, through the CUDA graph: max abs difference {worst:.3e} over "
+          f"{len(a['tensors'])} tensors, generator state "
+          f"{'equal' if not gen_differs else 'DIFFERENT'}; update_count {updates}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    assert worst == 0.0 and not gen_differs, (worst, gen_differs)
+    assert updates > 0 and a["tensors"]["learner.replay storage.obs"].dtype == torch.int8
+
+    n = CHUNK_ITERATIONS
+    out = {}
+    for chunk in (1, CHUNK):
+        d = f"{SCRATCH}/chunk_sac{chunk}"
+        shutil.rmtree(d, ignore_errors=True)
+        t0 = time.perf_counter()
+        _, summary, _ = drive(
+            ["--preset", "sac_humanoid", "--env", OFFPOLICY_ENV, "--iterations", str(n),
+             "--set", f"warmup_steps={OFFPOLICY_GRAPH_WARMUP}", "--chunk", str(chunk),
+             "--ckpt-dir", d, "--save-every", "0", "--log-every", str(CHUNK)],
+            show_every=n)
+        out[chunk] = (final_checkpoint(d, n), summary, time.perf_counter() - t0)
+    (s1, sum1, t1), (s4, sum4, t4) = out[1], out[CHUNK]
+    worst, gen_differs = checkpoint_diff(s1, s4)
+    print(f"--chunk {CHUNK} vs --chunk 1, sac_humanoid on {OFFPOLICY_ENV}, {n} iterations: max "
+          f"abs difference {worst:.3e} over every carried tensor, generator state "
+          f"{'equal' if not gen_differs else 'DIFFERENT'}; update_count "
+          f"{int(s4['tensors']['learner.update_count'])}; {t4:.1f} s (chunk 1: {t1:.1f} s)",
+          flush=True)
+    assert worst == 0.0 and not gen_differs, (worst, gen_differs)
+    assert {k: v for k, v in sum1.items() if k != "wall_s"} == {
+        k: v for k, v in sum4.items() if k != "wall_s"}
+
+
+def check_humanoid_update_loop() -> None:
+    """`sac_humanoid`'s learner at Humanoid-v5's shapes (obs 348, action 17;
+    hidden (256, 256), batch 256) over a full 1M-transition ring, in `fp32`
+    and in `mixed`: the ring filled by `add_batch` with seeded synthetic
+    transitions (on the card, 65,536 a call), then its J=64 updates
+    captured as one CUDA graph and replayed. Prints ms an update (CUDA
+    events over replays), kernel launches and device busy time per replay
+    (torch.profiler), the ring's bytes and `torch.cuda.max_memory_allocated`;
+    the losses stay finite and the update count advances by 64 a replay.
+    The peak counts what the process held before the phase (earlier
+    phases' graph pools and caches), so the peak above that is printed
+    beside it."""
+    import math
+
+    import torch
+
+    from actor_critic_tpu_torch import replay
+    from actor_critic_tpu_torch.algos import sac
+    from actor_critic_tpu_torch.algos.common import OffPolicyTransition
+    from actor_critic_tpu_torch.config import PRESETS
+
+    from actor_critic_tpu_torch.algos.ddpg import example_transition
+
+    base = PRESETS["sac_humanoid"].config
+    for name, (obs_dim, act_dim) in (("Pendulum", (3, 1)),
+                                     ("Humanoid-v5", (HUMANOID_OBS, HUMANOID_ACT))):
+        sizes = []
+        for mode in replay.quantize.MODES:
+            one = replay.init(example_transition((obs_dim,), act_dim, torch.device("cpu")), 1,
+                              replay.offpolicy_codecs(mode))
+            r = replay.quantize.capacity_report(one, replay.offpolicy_codecs(mode))
+            sizes.append(f"{mode} {r['bytes_per_transition']} B ({r['capacity_multiplier']}x)")
+        print(f"ring bytes a transition at {name}'s shapes (obs {obs_dim}, action {act_dim}): "
+              f"{', '.join(sizes)}", flush=True)
+    for mode in ("fp32", "mixed"):
+        held = torch.cuda.memory_allocated()  # earlier phases' graphs and caches
+        torch.cuda.reset_peak_memory_stats()
+        cfg = dataclasses.replace(base, replay_dtype=mode)
+        learner = sac.init_learner((HUMANOID_OBS,), HUMANOID_ACT, cfg,
+                                   torch.Generator().manual_seed(0), "cuda")
+        codecs = replay.offpolicy_codecs(mode)
+        g = torch.Generator(device="cuda").manual_seed(1)
+        chunk = 1 << 16
+        t0 = time.perf_counter()
+        for _ in range(-(-cfg.buffer_capacity // chunk)):
+            obs = torch.randn((chunk, HUMANOID_OBS), generator=g, device="cuda")
+            batch = OffPolicyTransition(
+                obs=obs,
+                action=torch.rand((chunk, HUMANOID_ACT), generator=g, device="cuda") * 2 - 1,
+                reward=torch.randn((chunk,), generator=g, device="cuda"),
+                next_obs=obs + 0.1 * torch.randn((chunk, HUMANOID_OBS), generator=g,
+                                                 device="cuda"),
+                terminated=(torch.rand((chunk,), generator=g, device="cuda") < 0.01).float(),
+                done=(torch.rand((chunk,), generator=g, device="cuda") < 0.01).float())
+            replay.add_batch(learner.replay, batch, codecs)
+        torch.cuda.synchronize()
+        fill_s = time.perf_counter() - t0
+        report = replay.quantize.capacity_report(learner.replay, codecs)
+        assert int(learner.replay.size) == cfg.buffer_capacity
+        update_loop = sac.make_update_loop(HUMANOID_ACT, cfg)
+        do_update = torch.ones((), dtype=torch.bool, device="cuda")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            update_loop(learner, do_update, g)  # warm-up: cuBLAS, tables, autograd
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(g)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            metrics = update_loop(learner, do_update, g)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        count0 = int(learner.update_count)
+        ms = cuda_ms(graph.replay, iters=10, warmup=2)
+        kernels, wall = profile_kernels(graph.replay, iters=3)
+        busy_us = sum(us for _, us in kernels.values()) / 3
+        launches = sum(c for c, _ in kernels.values()) / 3
+        assert int(learner.update_count) == count0 + 15 * cfg.updates_per_iter
+        values = {k: float(v) for k, v in metrics.items()}
+        assert all(math.isfinite(v) for v in values.values()), values
+        peak = torch.cuda.max_memory_allocated()
+        print(
+            f"SAC update loop at Humanoid-v5's shapes (obs {HUMANOID_OBS}, action "
+            f"{HUMANOID_ACT}, hidden {cfg.hidden}, batch {cfg.batch_size}), {mode} ring of "
+            f"{cfg.buffer_capacity} ({report['bytes_per_transition']} B a transition, ring "
+            f"{report['ring_bytes'] / 1e9:.3f} GB, {report['capacity_multiplier']}x fp32's "
+            f"transitions a byte), filled in {fill_s:.2f} s: {cfg.updates_per_iter} updates "
+            f"as one CUDA graph (capture {capture_s:.2f} s), {ms:.3f} ms a replay, "
+            f"{ms / cfg.updates_per_iter * 1e3:.1f} us an update (CUDA events); "
+            f"{launches:.0f} kernel launches a replay, device busy {busy_us / 1e3:.3f} ms "
+            f"(torch.profiler); max_memory_allocated {peak / 1e9:.3f} GB, {(peak - held) / 1e9:.3f} "
+            f"GB above the {held / 1e9:.3f} GB held before this ring; last critic_loss "
+            f"{values['critic_loss']:.4f}, alpha {values['alpha']:.4f}", flush=True)
+        del learner, graph, metrics
+
+
+def profile_step(preset_name: str, n: int = 3, env_spec: str = "") -> None:
+    """Where a full-width train step of a preset goes, in one call (on
+    `env_spec` instead of the preset's env where one is given): for an
+    on-policy trainer, host-clock rollout and update times of `n` eager
+    steps; then the step run eagerly and, for a capturable trainer, as
+    replays of the loop's CUDA graph, each with its host-clock time per
+    step over `n` steps (synchronised) and its device busy time, busy share
+    and kernel launches per step from torch.profiler over `n` more (top
+    kernels for the eager step). The busy share is the busy time over the
+    unprofiled host-clock time."""
     import torch
 
     from actor_critic_tpu_torch import train
@@ -964,30 +1319,31 @@ def profile_step(preset_name: str, n: int = 3) -> None:
 
     preset = PRESETS[preset_name]
     mod, cfg = train.ALGOS[preset.algo], preset.config
-    env = train.make_env(preset.env, preset.env_kwargs)
+    env = train.make_env(env_spec or preset.env, {} if env_spec else preset.env_kwargs)
     state = mod.init_state(env, cfg, seed=1, device="cuda")
-    opt = mod.make_optimizer(cfg)
     step = mod.make_train_step(env, cfg)
     side = torch.cuda.Stream()
     for _ in range(loop.WARMUP_ITERATIONS):
         loop.eager_step(step, state, side)
     torch.cuda.synchronize()
-    t_roll = t_upd = 0.0
-    for _ in range(n):
-        t0 = time.perf_counter()
-        traj = mod.rollout(env, cfg, state)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        mod.update(env, cfg, opt, state, traj)
-        torch.cuda.synchronize()
-        t_roll += t1 - t0
-        t_upd += time.perf_counter() - t1
-    print(
-        f"{preset_name} train step at E={cfg.num_envs}, T={cfg.rollout_steps} "
-        f"(host clock, synchronised, eager): rollout {t_roll / n * 1e3:.3f} ms, "
-        f"update {t_upd / n * 1e3:.3f} ms",
-        flush=True,
-    )
+    if hasattr(mod, "rollout"):
+        opt = mod.make_optimizer(cfg)
+        t_roll = t_upd = 0.0
+        for _ in range(n):
+            t0 = time.perf_counter()
+            traj = mod.rollout(env, cfg, state)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            mod.update(env, cfg, opt, state, traj)
+            torch.cuda.synchronize()
+            t_roll += t1 - t0
+            t_upd += time.perf_counter() - t1
+        print(
+            f"{preset_name} train step at E={cfg.num_envs}, T={cfg.rollout_steps} "
+            f"(host clock, synchronised, eager): rollout {t_roll / n * 1e3:.3f} ms, "
+            f"update {t_upd / n * 1e3:.3f} ms",
+            flush=True,
+        )
     modes = [("eager", lambda: step(state))]
     if mod.CAPTURABLE:
         captured = loop.CapturedStep(step, state)
@@ -1057,6 +1413,8 @@ def main() -> int:
     check_impala_update_on_card()
     for preset_name in ("a2c_cartpole", "ppo_cartpole", "a2c_mixture", "impala_pong", "a3c_pong"):
         check_graph_equals_eager(preset_name)
+    for preset_name in OFFPOLICY_PRESETS:
+        check_offpolicy_graph_equals_eager(preset_name)
     check_eval_graphs()
     # Each kernel's launches on its own main path.
     launches = {"gae": run_a2c_cartpole()["gae"], "vtrace": run_impala_pong()["vtrace"]}
@@ -1068,6 +1426,11 @@ def main() -> int:
     run_resume("impala_pong", [])
     run_resume("a2c_mixture", ["--eval-every", str(RESUME_AT), "--curriculum=-1e9:0,0,0,1"])
     run_chunk()
+    for preset_name in OFFPOLICY_PRESETS:
+        run_offpolicy_main(preset_name)
+    run_offpolicy_learning()
+    run_offpolicy_resume_and_chunk()
+    check_humanoid_update_loop()
     check_impala_learns()
     profile_step("a2c_cartpole")
     # One step each way for the steps of ~21,000–24,000 launches: the
@@ -1075,6 +1438,7 @@ def main() -> int:
     profile_step("ppo_cartpole", n=1)
     profile_step("a2c_mixture", n=1)
     profile_step("impala_pong")
+    profile_step("sac_humanoid", n=1, env_spec=OFFPOLICY_ENV)
     for e in entries:
         e["launches"] = launches[e["name"]]
         assert e["launches"] > 0, f"kernel {e['name']} was not launched on the main path"

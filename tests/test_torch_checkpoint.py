@@ -6,23 +6,32 @@
   restore into a fresh state gives them back bit for bit;
 - N iterations straight equal k iterations plus a resumed N − k, bit for
   bit over every carried tensor and the metrics, for A2C, PPO, IMPALA and
-  A3C on Pong, and A2C on the mixture fleet;
+  A3C on Pong, A2C on the mixture fleet, TD3 on a `mixed` ring and SAC
+  (the ring, its stats, the targets, log α and every count included);
 - the curriculum's stage and weights ride the checkpoint, and a resumed
   run does not re-fire a threshold it has crossed;
 - retention keeps the newest, a missing or foreign checkpoint raises, and
   a non-finite state is refused at save.
 """
 
+import dataclasses
 import json
 
 import numpy as np
 import pytest
 import torch
 
-from actor_critic_tpu_torch.algos import a2c, impala, ppo
+from actor_critic_tpu_torch.algos import a2c, ddpg, impala, ppo, sac
 from actor_critic_tpu_torch.algos.common import carried_tensors
 from actor_critic_tpu_torch.algos.loop import fused_train_loop
-from actor_critic_tpu_torch.envs import make_cartpole, make_mixture, make_pong, make_two_state_mdp
+from actor_critic_tpu_torch.envs import (
+    make_cartpole,
+    make_mixture,
+    make_pendulum,
+    make_point_mass,
+    make_pong,
+    make_two_state_mdp,
+)
 from actor_critic_tpu_torch.envs import mixture as mx
 from actor_critic_tpu_torch.utils.checkpoint import Checkpointer, NonFiniteError
 
@@ -38,6 +47,17 @@ CASES = {
                  lambda: make_pong(size=42, max_steps=12)),
     "a2c_mixture": (a2c, a2c.A2CConfig(num_envs=16, rollout_steps=4, hidden=(16,)),
                     lambda: make_mixture(randomize=0.2, redraw_types=True)),
+    # The off-policy trainers: the ring (int8 codes and their stats in
+    # `mixed`), both targets, both Adam states, log α and its Adam, the
+    # update count and the env-step count ride the checkpoint. The gate
+    # opens at iteration 1 (16 env steps, a 16-row batch).
+    "td3_mixed": (ddpg, ddpg.td3_config(num_envs=4, steps_per_iter=4, updates_per_iter=2,
+                                        buffer_capacity=64, batch_size=16, hidden=(16,),
+                                        warmup_steps=16, replay_dtype="mixed"),
+                  make_point_mass),
+    "sac": (sac, sac.SACConfig(num_envs=4, steps_per_iter=4, updates_per_iter=2,
+                               buffer_capacity=64, batch_size=16, hidden=(16,), warmup_steps=16),
+            make_pendulum),
 }
 
 
@@ -225,3 +245,46 @@ def test_curriculum_checkpoint_resume(tmp_path):
     assert mx.fleet_stage(state2.rollout.env_state) == 1
     straight, _ = leg(8, False, None)
     _assert_equal(_snapshot(straight), _snapshot(state2))
+
+
+@pytest.mark.parametrize("name", ["td3_mixed", "sac"])
+def test_offpolicy_checkpoint_names_every_carried_tensor(name, tmp_path):
+    """The checkpoint of an off-policy state names the ring's every leaf,
+    cursor and stat, both nets and their targets, every Adam state (SAC's
+    log α and its Adam too) and the counts; a state of another ring size
+    is refused."""
+    mod, cfg, env, state = _setup(name)
+    names = set(carried_tensors(state))
+    for leaf in ("obs", "action", "reward", "next_obs", "terminated", "done"):
+        assert f"learner.replay storage.{leaf}" in names
+        assert {f"learner.replay quant.{leaf}.{s}" for s in ("mean", "scale", "count")} <= names
+    assert {"learner.replay insert_pos", "learner.replay size", "learner.update_count",
+            "env_steps", "step_counter", "learner.critic_opt count",
+            "learner.actor_opt count"} <= names
+    targets = ("learner.target_actor", "learner.target_critic") if name == "td3_mixed" else (
+        "learner.target_critic", "learner.log_alpha", "learner.alpha_opt count")
+    assert all(any(n.startswith(t) for n in names) for t in targets)
+    ck = Checkpointer(tmp_path / "ck")
+    ck.save(1, state)
+    other = mod.init_state(env, dataclasses.replace(cfg, buffer_capacity=32), seed=0, device="cpu")
+    with pytest.raises(ValueError, match="storage"):
+        ck.restore(other)
+
+
+@pytest.mark.parametrize("name", ["td3_mixed", "sac"])
+def test_offpolicy_resume_4_plus_4_equals_8(name, tmp_path):
+    """TD3 on a `mixed` ring and SAC: 8 iterations straight equal 4 saved
+    and a resumed 4, bit for bit over every carried tensor, the generator
+    and the metrics."""
+    mod, cfg, env, _ = _setup(name)
+    straight, m_straight = fused_train_loop(
+        mod.make_train_step, mod.init_state, env, cfg, 8, device="cpu")
+    ck = Checkpointer(tmp_path / "ck")
+    fused_train_loop(mod.make_train_step, mod.init_state, env, cfg, 4, device="cpu",
+                     ckpt=ck, save_every=4)
+    resumed, m_resumed = fused_train_loop(
+        mod.make_train_step, mod.init_state, env, cfg, 8, device="cpu",
+        ckpt=ck, save_every=4, resume=True)
+    assert int(resumed.learner.update_count) == 8 * cfg.updates_per_iter
+    _assert_equal(_snapshot(straight), _snapshot(resumed))
+    _assert_equal(m_straight, m_resumed)

@@ -12,9 +12,14 @@ JAX package's `config.py` and `train.py`:
 - a run checkpointed and resumed through the CLI logs and ends as the
   straight run, and the resume guard warns on a changed env;
 - `--algo/--env` runs a Gaussian A2C on `jax:pendulum` and IMPALA on
-  `jax:point_mass`;
-- what is not ported yet (`--algo ddpg|td3|sac`, `host:`/`native:` envs,
-  the flags of later paths) exits with a message saying so.
+  `jax:point_mass`, and the off-policy trainers: `--algo ddpg|td3|sac` on
+  `jax:point_mass`, and a MuJoCo preset's learner on `jax:pendulum`;
+- `--list-presets` names JAX's ten presets, in JAX's order;
+- `--replay-dtype` sets the ring's codecs, and exits on an algorithm with
+  no ring, as JAX's;
+- what is not ported yet (`host:`/`native:` envs, so the MuJoCo presets
+  as they are, and the flags of later paths) exits with a message saying
+  so.
 """
 
 import dataclasses
@@ -89,6 +94,12 @@ RESOLVE_CASES = [
     ("a2c_mixture", None, None, ["hidden=32"], ["randomize=0.1"]),
     (None, "a3c", "jax:pong", ["num_envs=8"], ["size=42"]),
     (None, "ppo", "jax:point_mass", [], []),
+    ("sac_humanoid", None, "jax:pendulum", ["warmup_steps=64"], []),
+    ("td3_walker2d", None, "jax:pendulum", ["replay_dtype=mixed"], []),
+    ("ddpg_walker2d", "td3", None, [], []),
+    ("ppo_halfcheetah", None, None, [], []),
+    (None, "sac", "jax:point_mass", ["fixed_alpha=0.2", "hidden=32,32"], []),
+    (None, "td3", "jax:pendulum", ["nstep=3", "num_envs=1"], []),
 ]
 
 
@@ -112,10 +123,10 @@ def test_resolve_errors():
         tconfig.resolve(None, "a2c", None, {})
     with pytest.raises(KeyError, match="unknown algo"):
         tconfig.default_config("bogus")
-    for algo in tconfig.UNPORTED_ALGOS:
-        assert algo in jconfig.ALGO_CONFIGS
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tconfig.default_config(algo)
+    # Every algorithm of the JAX package has its config in the port.
+    assert list(tconfig.ALGO_CONFIGS) == list(jconfig.ALGO_CONFIGS)
+    with pytest.raises(ValueError, match="init_alpha"):
+        tconfig.resolve(None, "sac", "jax:pendulum", {"init_alpha": "0"})
 
 
 def test_list_presets(capsys):
@@ -249,8 +260,8 @@ def test_algo_env_runs(algo, env, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--algo", "ddpg", "--env", "jax:pendulum"], "not ported"),
-    (["--algo", "sac", "--env", "jax:point_mass"], "not ported"),
+    (["--preset", "sac_humanoid"], "not ported"),
+    (["--preset", "ddpg_walker2d", "--replay-dtype", "mixed"], "not ported"),
     (["--preset", "ppo_cartpole", "--env", "host:CartPole-v1"], "not ported"),
     (["--algo", "ppo", "--env", "native:HalfCheetah-v5"], "not ported"),
     (["--algo", "ppo", "--env", "gym:CartPole-v1"], "env must be"),
@@ -271,3 +282,50 @@ def test_flags_still_to_port_are_refused(flag, capsys):
         train.main(["--preset", "a2c_cartpole", flag, "2", "--device", "cpu"])
     err = capsys.readouterr().err
     assert f"{flag} is not ported yet" in err and train.UNPORTED_FLAGS[flag] in err
+
+
+def test_list_presets_names_jax_presets(capsys):
+    assert train.main(["--list-presets"]) == 0
+    names = [line.split()[0] for line in capsys.readouterr().out.splitlines()]
+    assert names == list(jconfig.PRESETS) and len(names) == 10
+    for name in ("ddpg_walker2d", "td3_walker2d", "sac_humanoid", "ppo_halfcheetah"):
+        t, j = tconfig.PRESETS[name], jconfig.PRESETS[name]
+        assert (t.algo, t.env, t.iterations, t.env_kwargs) == (j.algo, j.env, j.iterations,
+                                                               j.env_kwargs)
+        assert dataclasses.asdict(t.config) == dataclasses.asdict(j.config)
+
+
+OFFPOLICY_RUNS = [
+    ["--algo", "ddpg", "--env", "jax:point_mass", "--set", "buffer_capacity=4096"],
+    ["--algo", "td3", "--env", "jax:point_mass", "--replay-dtype", "int8"],
+    ["--algo", "sac", "--env", "jax:point_mass", "--set", "batch_size=32"],
+    ["--preset", "td3_walker2d", "--env", "jax:pendulum", "--set", "warmup_steps=64",
+     "--set", "hidden=32,32", "--set", "updates_per_iter=4", "--replay-dtype", "mixed"],
+    ["--preset", "sac_humanoid", "--env", "jax:pendulum", "--set", "warmup_steps=64",
+     "--set", "hidden=32,32", "--set", "updates_per_iter=4"],
+]
+
+
+@pytest.mark.parametrize("argv", OFFPOLICY_RUNS, ids=lambda a: " ".join(a[:4]))
+def test_offpolicy_cli_runs(argv, capsys, tmp_path):
+    """Two iterations with an eval; the env steps an iteration takes are
+    K·E (`steps_per_iteration`), and the config takes --replay-dtype."""
+    rows, summary, notes = _cli(argv + ["--iterations", "2", "--eval-every", "2"],
+                                capsys, tmp_path)
+    preset = tconfig.resolve(*(argv[argv.index(f) + 1] if f in argv else None
+                               for f in ("--preset", "--algo", "--env")), {})
+    cfg = preset.config
+    assert notes[0].startswith(f"algo={preset.algo} env=")
+    if "--replay-dtype" in argv:
+        assert f"'replay_dtype': '{argv[argv.index('--replay-dtype') + 1]}'" in notes[0]
+    spi = cfg.steps_per_iter * cfg.num_envs
+    assert train.steps_per_iteration(preset.algo, cfg) == spi
+    assert [r["env_steps"] for r in rows] == [spi, 2 * spi] and summary["env_steps"] == 2 * spi
+    assert rows[-1]["eval_return"] is not None and summary["critic_loss"] is not None
+
+
+def test_replay_dtype_needs_a_ring():
+    with pytest.raises(SystemExit, match="has no replay storage"):
+        train.main(["--preset", "ppo_cartpole", "--replay-dtype", "mixed", "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        train.parse_args(["--algo", "sac", "--replay-dtype", "bf16"])

@@ -18,21 +18,31 @@ evals relies on, checked on the CPU, where the same code runs eagerly
   the card captures) returns what the plain loop returns, with the same
   draws, for the greedy eval and the mixture's typed evals, at a length
   with a tail block;
-- `--chunk`'s loop (k steps a dispatch) equals the per-iteration loop.
+- `--chunk`'s loop (k steps a dispatch) equals the per-iteration loop;
+- the same of the off-policy steps (DDPG, TD3 on a `mixed` ring, n-step
+  TD3, SAC on an `int8` ring): every carried tensor keeps its storage, the
+  ring's every leaf, cursor, count and stat among them, across steps that
+  wrap the ring, and the warm-up gate opens on the device.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from actor_critic_tpu_torch.algos import a2c, impala, loop, ppo
+from actor_critic_tpu_torch.algos import a2c, ddpg, impala, loop, ppo, sac
 from actor_critic_tpu_torch.algos.common import (
     EVAL_CHECK_EVERY,
     BlockedEval,
     carried_tensors,
     evaluate,
 )
-from actor_critic_tpu_torch.envs import make_cartpole, make_mixture, make_pong
+from actor_critic_tpu_torch.envs import (
+    make_cartpole,
+    make_mixture,
+    make_pendulum,
+    make_point_mass,
+    make_pong,
+)
 from actor_critic_tpu_torch.envs.mixture import make_typed_eval, set_fleet_weights
 from actor_critic_tpu_torch.optim import (
     B1,
@@ -223,6 +233,7 @@ def test_table_lookups_past_its_end_stay_exact(count):
 
 def test_capturable_flags_and_cpu_loop_runs_eagerly():
     assert (a2c.CAPTURABLE, ppo.CAPTURABLE, impala.CAPTURABLE) == (True, True, True)
+    assert (ddpg.CAPTURABLE, sac.CAPTURABLE) == (True, True)
     mod, cfg = TRAINERS["ppo"]
     state, metrics = loop.fused_train_loop(
         mod.make_train_step, mod.init_state, make_cartpole(), cfg,
@@ -293,3 +304,75 @@ def test_chunked_loop_equals_per_iteration(trainer):
     assert all(torch.equal(m1[k], m4[k]) for k in m1)
     assert torch.equal(g1, g4)
     assert log1 == [1, 4, 8, 10] and log4 == [4, 8, 10]
+
+
+# Off-policy steps at a tiny size: a 20-slot ring that 16 inserts an
+# iteration wrap at the second step, and a gate that opens at the first
+# (warm-up 8 env steps, batch 8).
+_OFF = dict(steps_per_iter=4, updates_per_iter=2, buffer_capacity=20, batch_size=8,
+            hidden=(8,), warmup_steps=8)
+OFFPOLICY_CASES = {
+    "ddpg": (ddpg, ddpg.DDPGConfig(num_envs=4, **_OFF), make_point_mass),
+    "td3_mixed": (ddpg, ddpg.td3_config(num_envs=4, replay_dtype="mixed", **_OFF), make_pendulum),
+    "td3_nstep": (ddpg, ddpg.td3_config(num_envs=1, nstep=3, **{**_OFF, "steps_per_iter": 16}),
+                  make_point_mass),
+    "sac_int8": (sac, sac.SACConfig(num_envs=4, replay_dtype="int8", **_OFF), make_pendulum),
+}
+
+
+@pytest.mark.parametrize("name", sorted(OFFPOLICY_CASES))
+def test_offpolicy_step_writes_the_state_in_place(name):
+    mod, cfg, make_env = OFFPOLICY_CASES[name]
+    env = make_env()
+    state = mod.init_state(env, cfg, seed=0, device="cpu")
+    step = mod.make_train_step(env, cfg)
+    before = {k: (t.data_ptr(), t.clone()) for k, t in carried_tensors(state).items()}
+    assert len({ptr for ptr, _ in before.values()}) == len(before)  # no two share storage
+    for it in (1, 2, 3):
+        state, metrics = step(state)
+        now = carried_tensors(state)
+        assert sorted(now) == sorted(before)
+        moved = [k for k, (ptr, _) in before.items() if now[k].data_ptr() != ptr]
+        assert not moved, f"rebound after step {it}: {moved}"
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    changed = {k for k, (_, old) in before.items() if not torch.equal(now[k], old)}
+    ring = {k for k in before if k.startswith("learner.replay storage.")}
+    assert len(ring) == 6
+    # Neither env ends an episode in these 12 steps: the flags stay 0.
+    assert {f"learner.replay storage.{k}" for k in ("obs", "action", "reward", "next_obs")} <= (
+        changed)
+    expected = ["learner.replay insert_pos", "learner.replay size", "learner.update_count",
+                "learner.critic_opt count", "learner.actor_opt count", "env_steps",
+                "step_counter", "rollout obs",
+                # n-step's 16-step iterations end each point-mass episode.
+                "avg_return" if name == "td3_nstep" else "ep_length",
+                "learner.actor torso.dense_0.weight", "learner.critic_opt mu q1.q.weight"
+                if mod is sac or cfg.twin_q else "learner.critic_opt mu q.weight",
+                "learner.target_critic " + ("q1.q.bias" if mod is sac or cfg.twin_q else "q.bias")]
+    if mod is ddpg:
+        expected.append("learner.target_actor action.weight")
+    else:
+        expected += ["learner.log_alpha", "learner.alpha_opt count"]
+    if cfg.replay_dtype != "fp32":
+        expected += ["learner.replay quant.obs.mean", "learner.replay quant.reward.scale"]
+    for k in expected:
+        assert k in changed, k
+    assert state.update_step == 3
+    assert int(state.learner.update_count) == 3 * cfg.updates_per_iter
+    assert int(state.learner.replay.size) == cfg.buffer_capacity
+
+
+@pytest.mark.parametrize("name", ["td3_mixed", "sac_int8"])
+def test_offpolicy_chunked_loop_equals_per_iteration(name):
+    mod, cfg, make_env = OFFPOLICY_CASES[name]
+    env = make_env()
+    runs = {}
+    for chunk in (1, 4):
+        state, metrics = loop.fused_train_loop(
+            mod.make_train_step, mod.init_state, env, cfg, 10, device="cpu", chunk=chunk)
+        runs[chunk] = ({k: t.clone() for k, t in carried_tensors(state).items()}, metrics,
+                       state.generator.get_state())
+    (t1, m1, g1), (t4, m4, g4) = runs[1], runs[4]
+    assert all(torch.equal(t1[k], t4[k]) for k in t1)
+    assert all(torch.equal(m1[k], m4[k]) for k in m1)
+    assert torch.equal(g1, g4)

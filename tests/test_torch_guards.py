@@ -52,7 +52,12 @@ def test_import_scan_covers_every_module_of_the_port():
     for name in ("chip_smoke.py", "actor_critic_tpu_torch/train.py",
                  "actor_critic_tpu_torch/utils/checkpoint.py",
                  "actor_critic_tpu_torch/utils/cadence.py",
-                 "actor_critic_tpu_torch/utils/logging.py"):
+                 "actor_critic_tpu_torch/utils/logging.py",
+                 "actor_critic_tpu_torch/replay/buffer.py",
+                 "actor_critic_tpu_torch/replay/quantize.py",
+                 "actor_critic_tpu_torch/algos/ddpg.py",
+                 "actor_critic_tpu_torch/algos/sac.py",
+                 "actor_critic_tpu_torch/ops/polyak.py"):
         assert name in scanned, name
 
 
@@ -104,6 +109,31 @@ def test_ppo_entry_points_raise_without_cuda(no_cuda, capsys):
     # Asked for the CPU, the same entry point runs.
     assert train.main(["--preset", "ppo_cartpole", "--iterations", "1", "--device", "cpu"]) == 0
     assert '"algo": "ppo"' in capsys.readouterr().out
+
+
+def test_offpolicy_entry_points_raise_without_cuda(no_cuda, capsys):
+    from actor_critic_tpu_torch.algos import ddpg as tddpg
+    from actor_critic_tpu_torch.algos import sac as tsac
+    from actor_critic_tpu_torch.envs import make_point_mass
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--algo", "sac", "--env", "jax:pendulum", "--iterations", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--preset", "td3_walker2d", "--env", "jax:pendulum", "--iterations", "1"])
+    small = dict(num_envs=2, steps_per_iter=2, updates_per_iter=1, buffer_capacity=16,
+                 batch_size=4, hidden=(8,))
+    for mod, cfg in ((tddpg, tddpg.td3_config(**small)), (tsac, tsac.SACConfig(**small))):
+        with pytest.raises(RuntimeError, match="cuda"):
+            mod.init_state(make_point_mass(), cfg)
+        with pytest.raises(RuntimeError, match="cuda"):
+            mod.train(make_point_mass(), cfg, 1)
+        with pytest.raises(RuntimeError, match="cuda"):
+            mod.init_learner((3,), 1, cfg)
+    # Asked for the CPU, the same entry point runs.
+    assert train.main(["--algo", "sac", "--env", "jax:pendulum", "--iterations", "1",
+                       "--set", "hidden=16", "--set", "buffer_capacity=64",
+                       "--set", "batch_size=8", "--device", "cpu"]) == 0
+    assert '"algo": "sac"' in capsys.readouterr().out
 
 
 def test_a2c_config_fields_and_defaults_match_jax():
