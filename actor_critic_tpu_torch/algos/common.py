@@ -160,8 +160,8 @@ def named_carried(obj: Any, prefix: str) -> dict[str, torch.Tensor]:
     <param>`), an Adam state's moments and count (`<prefix> mu <param>`,
     `<prefix> nu <param>`, `<prefix> count`), a tuple's leaves by path
     (`<prefix> <path>`: the ring's storage, cursor and stats, the rollout),
-    a dataclass's fields (`<prefix>.<field>`); generators, tables and
-    other constants carry nothing."""
+    a dataclass's fields and a dict's items (`<prefix>.<name>`);
+    generators, tables and other constants carry nothing."""
     if isinstance(obj, nn.Module):
         return {f"{prefix} {k}": p.detach() for k, p in obj.named_parameters()}
     if isinstance(obj, AdamState):
@@ -173,6 +173,11 @@ def named_carried(obj: Any, prefix: str) -> dict[str, torch.Tensor]:
         return {f"{prefix} {k}": t for k, t in named_leaves(obj).items()}
     if isinstance(obj, torch.Tensor):
         return {prefix: obj}
+    if isinstance(obj, dict):
+        out = {}
+        for k, v in obj.items():
+            out.update(named_carried(v, f"{prefix}.{k}" if prefix else k))
+        return out
     if dataclasses.is_dataclass(obj):
         out = {}
         for f in dataclasses.fields(obj):
@@ -182,7 +187,7 @@ def named_carried(obj: Any, prefix: str) -> dict[str, torch.Tensor]:
     return {}
 
 
-def carried_tensors(state: Union[TrainState, OffPolicyState]) -> dict[str, torch.Tensor]:
+def carried_tensors(state: Any) -> dict[str, torch.Tensor]:
     """Every tensor a train step reads from `state` and writes back, by
     name. What a checkpoint holds besides the generator's state, and what a
     graph replay must leave where eager execution would.
@@ -199,8 +204,11 @@ def carried_tensors(state: Union[TrainState, OffPolicyState]) -> dict[str, torch
     and its Adam), every ring leaf, `insert_pos`, `size` and every
     quant-stat leaf (`learner.replay storage.obs`, `learner.replay
     quant.obs.mean`, …), `update_count`, the rollout, `env_steps`, the
-    episode accounting and the step counter."""
-    if isinstance(state, OffPolicyState):
+    episode accounting and the step counter.
+
+    Any other dataclass (a host trainer's `host_loop.HostCheckpoint`):
+    its fields through `named_carried` likewise."""
+    if not isinstance(state, TrainState):
         return named_carried(state, "")
     out: dict[str, torch.Tensor] = {}
     for f in dataclasses.fields(state):

@@ -21,7 +21,12 @@ as JAX's `select`s; the gradients are computed whatever the gates say. The
 replay draws and the target noise come from the trainer's generator, and
 one update is split into `draw_update` and `apply_update` so that a test
 can give it the JAX package's draws. On the card `algos/loop.py` runs the
-step as one CUDA graph; the host env path (`train_host`) comes later.
+step as one CUDA graph.
+
+The host env path (`train_host`, below) collects on a `HostEnvPool` and
+runs the same insert, gate and update loop on each uploaded block
+(`make_host_ingest_update`), also as one CUDA graph
+(`algos/host_loop.py`).
 """
 
 from __future__ import annotations
@@ -361,11 +366,11 @@ def make_update_loop(action_dim: int, cfg: DDPGConfig):
     return update_loop
 
 
-def update_gate(state: OffPolicyState, min_size: int, warmup_steps: int) -> torch.Tensor:
-    """`do_update`, a 0-dim bool on the device: the warm-up is over and the
-    ring holds `min_size` transitions."""
-    return torch.logical_and(state.env_steps >= warmup_steps,
-                             state.learner.replay.size >= min_size)
+def update_gate(env_steps: torch.Tensor, ring: replay.ReplayState, min_size: int,
+                warmup_steps: int) -> torch.Tensor:
+    """`do_update`, a 0-dim bool on the device: the warm-up is over
+    (`env_steps`, 0-dim) and the ring holds `min_size` transitions."""
+    return torch.logical_and(env_steps >= warmup_steps, ring.size >= min_size)
 
 
 def collect_and_insert(env: TorchEnv, explore, state: OffPolicyState, steps: int,
@@ -401,7 +406,7 @@ def make_train_step(
 
     def train_step(state: OffPolicyState) -> tuple[OffPolicyState, dict[str, torch.Tensor]]:
         traj = collect_and_insert(env, explore, state, cfg.steps_per_iter, codecs)
-        do_update = update_gate(state, min_size, cfg.warmup_steps)
+        do_update = update_gate(state.env_steps, state.learner.replay, min_size, cfg.warmup_steps)
         metrics = update_loop(state.learner, do_update, state.generator)
         return state, finish_step(state, traj, metrics)
 
@@ -425,4 +430,98 @@ def train(
         make_train_step, init_state, env, cfg, num_iterations,
         seed=seed, device=device, state=state, log_every=log_every, log_fn=log_fn,
         capturable=CAPTURABLE,
+    )
+
+
+# --------------------------------------------------------------------------
+# The host env path (MuJoCo Walker2d etc.)
+# --------------------------------------------------------------------------
+
+
+def make_host_act_fn(action_dim: int, cfg: DDPGConfig):
+    """`act(actor, obs, generator, env_steps)`: the behaviour policy on the
+    device (the host loop's acting path without a mirror)."""
+    return make_explore_fn(cfg)
+
+
+def make_host_ingest_update(action_dim: int, cfg: DDPGConfig):
+    """`ingest_update(learner, traj, env_steps, generator) -> metrics`: a
+    host-collected [K, E] block into the ring, the gate, and the update
+    loop, the learner written in place; one CUDA graph on the card
+    (`host_loop.HostUpdate`). `env_steps` (0-dim int64 on the device) is
+    the count after the block. The gate is the fused path's:
+    env_steps ≥ warmup_steps and a ring of max(batch_size, nstep)
+    transitions. `ingest_update.ingest(learner, traj, env_steps) ->
+    do_update` and `ingest_update.update_loop` are its two halves."""
+    return ingest_update_of(make_update_loop(action_dim, cfg), cfg,
+                            min_size=max(cfg.batch_size, cfg.nstep))
+
+
+def ingest_update_of(update_loop, cfg, min_size: int):
+    """The host ingest+update around `update_loop` (DDPG/TD3's or SAC's),
+    gated at `min_size` ring transitions and `cfg.warmup_steps`."""
+    codecs = replay.offpolicy_codecs(cfg.replay_dtype)
+
+    def ingest(ls, traj: OffPolicyTransition, env_steps: torch.Tensor) -> torch.Tensor:
+        flat = OffPolicyTransition(*(x.reshape(-1, *x.shape[2:]) for x in traj))
+        replay.add_batch(ls.replay, flat, codecs)
+        return update_gate(env_steps, ls.replay, min_size, cfg.warmup_steps)
+
+    def ingest_update(ls, traj: OffPolicyTransition, env_steps: torch.Tensor,
+                      generator: torch.Generator) -> dict[str, torch.Tensor]:
+        return update_loop(ls, ingest(ls, traj, env_steps), generator)
+
+    ingest_update.ingest = ingest
+    ingest_update.update_loop = update_loop
+    return ingest_update
+
+
+def make_greedy_act(action_dim: int, cfg: DDPGConfig):
+    """`act(actor, obs)`: the noiseless actor, for the host eval."""
+    return lambda actor, obs: actor(obs)
+
+
+def train_host(
+    pool,
+    cfg: DDPGConfig,
+    num_iterations: int,
+    seed: int = 0,
+    log_every: int = 10,
+    log_fn: Optional[Callable[[int, dict], None]] = None,
+    eval_every: int = 0,
+    eval_envs: int = 4,
+    eval_steps: int = 1000,
+    ckpt=None,
+    save_every: int = 0,
+    resume: bool = False,
+    overlap: bool = True,
+    save_replay: bool = True,
+    device="cuda",
+    iteration_hook=None,
+):
+    """DDPG/TD3 on a `HostEnvPool` (a host rollout, the learner on the
+    device: `host_loop.off_policy_train_host`). Off-policy MuJoCo wants a
+    pool with neither obs nor reward normalization: running-stat
+    normalization scales replayed transitions differently as the stats
+    drift, and TD targets want the raw reward scale. With `overlap` the
+    host acts through the numpy mirror with parameters one update stale.
+    Returns (learner, history)."""
+    from actor_critic_tpu_torch.algos.host_loop import off_policy_train_host
+    from actor_critic_tpu_torch.models.host_actor import (
+        make_ddpg_host_explore,
+        make_ddpg_host_greedy,
+    )
+
+    return off_policy_train_host(
+        pool, cfg, num_iterations,
+        init_learner=init_learner,
+        make_act_fn=make_host_act_fn,
+        make_ingest_update=make_host_ingest_update,
+        seed=seed, log_every=log_every, log_fn=log_fn,
+        eval_every=eval_every, make_greedy_act=make_greedy_act,
+        eval_envs=eval_envs, eval_steps=eval_steps,
+        ckpt=ckpt, save_every=save_every, resume=resume,
+        overlap=overlap, make_host_explore=make_ddpg_host_explore,
+        make_host_greedy=make_ddpg_host_greedy,
+        save_replay=save_replay, device=device, iteration_hook=iteration_hook,
     )

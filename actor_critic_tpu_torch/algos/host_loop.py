@@ -1,0 +1,686 @@
+"""The host env path's loop plumbing (counterpart of the synchronous half
+of `actor_critic_tpu/algos/host_loop.py`).
+
+A host trainer (`ppo.train_host`, `ddpg.train_host`, `sac.train_host`)
+steps a `HostEnvPool` in numpy for K steps, records the steps into a
+time-major [K, E] block, uploads the block to the device once, and runs
+one device update on it. This module holds what they share:
+
+- `EpisodeTracker`: raw-return episode accounting on the host.
+- `BlockBuffers`: double-buffered [K, E] block storage. On the card each
+  buffer set is pinned host memory written through numpy views; `upload()`
+  copies a block into static device buffers with one asynchronous `copy_`
+  per field and records a CUDA event after the copies, and
+  `begin_block()` waits on the event of the set it is about to rewrite. A
+  copy from pinned memory reads the host buffer when the stream reaches
+  it, not when it is enqueued, so that wait is what keeps block N's bytes
+  intact until they are on the device while block N+1 is collected into
+  the other set.
+- `HostUpdate`: the device update replayed as one CUDA graph over those
+  static buffers (the first `loop.WARMUP_ITERATIONS` calls eager on a side
+  stream, then a capture; eager on the CPU).
+- `IterationClock`: where an iteration's time goes (collect, wait,
+  dispatch on the host clock; upload and update on the device).
+- the checkpoint state (`host_ckpt_state`, `strip_replay`, `host_resume`,
+  `host_maybe_save`) and the shared off-policy loop
+  (`off_policy_train_host`).
+
+With a numpy mirror (`models/host_actor.py`) and `overlap`, the host acts
+with parameters one update stale: before each update's replay a copy of
+the acting module's parameters into pinned memory is enqueued
+(`MirrorSnapshot`), and the next block's first mirror call waits on its
+event. Stream order makes that snapshot the parameters the update read,
+and the collect loop never waits for the update itself. Without a mirror,
+or with `overlap=False`, the host acts through the module on the device
+every env step and waits for it.
+
+The async actor-learner loops, the telemetry spans and the stall watchdog
+of the JAX module are not ported yet (Queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+import warnings
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from actor_critic_tpu_torch.algos import loop
+from actor_critic_tpu_torch.algos.common import OffPolicyTransition, named_carried
+from actor_critic_tpu_torch.models import host_actor
+from actor_critic_tpu_torch.tree import tree_map
+from actor_critic_tpu_torch.utils.cadence import should_log, should_save
+
+
+class EpisodeTracker:
+    """Raw-return episode accounting across host steps."""
+
+    def __init__(self, num_envs: int):
+        self._ep_ret = np.zeros(num_envs)
+        self.finished: list[float] = []
+
+    def update(self, raw_reward: np.ndarray, done: np.ndarray) -> None:
+        self._ep_ret += raw_reward
+        for i in np.nonzero(done)[0]:
+            self.finished.append(float(self._ep_ret[i]))
+            self._ep_ret[i] = 0.0
+
+    def report(self, window: int = 20) -> dict[str, float]:
+        return {
+            "recent_return": (
+                float(np.mean(self.finished[-window:])) if self.finished else float("nan")
+            ),
+            "episodes": float(len(self.finished)),
+        }
+
+
+class MergedEpisodeTracker:
+    """A read-only `report()` over several actors' EpisodeTrackers: the
+    mean over each one's last `window` episodes."""
+
+    def __init__(self, trackers: list[EpisodeTracker]):
+        self._trackers = trackers
+
+    def report(self, window: int = 20) -> dict[str, float]:
+        recent: list[float] = []
+        total = 0
+        for t in self._trackers:
+            finished = t.finished
+            total += len(finished)
+            recent.extend(finished[-window:])
+        return {
+            "recent_return": float(np.mean(recent)) if recent else float("nan"),
+            "episodes": float(total),
+        }
+
+
+class BlockBuffers:
+    """Preallocated, double-buffered time-major [K, E, ...] block storage,
+    and the static device buffers a block is uploaded into.
+
+    `record(t, name, value)` writes step t of a field; `put(name, value)` a
+    whole array that rides with the block (the bootstrap obs, the mirror's
+    baselines, the env-step count). Each field is allocated at its first
+    value, in pinned memory when `device` is a card, and reused.
+    `begin_block()` flips to the other buffer set, after waiting for the
+    upload that last read it; `block()` is the current block's numpy
+    arrays (only the fields written since `begin_block()`); `upload()`
+    copies them into `device` (the same tensors at every call: a CUDA
+    graph reads them) and returns those tensors by field."""
+
+    def __init__(self, num_steps: int, device: torch.device | str = "cpu"):
+        if num_steps < 1:
+            raise ValueError(f"num_steps must be >= 1, got {num_steps}")
+        self.num_steps = int(num_steps)
+        self.device = torch.device(device)
+        self._pin = self.device.type == "cuda"
+        self._bufs: tuple[dict, dict] = ({}, {})
+        self._events: list[Optional[torch.cuda.Event]] = [None, None]
+        self._active = 0
+        self._seen: set[str] = set()
+        self.static: dict[str, torch.Tensor] = {}
+        self.wait_s = 0.0  # host seconds spent waiting in begin_block()
+
+    def begin_block(self) -> None:
+        self._active ^= 1
+        self._seen = set()
+        event = self._events[self._active]
+        if event is not None:
+            t0 = time.perf_counter()
+            event.synchronize()
+            self.wait_s += time.perf_counter() - t0
+
+    def _slot(self, name: str, shape: tuple[int, ...], dtype: np.dtype) -> np.ndarray:
+        buf = self._bufs[self._active]
+        held = buf.get(name)
+        if held is None or held[1].shape != shape or held[1].dtype != dtype:
+            tensor = torch.empty(shape, dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+                                 pin_memory=self._pin)
+            held = buf[name] = (tensor, tensor.numpy())
+        self._seen.add(name)
+        return held[1]
+
+    def record(self, t: int, name: str, value) -> None:
+        value = np.asarray(value)
+        self._slot(name, (self.num_steps, *value.shape), value.dtype)[t] = value
+
+    def put(self, name: str, value) -> None:
+        value = np.asarray(value)
+        self._slot(name, value.shape, value.dtype)[...] = value
+
+    def block(self) -> dict[str, np.ndarray]:
+        buf = self._bufs[self._active]
+        return {k: buf[k][1] for k in buf if k in self._seen}
+
+    def upload(self) -> dict[str, torch.Tensor]:
+        buf = self._bufs[self._active]
+        for name in self._seen:
+            src = buf[name][0]
+            dst = self.static.get(name)
+            if dst is None:
+                dst = self.static[name] = torch.empty(src.shape, dtype=src.dtype, device=self.device)
+            elif dst.shape != src.shape or dst.dtype != src.dtype:
+                raise ValueError(f"block field {name!r} changed from {tuple(dst.shape)} "
+                                 f"{dst.dtype} to {tuple(src.shape)} {src.dtype}")
+            dst.copy_(src, non_blocking=self._pin)
+        if self._pin:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+            self._events[self._active] = event
+        return self.static
+
+
+def host_collect(
+    pool,
+    obs: np.ndarray,
+    num_steps: int,
+    act_fn: Callable[[np.ndarray], tuple[np.ndarray, dict[str, np.ndarray]]],
+    tracker: EpisodeTracker,
+    buffers: Optional[BlockBuffers] = None,
+) -> tuple[np.ndarray, dict[str, np.ndarray]]:
+    """Step the pool `num_steps` times; return (last obs, [K, E] block).
+
+    `act_fn(obs) -> (action, extras)`; the extras (log_prob and value
+    on-policy) are recorded beside the standard fields, into `buffers` (a
+    loop-lived `BlockBuffers`; a private one when None)."""
+    if buffers is None:
+        buffers = BlockBuffers(num_steps)
+    elif buffers.num_steps != num_steps:
+        raise ValueError(
+            f"buffers hold {buffers.num_steps}-step blocks, collect asked for {num_steps}")
+    buffers.begin_block()
+    record = buffers.record
+    for t in range(num_steps):
+        action, extras = act_fn(obs)
+        out = pool.step(action)
+        record(t, "obs", obs)
+        record(t, "action", action)
+        for k, v in extras.items():
+            record(t, k, v)
+        record(t, "reward", out.reward)
+        record(t, "done", out.done)
+        record(t, "terminated", out.terminated)
+        record(t, "final_obs", out.final_obs)
+        tracker.update(out.raw_reward, out.done)
+        obs = out.obs
+    return obs, buffers.block()
+
+
+def host_evaluate(pool, act_fn: Callable[[np.ndarray], np.ndarray], max_steps: int = 1000) -> float:
+    """Greedy host eval: the mean RAW return of each env's FIRST episode;
+    `act_fn(obs) -> action` is the deterministic policy. Stops once every
+    env has finished an episode."""
+    obs = pool.reset()
+    E = pool.num_envs
+    returns = np.zeros(E)
+    alive = np.ones(E)
+    for _ in range(max_steps):
+        out = pool.step(act_fn(obs))
+        returns += out.raw_reward * alive
+        alive *= 1.0 - out.done
+        obs = out.obs
+        if not alive.any():
+            break
+    return float(returns.mean())
+
+
+def timed_eval(pool, act_fn: Callable[[np.ndarray], np.ndarray], max_steps: int) -> dict:
+    """`host_evaluate` as log-row entries: `eval_return`, and `eval_s`, its
+    seconds on the host clock (the CLI leaves them out of `wall_s`)."""
+    t0 = time.perf_counter()
+    ret = host_evaluate(pool, act_fn, max_steps=max_steps)
+    return {"eval_return": ret, "eval_s": time.perf_counter() - t0}
+
+
+def device_act(module_fn: Callable[[torch.Tensor], Any], device: torch.device):
+    """`obs (numpy) -> module_fn(obs on device)` with every output read back
+    to numpy: the acting path without a mirror (waits for the device)."""
+
+    @torch.no_grad()
+    def act(obs: np.ndarray):
+        out = module_fn(torch.as_tensor(np.asarray(obs), device=device))
+        if isinstance(out, tuple):
+            return tuple(x.cpu().numpy() for x in out)
+        return out.cpu().numpy()
+
+    return act
+
+
+def greedy_eval_act(module, greedy: Callable, host_greedy: Optional[Callable],
+                    device: torch.device) -> Callable[[], Callable[[np.ndarray], np.ndarray]]:
+    """`make()` → the eval's act function over `module`'s parameters as they
+    are at that call: the numpy mirror `host_greedy(np_params, obs)` on a
+    snapshot (taken once an eval, after the update in flight), else
+    `greedy(module, obs)` on the device every step."""
+    if host_greedy is None:
+        return lambda: device_act(lambda o: greedy(module, o), device)
+
+    def make():
+        params = host_actor.mirror_params(module)
+        return lambda o: np.asarray(host_greedy(params, o))
+
+    return make
+
+
+class HostUpdate:
+    """A host trainer's device update, `body() -> metrics`, which reads the
+    static block buffers and writes the learner in place (the counterpart
+    of the JAX trainers' jitted update). On the card the first
+    `loop.WARMUP_ITERATIONS` calls run eagerly on a side stream; the next
+    captures `body` into one CUDA graph (`loop.CapturedStep`, the trainer's
+    generator registered with it) and every call from then on replays it.
+    On the CPU every call runs eagerly. The metrics of a replay are the
+    graph's output tensors, overwritten by the next replay."""
+
+    def __init__(self, body: Callable[[], dict[str, torch.Tensor]], generator: torch.Generator):
+        self.body = body
+        self.generator = generator
+        cuda = generator.device.type == "cuda"
+        self.stream = torch.cuda.Stream(generator.device) if cuda else None
+        self.eager_left = loop.WARMUP_ITERATIONS if cuda else 0
+        self.captured: Optional[loop.CapturedStep] = None
+
+    def _step(self, _):
+        return self, self.body()
+
+    def __call__(self) -> dict[str, torch.Tensor]:
+        if self.stream is None:
+            return self.body()
+        if self.eager_left > 0:
+            self.eager_left -= 1
+            return loop.eager_step(self._step, self, self.stream)[1]
+        if self.captured is None:
+            self.captured = loop.CapturedStep(self._step, self)
+        return self.captured.replay()
+
+
+class IterationClock:
+    """Where one host iteration's time goes: `collect_s` (stepping the pool
+    and acting, mirror baselines included), `wait_s` (the host blocked on
+    the device: the mirror snapshot's event and the buffers' upload events)
+    and `dispatch_s` (enqueueing the upload, the snapshot and the update),
+    on the host clock; on the card also `upload_ms` and `update_ms`, the
+    device time between CUDA events around the upload and the update. The
+    device times are read at `row()`, which the loop calls on logged
+    iterations, after the metrics' read has waited for the update."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.times: dict[str, float] = {}
+        self._events: list[torch.cuda.Event] = []
+
+    def start(self) -> None:
+        self.times = {"collect_s": 0.0, "wait_s": 0.0, "dispatch_s": 0.0}
+        self._events = []
+
+    def add(self, phase: str, seconds: float) -> None:
+        self.times[phase] += seconds
+
+    def mark(self) -> None:
+        """An event on the current stream (before the upload, between the
+        upload and the update, after the update)."""
+        if self.cuda:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            self._events.append(event)
+
+    def row(self) -> dict[str, float]:
+        out = dict(self.times)
+        if self.cuda and len(self._events) == 3:
+            a, b, c = self._events
+            c.synchronize()
+            out["upload_ms"] = a.elapsed_time(b)
+            out["update_ms"] = b.elapsed_time(c)
+        return out
+
+
+@dataclasses.dataclass
+class HostRun:
+    """What a host trainer's iteration works on, handed to an
+    `iteration_hook(it, run)` after each iteration's dispatch: the block
+    buffers (host arrays and static device buffers), the mirror's snapshot
+    (None without a mirror), the device update, the tensors the update
+    writes by name (`carried()`), and the clock."""
+
+    buffers: BlockBuffers
+    snapshot: Optional[host_actor.MirrorSnapshot]
+    update: HostUpdate
+    device_state: dict[str, Any]
+    clock: IterationClock
+
+    def carried(self) -> dict[str, torch.Tensor]:
+        return named_carried(self.device_state, "")
+
+
+# -- checkpoints -------------------------------------------------------
+
+
+@dataclasses.dataclass
+class HostCheckpoint:
+    """A host trainer's checkpoint (`utils.checkpoint.Checkpointer` saves and
+    restores it): the device state by name (the net and its Adam state, or
+    the learner, and the env-step count), the trainer's generator (the
+    JAX trainers' key) and the pool's normalizer state as float64 tensors
+    (`pool obs_rms.mean`, ...)."""
+
+    generator: torch.Generator
+    device_state: dict[str, Any]
+    pool: dict[str, torch.Tensor]
+
+
+def pool_tensors(state: dict) -> dict[str, torch.Tensor]:
+    """A pool's `get_state()` as float64 tensors by dotted name."""
+    out = {}
+    for k, v in state.items():
+        if isinstance(v, dict):
+            out.update({f"{k}.{kk}": vv for kk, vv in pool_tensors(v).items()})
+        else:
+            out[k] = torch.tensor(np.asarray(v, np.float64))
+    return out
+
+
+def pool_state(tensors: dict[str, torch.Tensor]) -> dict:
+    """The inverse of `pool_tensors`: a state `HostEnvPool.set_state` takes."""
+    out: dict = {}
+    for k, t in tensors.items():
+        *path, leaf = k.split(".")
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = t.numpy()
+    return out
+
+
+def strip_replay(learner):
+    """The learner with its replay storage cut to one slot of its own
+    (shape and dtype kept), and cursors of its own: what a replay-free
+    checkpoint holds. The quantizer's stats stay the learner's own tensors:
+    they are item-shaped, cost a few bytes, and a resumed run encodes
+    fresh transitions against the standardization the restored critic
+    trained under."""
+    rb = learner.replay
+    return dataclasses.replace(learner, replay=rb._replace(
+        storage=tree_map(lambda x: x[:1].clone(), rb.storage),
+        insert_pos=rb.insert_pos.clone(), size=rb.size.clone()))
+
+
+def host_ckpt_state(pool, generator: torch.Generator, save_replay: bool = True,
+                    **device_state) -> HostCheckpoint:
+    """The checkpoint state of a host trainer: `device_state` (the learner,
+    or the net and its Adam state, and `env_steps`), the generator and the
+    pool's normalizer state. `save_replay=False` cuts the learner's ring to
+    a one-slot stub (`strip_replay`): a Humanoid-scale ring is ~3 GB a
+    save. Resuming such a checkpoint restarts with an EMPTY ring, and the
+    warm-up gate holds the updates until it holds a batch again."""
+    if not save_replay and "learner" in device_state:
+        device_state = dict(device_state, learner=strip_replay(device_state["learner"]))
+    return HostCheckpoint(generator=generator, device_state=device_state,
+                          pool=pool_tensors(pool.get_state()))
+
+
+def host_maybe_save(ckpt, it: int, save_every: int, num_iterations: int, pool, metrics: dict,
+                    generator: torch.Generator, save_replay: bool = True,
+                    **device_state) -> None:
+    """Save on the `should_save` cadence (`it` is 1-based). Reading the
+    state to the host waits for the device."""
+    if ckpt is None or not should_save(it, save_every, num_iterations):
+        return
+    _host_save(ckpt, it, pool, metrics, save_replay, generator, device_state)
+
+
+def _host_save(ckpt, it, pool, metrics, save_replay, generator, device_state) -> None:
+    # The pool's action convention and whether the ring was saved ride the
+    # metrics file, so that a resume can warn on a convention flip and
+    # build the template the checkpoint holds.
+    metrics = {
+        **{k: float(v) for k, v in (metrics or {}).items()},
+        "_pool_scale_actions": float(getattr(pool, "scales_actions", False)),
+        "_replay_saved": float(save_replay),
+    }
+    ckpt.save(it, host_ckpt_state(pool, generator, save_replay=save_replay, **device_state),
+              metrics)
+
+
+def _warn_restore_mismatch(restored_pool: dict, pool, saved_scale) -> None:
+    """Warn on an action-convention flip and on a normalization flip: a
+    checkpoint whose obs normalizer gathered real statistics came from a
+    run that fed normalized observations to its networks, and resuming it
+    into a raw-obs pool (or the reverse) puts the restored networks off
+    their input distribution. The flags are not saved; the stats are the
+    signal."""
+    try:
+        saved_count = float(np.asarray(restored_pool["obs_rms"]["count"]))
+    except (KeyError, TypeError):
+        saved_count = 0.0
+    if saved_scale is not None and bool(saved_scale) != getattr(pool, "scales_actions", False):
+        warnings.warn(
+            "resuming a checkpoint trained under the "
+            f"{'scaled' if saved_scale else 'clipped'}-action convention into a pool with "
+            f"scale_actions={getattr(pool, 'scales_actions', False)} — the restored policy's "
+            "actions will execute differently than they trained. Relaunch with the run's "
+            "original --scale-actions setting.",
+            stacklevel=3,
+        )
+    trained_normalized = saved_count > 1.0
+    if trained_normalized != pool.normalizes_obs:
+        was, now = (("with obs normalization", "normalize_obs=False") if trained_normalized
+                    else ("on RAW observations", "normalize_obs=True"))
+        warnings.warn(
+            f"resuming a checkpoint trained {was} into a pool with {now} — the restored "
+            "networks will act off-distribution (their observation scaling no longer matches "
+            f"the pool's). Rebuild the pool with normalize_obs={trained_normalized} (or "
+            "restart the run from scratch).",
+            stacklevel=3,
+        )
+
+
+def host_resume(ckpt, template: HostCheckpoint, pool) -> tuple[Optional[HostCheckpoint], int]:
+    """Restore the latest checkpoint into `template` in place (its tensors,
+    the generator) and push the pool's normalizer state back; (None, 0)
+    when nothing is saved. The learner, the Adam states, the generator,
+    `env_steps` and the normalizer come back exactly; the env simulators
+    do not (gymnasium cannot save them), so the pool restarts fresh
+    episodes."""
+    step = ckpt.latest_step()
+    if step is None:
+        return None, 0
+    ckpt.restore(template, step)
+    restored_pool = pool_state(template.pool)
+    pool.set_state(restored_pool)
+    _warn_restore_mismatch(restored_pool, pool,
+                           ckpt.restore_metrics(step).get("_pool_scale_actions"))
+    return template, step
+
+
+def maybe_log(it: int, log_every: int, metrics: dict, tracker, history: list,
+              log_fn: Optional[Callable[[int, dict], None]], extra: Optional[dict] = None,
+              num_iterations: int = 0, force: bool = False,
+              clock: Optional[IterationClock] = None) -> None:
+    """Append the host metrics to `history` (and `log_fn`) on the
+    `should_log` cadence, or when `force`d (eval rows), with the
+    iteration's times from `clock`. Reading the metrics waits for the
+    update."""
+    if not (force or should_log(it + 1, log_every, num_iterations)):
+        return
+    m = {k: float(v) for k, v in metrics.items()}
+    m.update(tracker.report())
+    if extra:
+        m.update(extra)
+    if clock is not None:
+        m.update(clock.row())
+    history.append((it + 1, m))
+    if log_fn is not None:
+        log_fn(it + 1, m)
+
+
+def off_policy_train_host(
+    pool,
+    cfg,
+    num_iterations: int,
+    *,
+    init_learner: Callable,
+    make_act_fn: Callable,
+    make_ingest_update: Callable,
+    seed: int = 0,
+    log_every: int = 10,
+    log_fn: Optional[Callable[[int, dict], None]] = None,
+    eval_every: int = 0,
+    make_greedy_act: Optional[Callable] = None,
+    eval_envs: int = 4,
+    eval_steps: int = 1000,
+    ckpt=None,
+    save_every: int = 0,
+    resume: bool = False,
+    overlap: bool = True,
+    make_host_explore: Optional[Callable] = None,
+    make_host_greedy: Optional[Callable] = None,
+    save_replay: bool = True,
+    device="cuda",
+    iteration_hook: Optional[Callable[[int, HostRun], None]] = None,
+):
+    """The host-env loop of the off-policy trainers (DDPG/TD3, SAC), which
+    differ only in their factories:
+
+      init_learner(obs_shape, action_dim, cfg, generator, device) -> learner
+      make_act_fn(action_dim, cfg) -> (actor, obs, generator, env_steps) -> action
+      make_ingest_update(action_dim, cfg) -> (learner, [K, E] block,
+                                              env_steps, generator) -> metrics
+
+    An iteration collects K steps of the E envs, uploads the block, and
+    runs the ingest (insert into the ring, the warm-up gate) and J updates
+    as one device update (`HostUpdate`, one CUDA graph on the card), with
+    the env-step count after the block copied in with it. The learner
+    exposes `.actor`. With `eval_every > 0` a frozen-stats eval pool runs a
+    greedy sweep on that cadence (through `make_host_greedy`'s mirror, else
+    `make_greedy_act(action_dim, cfg) -> (actor, obs) -> action` on the
+    device) and its `eval_return` rides the log row. With `overlap` and a
+    `make_host_explore(spec, cfg) -> (np_params, obs, rng, env_steps) ->
+    action` mirror, collection acts on the host with parameters one update
+    stale. Returns (learner, history)."""
+    from actor_critic_tpu_torch import resolve_device
+
+    device = resolve_device(device)
+    spec = pool.spec
+    generator = torch.Generator(device=device).manual_seed(seed)
+    learner = init_learner(spec.obs_shape, spec.action_dim, cfg,
+                           torch.Generator().manual_seed(seed), device)
+    act = make_act_fn(spec.action_dim, cfg)
+    ingest_update = make_ingest_update(spec.action_dim, cfg)
+    mirrored = host_actor.supports_mirror(host_actor.mirror_params(learner.actor))
+
+    eval_pool = eval_act = None
+    if eval_every > 0 and make_greedy_act is not None:
+        eval_pool = pool.eval_pool(eval_envs)
+        eval_act = greedy_eval_act(
+            learner.actor, make_greedy_act(spec.action_dim, cfg),
+            make_host_greedy(spec, cfg) if make_host_greedy is not None and mirrored else None,
+            device)
+
+    env_steps = 0
+    start_it = 0
+    if ckpt is not None and resume:
+        # The template mirrors what the checkpoint holds: its
+        # `_replay_saved` (not this run's flag) says full ring or stub.
+        step = ckpt.latest_step()
+        saved_replay = True
+        if step is not None:
+            saved_replay = bool(ckpt.restore_metrics(step).get("_replay_saved", 1.0))
+        steps_t = torch.zeros((), dtype=torch.int64)
+        template = host_ckpt_state(pool, generator, save_replay=saved_replay, learner=learner,
+                                   env_steps=steps_t)
+        restored, start_it = host_resume(ckpt, template, pool)
+        if restored is not None:
+            if not saved_replay:
+                # The ring stays this run's empty one; the stub restored
+                # its quantizer stats in place.
+                warnings.warn(
+                    "resuming a replay-free checkpoint (save_replay=False): the buffer "
+                    "restarts EMPTY — updates pause until it refills past one batch, then "
+                    "continue on fresh experience only.",
+                    stacklevel=2,
+                )
+            env_steps = int(steps_t)
+
+    # reset() after set_state: it re-zeroes the reward normalizer's running
+    # returns (episodes restart on resume), and the restored obs stats take
+    # the reset batch as one ordinary update.
+    obs = pool.reset()
+    E = pool.num_envs
+    tracker = EpisodeTracker(E)
+    history: list = []
+    metrics: dict = {}
+    buffers = BlockBuffers(cfg.steps_per_iter, device)
+    clock = IterationClock(device)
+
+    snapshot = host_act = None
+    if overlap and make_host_explore is not None and mirrored:
+        host_act = make_host_explore(spec, cfg)
+        snapshot = host_actor.MirrorSnapshot(learner.actor, pin=device.type == "cuda")
+        snapshot.enqueue()
+        rng = np.random.default_rng(seed + 0x5EED)
+
+    def body() -> dict[str, torch.Tensor]:
+        b = buffers.static
+        traj = OffPolicyTransition(obs=b["obs"], action=b["action"], reward=b["reward"],
+                                   next_obs=b["final_obs"], terminated=b["terminated"],
+                                   done=b["done"])
+        return ingest_update(learner, traj, b["env_steps"], generator)
+
+    update = HostUpdate(body, generator)
+    run = HostRun(buffers, snapshot, update, {"learner": learner}, clock)
+    for it in range(start_it, num_iterations):
+        clock.start()
+        if host_act is not None:
+            t0 = time.perf_counter()
+            host_params = snapshot.params()
+            clock.add("wait_s", time.perf_counter() - t0)
+
+            def explore_act(o):
+                nonlocal env_steps
+                action = host_act(host_params, o, rng, env_steps)
+                env_steps += E
+                return action, {}
+        else:
+
+            @torch.no_grad()
+            def explore_act(o):
+                nonlocal env_steps
+                action = act(learner.actor, torch.as_tensor(o, device=device), generator,
+                             torch.tensor(env_steps, dtype=torch.int64, device=device))
+                env_steps += E
+                return action.cpu().numpy(), {}
+
+        t0 = time.perf_counter()
+        wait0 = buffers.wait_s
+        obs, _ = host_collect(pool, obs, cfg.steps_per_iter, explore_act, tracker,
+                              buffers=buffers)
+        buffers.put("env_steps", np.asarray(env_steps, np.int64))
+        t1 = time.perf_counter()
+        clock.add("wait_s", buffers.wait_s - wait0)
+        clock.add("collect_s", t1 - t0 - (buffers.wait_s - wait0))
+        clock.mark()
+        buffers.upload()
+        clock.mark()
+        if snapshot is not None:
+            # The next block's acting parameters: this update's input,
+            # copied in stream order before its replay.
+            snapshot.enqueue()
+        metrics = update()
+        clock.mark()
+        clock.add("dispatch_s", time.perf_counter() - t1)
+        extra = {"env_steps": env_steps}
+        if eval_pool is not None and (it + 1) % eval_every == 0:
+            extra.update(timed_eval(eval_pool, eval_act(), eval_steps))
+        maybe_log(it, log_every, metrics, tracker, history, log_fn, extra=extra,
+                  num_iterations=num_iterations,
+                  force="eval_return" in extra or it == start_it, clock=clock)
+        host_maybe_save(ckpt, it + 1, save_every, num_iterations, pool, metrics, generator,
+                        save_replay=save_replay, learner=learner,
+                        env_steps=torch.tensor(env_steps, dtype=torch.int64))
+        if iteration_hook is not None:
+            iteration_hook(it + 1, run)
+    return learner, history
+

@@ -1,6 +1,6 @@
-"""PPO-clip, fused (counterpart of the fused trainer in
-`actor_critic_tpu/algos/ppo.py`; its host-env, async and device-data-plane
-trainers come with the host and async slices).
+"""PPO-clip (counterpart of `actor_critic_tpu/algos/ppo.py`): the fused
+trainer, and the host env path's (`train_host`, below); the async and
+device-data-plane trainers come with the async slice.
 
 One train step is
 
@@ -27,8 +27,10 @@ body. Here the nest is a Python loop, unrolled by nature.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, NamedTuple, Optional, Union
 
+import numpy as np
 import torch
 
 from actor_critic_tpu_torch import resolve_device
@@ -39,6 +41,7 @@ from actor_critic_tpu_torch.algos.common import (
     advance,
     anneal_fraction,
     fold_episodes,
+    gae_targets,
     init_train_state,
     linear_anneal,
     make_actor_critic,
@@ -336,3 +339,250 @@ def train(
         seed=seed, device=device, state=state, log_every=log_every, log_fn=log_fn,
         capturable=CAPTURABLE,
     )
+
+
+# --------------------------------------------------------------------------
+# The host env path (MuJoCo HalfCheetah etc.): a host rollout, one device
+# update a block
+# --------------------------------------------------------------------------
+
+
+def make_policy_step(env_spec: EnvSpec, cfg: PPOConfig):
+    """`policy_step(net, obs, generator) -> (action, log_prob, value)`: the
+    device acting path of the host loop (no mirror, or no overlap)."""
+
+    @torch.no_grad()
+    def policy_step(net: torch.nn.Module, obs: torch.Tensor, generator: torch.Generator):
+        dist, value = net(obs)
+        action = dist.sample(generator)
+        return action, dist.log_prob(action), value
+
+    return policy_step
+
+
+def make_host_update_fn(env_spec: EnvSpec, cfg: PPOConfig, can_truncate: bool = True):
+    """The per-block update of the host path: `update(net, opt_state,
+    schedule, obs, action, log_prob, value, reward, done, terminated,
+    final_obs, last_obs, perms, final_values=None, bootstrap_value=None,
+    iteration=None) -> metrics`, on time-major [T, E] tensors, the net and
+    `opt_state` written in place.
+
+    Truncation bootstrap, then GAE through `common.gae_targets` (the CUDA
+    kernel on the card), then `ppo_update` with the epochs' permutations
+    `perms`. `final_values` and `bootstrap_value` come from the mirror
+    with overlap (every baseline of the GAE from the same stale behaviour
+    parameters as the recorded values); None recomputes them here with the
+    current parameters (the synchronous path, where behaviour is current).
+    The clip-ε and entropy coefficients are the schedule's at `iteration`
+    (a [1] int64 tensor: JAX's `progress` is min(iteration / anneal_iters,
+    1)), its first row when None; the learning rate and Adam's scalars at
+    Adam's count."""
+    opt = make_optimizer(cfg)
+
+    def update(net, opt_state, schedule, obs, action, log_prob, value, reward, done,
+               terminated, final_obs, last_obs, perms, final_values=None,
+               bootstrap_value=None, iteration=None) -> dict[str, torch.Tensor]:
+        T, E = reward.shape
+        with torch.no_grad():
+            if bootstrap_value is None:
+                _, bootstrap_value = net(last_obs)
+            if can_truncate:
+                if final_values is None:
+                    _, fv = net(final_obs.reshape(T * E, *final_obs.shape[2:]))
+                    final_values = fv.reshape(T, E)
+                truncated = done * (1.0 - terminated)
+                rewards = reward + cfg.gamma * final_values * truncated
+            else:
+                rewards = reward
+        advantages, returns = gae_targets(rewards, value, done, bootstrap_value, cfg.gamma,
+                                          cfg.gae_lambda)
+        batch = PPOBatch(
+            obs=obs.reshape(T * E, *obs.shape[2:]),
+            action=action.reshape(T * E, *action.shape[2:]),
+            log_prob_old=log_prob.reshape(T * E),
+            value_old=value.reshape(T * E),
+            advantage=advantages.reshape(T * E),
+            ret=returns.reshape(T * E),
+        )
+        coefficients = (schedule.coefficients[0] if iteration is None
+                        else schedule.coefficients_at(iteration))
+        clip_eps, entropy_coef = coefficients.unbind()
+        return ppo_update(net, opt, opt_state, batch, perms, cfg, schedule.optimizer,
+                          clip_eps, entropy_coef)
+
+    return update
+
+
+def make_host_update_step(env_spec: EnvSpec, cfg: PPOConfig, can_truncate: bool = True):
+    """`step(net, opt_state, schedule, generator, block, iteration) ->
+    metrics`: `make_host_update_fn`'s update on an uploaded block (a dict of
+    [T, E] tensors by field, `final_values` / `bootstrap_value` where the
+    mirror gave them, `last_obs` where not), its permutations drawn from
+    `generator`. The host loop replays it as one CUDA graph on the card."""
+    update = make_host_update_fn(env_spec, cfg, can_truncate)
+
+    def step(net, opt_state, schedule, generator, block, iteration) -> dict[str, torch.Tensor]:
+        T, E = block["reward"].shape
+        perms = draw_permutations(generator, cfg.epochs, T * E)
+        return update(
+            net, opt_state, schedule, block["obs"], block["action"], block["log_prob"],
+            block["value"], block["reward"], block["done"], block["terminated"],
+            block["final_obs"], block.get("last_obs"), perms,
+            final_values=block.get("final_values"),
+            bootstrap_value=block.get("bootstrap_value"), iteration=iteration)
+
+    return step
+
+
+def init_host_params(env_spec: EnvSpec, cfg: PPOConfig, seed: int = 0, device="cuda"):
+    """(net, Adam state) on `device`, the weights drawn on the CPU from a
+    generator seeded with `seed`."""
+    device = resolve_device(device)
+    net = make_network(env_spec, cfg, torch.Generator().manual_seed(seed)).to(device)
+    return net, make_optimizer(cfg).init(dict(net.named_parameters()))
+
+
+def make_greedy_act(env_spec: EnvSpec, cfg: PPOConfig):
+    """`act(net, obs)`: the mode action, for the host eval."""
+    return lambda net, obs: net(obs)[0].mode()
+
+
+def train_host(
+    pool,
+    cfg: PPOConfig,
+    num_iterations: int,
+    seed: int = 0,
+    log_every: int = 10,
+    log_fn: Optional[Callable[[int, dict], None]] = None,
+    eval_every: int = 0,
+    eval_envs: int = 4,
+    eval_steps: int = 1000,
+    ckpt=None,
+    save_every: int = 0,
+    resume: bool = False,
+    overlap: bool = True,
+    device="cuda",
+    iteration_hook=None,
+):
+    """PPO on a `HostEnvPool` (MuJoCo etc.): a host rollout of T steps of
+    the E envs, one upload, one device update (`make_host_update_step`,
+    replayed as one CUDA graph on the card: `host_loop.HostUpdate`).
+
+    With `eval_every > 0` a frozen-stats eval pool runs a greedy (mode
+    action) sweep on that cadence; with `ckpt` the run resumes exactly on
+    the device side (the net, Adam, the generator, the normalizer stats;
+    the host envs restart fresh episodes: `host_loop.host_resume`).
+
+    With `overlap` the host acts through the numpy mirror with parameters
+    one update stale, so the update of block N runs on the device while
+    block N+1 is collected; the recorded log-probs and values, the
+    truncation bootstraps and the rollout bootstrap all come from those
+    behaviour parameters, and the clipped ratio corrects the staleness.
+    The clip-ε and entropy anneal follow the iteration (JAX's `progress`),
+    the learning rate Adam's count. `iteration_hook(it, run)` is called
+    after each iteration's dispatch with the loop's `host_loop.HostRun`.
+    Returns (net, opt_state, history)."""
+    from actor_critic_tpu_torch.algos import host_loop
+    from actor_critic_tpu_torch.models import host_actor
+
+    device = resolve_device(device)
+    spec = pool.spec
+    net, opt_state = init_host_params(spec, cfg, seed, device)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    schedule = make_schedule(cfg, device)
+    iteration = torch.zeros(1, dtype=torch.int64, device=device)
+    policy_step = make_policy_step(spec, cfg)
+    update_step = make_host_update_step(spec, cfg, can_truncate=True)
+    mirrored = host_actor.supports_mirror(host_actor.mirror_params(net))
+
+    eval_pool = eval_act = None
+    if eval_every > 0:
+        eval_pool = pool.eval_pool(eval_envs)
+        eval_act = host_loop.greedy_eval_act(
+            net, make_greedy_act(spec, cfg),
+            host_actor.make_ppo_host_greedy(spec, cfg) if mirrored else None, device)
+
+    start_it = 0
+    if ckpt is not None and resume:
+        template = host_loop.host_ckpt_state(pool, generator, params=net, opt_state=opt_state)
+        _, start_it = host_loop.host_resume(ckpt, template, pool)
+
+    obs = pool.reset()
+    tracker = host_loop.EpisodeTracker(pool.num_envs)
+    history: list = []
+    metrics: dict = {}
+    buffers = host_loop.BlockBuffers(cfg.rollout_steps, device)
+    clock = host_loop.IterationClock(device)
+
+    snapshot = None
+    if overlap and mirrored:
+        host_policy = host_actor.make_ppo_host_policy(spec, cfg)
+        host_value = host_actor.make_ppo_host_value(spec, cfg)
+        snapshot = host_actor.MirrorSnapshot(net, pin=device.type == "cuda")
+        snapshot.enqueue()
+        rng = np.random.default_rng(seed + 0x5EED)
+    else:
+        device_policy = host_loop.device_act(lambda o: policy_step(net, o, generator), device)
+
+    def body() -> dict[str, torch.Tensor]:
+        return update_step(net, opt_state, schedule, generator, buffers.static, iteration)
+
+    update = host_loop.HostUpdate(body, generator)
+    run = host_loop.HostRun(buffers, snapshot, update,
+                            {"params": net, "opt_state": opt_state}, clock)
+    steps_per_iter = cfg.rollout_steps * pool.num_envs
+    for it in range(start_it, num_iterations):
+        clock.start()
+        if snapshot is not None:
+            t0 = time.perf_counter()
+            host_params = snapshot.params()
+            clock.add("wait_s", time.perf_counter() - t0)
+
+            def policy_act(o):
+                action, logp, value = host_policy(host_params, o, rng)
+                return action, {"log_prob": logp, "value": value}
+        else:
+
+            def policy_act(o):
+                action, logp, value = device_policy(o)
+                return action, {"log_prob": logp, "value": value}
+
+        t0 = time.perf_counter()
+        wait0 = buffers.wait_s
+        obs, block = host_loop.host_collect(pool, obs, cfg.rollout_steps, policy_act, tracker,
+                                            buffers=buffers)
+        if snapshot is not None:
+            # Every GAE baseline from the behaviour parameters that gave the
+            # recorded values.
+            T, E = block["reward"].shape
+            final_obs = block["final_obs"]
+            fv = host_value(host_params, final_obs.reshape(T * E, *final_obs.shape[2:]))
+            buffers.put("final_values", fv.reshape(T, E))
+            buffers.put("bootstrap_value", host_value(host_params, obs))
+        else:
+            buffers.put("last_obs", obs)
+        t1 = time.perf_counter()
+        clock.add("wait_s", buffers.wait_s - wait0)
+        clock.add("collect_s", t1 - t0 - (buffers.wait_s - wait0))
+        clock.mark()
+        buffers.upload()
+        iteration.fill_(it)
+        clock.mark()
+        if snapshot is not None:
+            # The next block's acting parameters: this update's input,
+            # copied in stream order before its replay.
+            snapshot.enqueue()
+        metrics = update()
+        clock.mark()
+        clock.add("dispatch_s", time.perf_counter() - t1)
+        extra = {"env_steps": (it + 1) * steps_per_iter}
+        if eval_pool is not None and (it + 1) % eval_every == 0:
+            extra.update(host_loop.timed_eval(eval_pool, eval_act(), eval_steps))
+        host_loop.maybe_log(it, log_every, metrics, tracker, history, log_fn, extra=extra,
+                            num_iterations=num_iterations,
+                            force="eval_return" in extra or it == start_it, clock=clock)
+        host_loop.host_maybe_save(ckpt, it + 1, save_every, num_iterations, pool, metrics,
+                                  generator, params=net, opt_state=opt_state)
+        if iteration_hook is not None:
+            iteration_hook(it + 1, run)
+    return net, opt_state, history

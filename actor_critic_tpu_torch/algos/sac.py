@@ -17,7 +17,9 @@ parameter, moment, count, target and `log_alpha` takes its new value
 through a `torch.where` on it, in place. The step is capturable
 (`CAPTURABLE`); the draws of one update (ring slots and the two
 standard-normal noises) come from the trainer's generator through
-`draw_update`, or from a test through `apply_update`.
+`draw_update`, or from a test through `apply_update`. The host env path
+(`train_host`) runs the same update loop on each uploaded block, as
+`ddpg.train_host` does.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from actor_critic_tpu_torch.algos.ddpg import (
     example_transition,
     finish_step,
     grads_of,
+    ingest_update_of,
     init_offpolicy_state,
     params_of,
     update_gate,
@@ -265,7 +268,8 @@ def make_train_step(
 
     def train_step(state: SACState) -> tuple[SACState, dict[str, torch.Tensor]]:
         traj = collect_and_insert(env, explore, state, cfg.steps_per_iter, codecs)
-        do_update = update_gate(state, cfg.batch_size, cfg.warmup_steps)
+        do_update = update_gate(state.env_steps, state.learner.replay, cfg.batch_size,
+                                cfg.warmup_steps)
         metrics = update_loop(state.learner, do_update, state.generator)
         return state, finish_step(state, traj, metrics)
 
@@ -289,4 +293,73 @@ def train(
         make_train_step, init_state, env, cfg, num_iterations,
         seed=seed, device=device, state=state, log_every=log_every, log_fn=log_fn,
         capturable=CAPTURABLE,
+    )
+
+
+# --------------------------------------------------------------------------
+# The host env path (MuJoCo Humanoid etc.)
+# --------------------------------------------------------------------------
+
+
+def make_host_act_fn(action_dim: int, cfg: SACConfig):
+    """`act(actor, obs, generator, env_steps)`: the behaviour policy on the
+    device (the host loop's acting path without a mirror)."""
+    return make_explore_fn(cfg)
+
+
+def make_host_ingest_update(action_dim: int, cfg: SACConfig):
+    """`ingest_update(learner, traj, env_steps, generator) -> metrics`: a
+    host-collected [K, E] block into the ring, the gate (env_steps ≥
+    warmup_steps and a batch in the ring; SAC has no n-step window) and the
+    update loop, as `ddpg.make_host_ingest_update`."""
+    return ingest_update_of(make_update_loop(action_dim, cfg), cfg, min_size=cfg.batch_size)
+
+
+def make_greedy_act(action_dim: int, cfg: SACConfig):
+    """`act(actor, obs)`: tanh(mean), for the host eval."""
+    return lambda actor, obs: actor(obs).mode()
+
+
+def train_host(
+    pool,
+    cfg: SACConfig,
+    num_iterations: int,
+    seed: int = 0,
+    log_every: int = 10,
+    log_fn: Optional[Callable[[int, dict], None]] = None,
+    eval_every: int = 0,
+    eval_envs: int = 4,
+    eval_steps: int = 1000,
+    ckpt=None,
+    save_every: int = 0,
+    resume: bool = False,
+    overlap: bool = True,
+    save_replay: bool = True,
+    device="cuda",
+    iteration_hook=None,
+):
+    """SAC on a `HostEnvPool` (a host rollout, the learner on the device:
+    `host_loop.off_policy_train_host`). Use a pool with neither obs nor
+    reward normalization: drifting obs stats scale replayed transitions
+    inconsistently, and the critic then bootstraps across mixed frames (a
+    Q/α runaway on Humanoid-v5 in the JAX package's runs). Returns
+    (learner, history)."""
+    from actor_critic_tpu_torch.algos.host_loop import off_policy_train_host
+    from actor_critic_tpu_torch.models.host_actor import (
+        make_sac_host_explore,
+        make_sac_host_greedy,
+    )
+
+    return off_policy_train_host(
+        pool, cfg, num_iterations,
+        init_learner=init_learner,
+        make_act_fn=make_host_act_fn,
+        make_ingest_update=make_host_ingest_update,
+        seed=seed, log_every=log_every, log_fn=log_fn,
+        eval_every=eval_every, make_greedy_act=make_greedy_act,
+        eval_envs=eval_envs, eval_steps=eval_steps,
+        ckpt=ckpt, save_every=save_every, resume=resume,
+        overlap=overlap, make_host_explore=make_sac_host_explore,
+        make_host_greedy=make_sac_host_greedy,
+        save_replay=save_replay, device=device, iteration_hook=iteration_hook,
     )

@@ -4,8 +4,8 @@
 The JAX package's ten presets, in its order, their values held equal to
 the JAX presets' by a test: `a2c_cartpole`, `ppo_cartpole`, the four
 MuJoCo presets (`ppo_halfcheetah`, `ddpg_walker2d`, `td3_walker2d`,
-`sac_humanoid`, whose `host:` env comes with a later slice; their
-learners run on a pure env with `--env jax:<name>`), the IMPALA/A3C trio
+`sac_humanoid`, on their `host:` MuJoCo envs; their learners also run
+on `--env native:<id>` or `--env jax:<name>`), the IMPALA/A3C trio
 on the Pong-like pixel env (`impala_pong`, `impala_pong_learn`,
 `a3c_pong`), and `a2c_mixture` on the four-type scenario fleet. `resolve`
 turns the CLI's `--preset`, `--algo`, `--env`, `--set` and `--env-set`
@@ -64,10 +64,10 @@ PRESETS: dict[str, Preset] = {
         iterations=100,
         description="PPO on batched CartPole-v1, GAE through the CUDA kernel",
     ),
-    # The JAX package's four MuJoCo presets (BASELINE configs 2-4) keep
-    # their host env, whose path comes with a later slice: run as they
-    # are they exit with that message. Their learners run here on a pure
-    # env, `--preset ddpg_walker2d --env jax:pendulum` (the config stays
+    # The JAX package's four MuJoCo presets (BASELINE configs 2-4) on
+    # their host env (gymnasium and MuJoCo on the host, the update on the
+    # card: `algos/host_loop.py`); their learners also run on another env,
+    # `--env native:Pendulum-v1` or `--env jax:pendulum` (the config stays
     # the preset's when only the env changes).
     "ppo_halfcheetah": Preset(
         algo="ppo",
@@ -78,7 +78,7 @@ PRESETS: dict[str, Preset] = {
             anneal_iters=1000, lr_final=0.0,
         ),
         iterations=1000,
-        description="PPO-clip on MuJoCo HalfCheetah-v5 (the host env path: not ported yet)",
+        description="PPO-clip on MuJoCo HalfCheetah-v5 (host pool), the update as one CUDA graph",
     ),
     # Off-policy with the replay ring on the device: 64 env steps and 64
     # updates an iteration, a 1M-transition ring, a 10k-step uniform
@@ -91,7 +91,7 @@ PRESETS: dict[str, Preset] = {
             warmup_steps=10_000,
         ),
         iterations=16_000,
-        description="DDPG on MuJoCo Walker2d-v5 (the host env path: not ported yet)",
+        description="DDPG on MuJoCo Walker2d-v5 (host pool), ingest and updates as one CUDA graph",
     ),
     "td3_walker2d": Preset(
         algo="td3",
@@ -101,7 +101,7 @@ PRESETS: dict[str, Preset] = {
             warmup_steps=10_000,
         ),
         iterations=16_000,
-        description="TD3 on MuJoCo Walker2d-v5 (the host env path: not ported yet)",
+        description="TD3 on MuJoCo Walker2d-v5 (host pool), ingest and updates as one CUDA graph",
     ),
     "sac_humanoid": Preset(
         algo="sac",
@@ -111,7 +111,7 @@ PRESETS: dict[str, Preset] = {
             warmup_steps=10_000,
         ),
         iterations=16_000,
-        description="SAC on MuJoCo Humanoid-v5 (the host env path: not ported yet)",
+        description="SAC on MuJoCo Humanoid-v5 (host pool), ingest and updates as one CUDA graph",
     ),
     # IMPALA with 64 actors, unroll 20 and a 4-step actor lag, Nature CNN
     # on 84×84×2 uint8 Pong frames.

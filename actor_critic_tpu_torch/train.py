@@ -43,12 +43,24 @@ Every eval starts the eval generator from `seed + 1`, as the JAX CLI
 evaluates with one fixed key, so a resumed run evaluates as the straight
 one. Each row's `wall_s` leaves the evals out.
 
-The off-policy trainers (`--algo ddpg|td3|sac`) run on the pure envs; the
-MuJoCo presets' learners run there too, `--preset sac_humanoid --env
-jax:pendulum`, since a preset keeps its config when only the env changes.
+The host env path: `--env host:<gym id>` steps a gymnasium (MuJoCo) pool
+in numpy on the host, `--env native:<id>` the C++ engine's batch
+(CartPole-v1, Pendulum-v1, MountainCarContinuous-v0, Acrobot-v1; built with
+g++ at first use into `build/native/`), and the device learns from one
+uploaded [K, E] block an iteration, the update replayed as one CUDA graph
+on the card (`algos/host_loop.py`). PPO, DDPG/TD3 and SAC have host
+trainers, so the four MuJoCo presets run as they are
+(`--preset ppo_halfcheetah`, `ddpg_walker2d`, `td3_walker2d`,
+`sac_humanoid`), or on a stated env (`--preset sac_humanoid --env
+native:Pendulum-v1`, `--env jax:pendulum`): a preset keeps its config when
+only the env changes. On-policy pools normalize obs and reward, off-policy
+pools neither. Their flags: `--eval-envs`, `--eval-steps` (the frozen-stats
+eval pool), `--no-overlap` (act on the device every env step instead of
+through the numpy mirror with parameters one update stale) and
+`--no-save-replay` (checkpoints without the ring).
 
-Not ported yet, and refused with a message that says so: `host:`/`native:`
-envs (so the MuJoCo presets as they are), and the flags of the paths that
+Not ported yet, and refused with a message that says so: `--workers` (the
+sharded host pool), bf16 compute, and the flags of the other paths that
 come later (`UNPORTED_FLAGS`).
 """
 
@@ -85,6 +97,7 @@ from actor_critic_tpu_torch.envs import (
     mixture,
 )
 from actor_critic_tpu_torch.envs.env import TorchEnv
+from actor_critic_tpu_torch.envs.host_pool import HostEnvPool
 from actor_critic_tpu_torch.utils.cadence import finite_or_none
 from actor_critic_tpu_torch.utils.checkpoint import Checkpointer
 from actor_critic_tpu_torch.utils.logging import JsonlLogger
@@ -103,11 +116,7 @@ ALGOS = {"a2c": a2c, "ppo": ppo, "ddpg": ddpg, "td3": ddpg, "sac": sac,
 # The JAX CLI's flags whose paths are not ported yet, with the path each
 # belongs to (ROADMAP.md Queue 1). Each is refused with that message.
 UNPORTED_FLAGS = {
-    "--no-save-replay": "the host env path",
-    "--workers": "the host env path",
-    "--eval-envs": "the host env path",
-    "--eval-steps": "the host env path",
-    "--no-overlap": "the host env path",
+    "--workers": "the sharded host pool",
     "--async-actors": "the async actor-learner",
     "--updates-per-block": "the async actor-learner",
     "--max-staleness": "the async actor-learner",
@@ -147,13 +156,11 @@ def make_env(spec: str, env_kwargs: dict, scale_actions=None) -> TorchEnv:
     or `mixture:<members>` (the member list, with optional draw weights).
     `scale_actions` (the tri-state CLI flag) sets Pendulum's action
     convention. Unknown kwargs and bad values exit with the maker's valid
-    keywords; `host:` and `native:` specs exit as not ported yet."""
+    keywords. `host:` and `native:` specs are pools (`make_host_pool`)."""
     kind, sep, name = spec.partition(":")
     env_kwargs = dict(env_kwargs)
-    if kind in ("host", "native"):
-        raise SystemExit(
-            f"{kind}:<id> envs are not ported yet (the host env path comes in a later "
-            f"slice); the port runs jax:<name> ({', '.join(sorted(ENVS))}) and mixture:<members>")
+    if is_host_spec(spec):
+        raise ValueError(f"{spec!r} is a host pool: make_host_pool builds it")
     if kind == "mixture":
         maker, args = make_mixture, (name,)
     elif not sep or kind == "jax":
@@ -178,10 +185,48 @@ def make_env(spec: str, env_kwargs: dict, scale_actions=None) -> TorchEnv:
         raise SystemExit(f"bad env {spec!r}: {e}") from e
 
 
+def is_host_spec(spec: str) -> bool:
+    """Whether `spec` names a host pool (`host:<gym id>`, `native:<id>`)."""
+    return spec.startswith(("host:", "native:"))
+
+
+def make_host_pool(spec: str, algo: str, cfg, seed: int, scale_actions=None,
+                   env_kwargs=None) -> HostEnvPool:
+    """The pool `spec` names (the JAX CLI's `build_env`, host branch):
+    `host:<gym id>` a gymnasium pool, `native:<id>` the C++ engine's. An
+    on-policy trainer (PPO) gets obs and reward normalization; the
+    off-policy ones neither, since the pool normalizes with running stats
+    and replayed transitions would be scaled differently as they drift,
+    and TD targets want the raw reward scale. Host pools clip actions
+    unless `scale_actions`. `env_kwargs` go to gym.make; the native engine
+    takes none."""
+    kind, _, name = spec.partition(":")
+    env_kwargs = dict(env_kwargs or {})
+    if kind == "native" and env_kwargs:
+        raise SystemExit(f"--env-set is not supported for native:{name} (the C++ engine "
+                         "replicates gymnasium defaults exactly)")
+    on_policy = algo == "ppo"
+    try:
+        return HostEnvPool(
+            name, num_envs=cfg.num_envs, seed=seed, normalize_obs=on_policy,
+            normalize_reward=on_policy, backend="gym" if kind == "host" else "native",
+            scale_actions=bool(scale_actions), env_kwargs=env_kwargs)
+    except TypeError as e:
+        # gym.make raises TypeError on unknown constructor kwargs.
+        if env_kwargs and "keyword" in str(e):
+            raise SystemExit(f"bad --env-set for {spec}: {e}") from e
+        raise
+    except ValueError as e:
+        raise SystemExit(f"bad env {spec!r}: {e}") from e
+
+
 def effective_scale_actions(env_spec: str, scale_actions, env_kwargs=None):
     """The action convention the env will use (the JAX CLI's rule):
     Pendulum scales unless told otherwise, the CLI flag first, then an
-    `--env-set scale_actions=...`; None for envs with no such choice."""
+    `--env-set scale_actions=...`; host pools clip unless the flag says
+    scale; None for envs with no such choice."""
+    if is_host_spec(env_spec):
+        return bool(scale_actions)
     if env_name(env_spec) == "pendulum":
         if scale_actions is not None:
             return bool(scale_actions)
@@ -246,7 +291,7 @@ def parse_args(argv=None) -> argparse.Namespace:
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--preset", help="named preset (see --list-presets)")
     p.add_argument("--algo", help="a2c|ppo|ddpg|td3|sac|impala|a3c")
-    p.add_argument("--env", help="jax:<name> or mixture:<members>")
+    p.add_argument("--env", help="jax:<name>, mixture:<members>, host:<gym id> or native:<id>")
     p.add_argument("--iterations", type=int, help="train-step iterations")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
@@ -265,6 +310,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                    "card); log/eval/save cadences snap up to multiples of this")
     p.add_argument("--eval-every", type=int, default=0,
                    help="greedy-eval cadence in iterations (0 = off)")
+    p.add_argument("--eval-envs", type=int, default=4,
+                   help="host trainers: env count of the frozen-stats eval pool")
+    p.add_argument("--eval-steps", type=int, default=1000,
+                   help="host trainers: max steps per eval sweep (first episode only)")
+    p.add_argument("--no-overlap", action="store_true",
+                   help="host trainers: act on the device every env step instead of through "
+                   "the numpy mirror with parameters one update stale (the A/B baseline)")
+    p.add_argument("--no-save-replay", action="store_true",
+                   help="host off-policy trainers: checkpoints leave the replay ring out (a "
+                   "resumed run refills an empty ring); the codecs' stats are kept")
     p.add_argument("--quiet", action="store_true", help="no stdout metric echo")
     p.add_argument(
         "--scale-actions", action=argparse.BooleanOptionalAction, default=None,
@@ -402,6 +457,48 @@ def run_fused(env: TorchEnv, preset, args: argparse.Namespace, logger: JsonlLogg
     return {**metrics, "wall_s": time.perf_counter() - t0 - eval_s}
 
 
+def run_host(pool: HostEnvPool, preset, args: argparse.Namespace, logger: JsonlLogger,
+             device: torch.device) -> dict:
+    """Train `preset` on the host pool through its host trainer
+    (`ppo.train_host`, `ddpg.train_host`, `sac.train_host`), with the
+    evals and the checkpoints the flags ask for; returns the last metrics.
+    Each row's `wall_s` leaves the evals out."""
+    trainers = {"ppo": ppo, "ddpg": ddpg, "td3": ddpg, "sac": sac}
+    if preset.algo not in trainers:
+        raise SystemExit(f"{preset.algo} has no host trainer (the fused trainer needs a pure "
+                         "env); pick env jax:<name>")
+    ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
+    if ckpt is not None and args.resume and ckpt.latest_step() is not None:
+        print(f"resumed from iteration {ckpt.latest_step()}", flush=True)
+    last: dict = {}
+    t0 = time.perf_counter()
+    eval_s = 0.0
+
+    def log_fn(it: int, metrics: dict) -> None:
+        nonlocal eval_s
+        eval_s += metrics.get("eval_s", 0.0)
+        row = {**metrics, "wall_s": time.perf_counter() - t0 - eval_s}
+        last.clear()
+        last.update(row)
+        logger.log(it, row)
+
+    kwargs = dict(
+        num_iterations=args.iterations, seed=args.seed, log_every=args.log_every,
+        log_fn=log_fn, eval_every=args.eval_every, eval_envs=args.eval_envs,
+        eval_steps=args.eval_steps, ckpt=ckpt, save_every=args.save_every,
+        resume=args.resume, overlap=not args.no_overlap, device=device)
+    if preset.algo != "ppo":
+        kwargs["save_replay"] = not args.no_save_replay
+    trainers[preset.algo].train_host(pool, preset.config, **kwargs)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    if not last and ckpt is not None:
+        # The run was already complete: the metrics saved with the
+        # checkpoint, without the checkpoint's own bookkeeping keys.
+        last = {k: v for k, v in ckpt.restore_metrics().items() if not k.startswith("_")}
+    return last
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     if args.list_presets:
@@ -433,13 +530,31 @@ def main(argv=None) -> int:
     print(f"algo={preset.algo} env={preset.env} iterations={args.iterations} "
           f"config={dataclasses.asdict(preset.config)} env_kwargs={preset.env_kwargs}",
           flush=True)
-    env = make_env(preset.env, preset.env_kwargs, args.scale_actions)
-    check_env_convention(args.ckpt_dir, preset.env, args.scale_actions, args.resume,
-                         env_kwargs=preset.env_kwargs)
-    if args.chunk > 1:
-        snap_cadences(args)
-    with JsonlLogger(args.metrics, echo=not args.quiet) as logger:
-        final = run_fused(env, preset, args, logger, device)
+    host = is_host_spec(preset.env)
+    try:
+        if host:
+            env = make_host_pool(preset.env, preset.algo, preset.config, args.seed,
+                                 args.scale_actions, preset.env_kwargs)
+        else:
+            env = make_env(preset.env, preset.env_kwargs, args.scale_actions)
+        try:
+            check_env_convention(args.ckpt_dir, preset.env, args.scale_actions, args.resume,
+                                 env_kwargs=preset.env_kwargs)
+            if args.chunk > 1 and host:
+                print(f"--chunk applies to fused envs only; ignored for {preset.env}",
+                      flush=True)
+            elif args.chunk > 1:
+                snap_cadences(args)
+            with JsonlLogger(args.metrics, echo=not args.quiet) as logger:
+                if host:
+                    final = run_host(env, preset, args, logger, device)
+                else:
+                    final = run_fused(env, preset, args, logger, device)
+        finally:
+            if host:
+                env.close()
+    except NotImplementedError as e:
+        raise SystemExit(str(e)) from e
     cfg = preset.config
     print(json.dumps({
         "algo": preset.algo,

@@ -8,7 +8,9 @@ rollout obs and env state with the mixture's weights and stage, episode
 accounting, step counter, IMPALA's actor copy; for the off-policy states
 also the replay ring's every leaf, cursor, count and codec stats, the
 target nets, every Adam state, SAC's log α, the update and env-step
-counts) and the trainer generator's state; `<dir>/<step>/metrics.json` beside it holds the
+counts; for a host trainer's `algos.host_loop.HostCheckpoint`, its learner or net and
+Adam state, `env_steps` and the pool's normalizer stats) and the trainer generator's
+state; `<dir>/<step>/metrics.json` beside it holds the
 iteration's metrics, so that a resume with nothing left to run still
 reports them. A step is written under a temporary name and renamed into
 place, and the oldest beyond `max_to_keep` are removed.
@@ -27,7 +29,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
 import torch
 
@@ -63,7 +65,7 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def save(self, step: int, state: Union[TrainState, OffPolicyState],
+    def save(self, step: int, state: Union[TrainState, OffPolicyState, Any],
              metrics: Optional[dict] = None) -> None:
         """Write `state` (and the scalar `metrics`) as the checkpoint of
         iteration `step`, replacing one already there. Reads the tensors to
@@ -85,7 +87,8 @@ class Checkpointer:
         for old in self.all_steps()[:-self.max_to_keep]:
             shutil.rmtree(self._path(old))
 
-    def restore(self, state: Union[TrainState, OffPolicyState], step: Optional[int] = None) -> int:
+    def restore(self, state: Union[TrainState, OffPolicyState, Any],
+                step: Optional[int] = None) -> int:
         """Copy the checkpoint of iteration `step` (default: the latest) into
         `state` in place; returns the step. Raises FileNotFoundError when
         there is none, ValueError when its tensors are not the state's."""

@@ -6,6 +6,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device: the card's name and power limit (from nvidia-smi);
 2. build: every CUDA kernel of the main paths (GAE and V-trace), from
    `actor_critic_tpu_torch/csrc`, one nvcc each, all started together;
+   the probe of the host env path: whether gymnasium and MuJoCo import
+   (their versions) and the presets' three MuJoCo envs reset (missing
+   MuJoCo is reported, and the host phases then run on the C++ engine's
+   `native:Pendulum-v1`), then the engine's g++ build (a failed build
+   fails);
 3. kernels: the launch floor (the device time of a one-element zero_());
    each kernel against its plain PyTorch version on the card, at its main
    paths' shapes and at boundary shapes (ragged strips, chunk boundaries
@@ -66,6 +71,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    `impala_pong` and `sac_humanoid` on `jax:pendulum` (eager and as graph
    replays, in the same call; host clock and torch.profiler, V-trace's own
    time inside the graph);
+   - the host env path, on each preset's MuJoCo env or the engine's
+     Pendulum (as the probe found): `ppo_halfcheetah` at full width (E=8,
+     T=256, 10 × 32 minibatches) through `train.main`, the update one
+     CUDA graph from iteration 3, GAE launched once an iteration and
+     counted on the card, ms an iteration and the split into collect,
+     wait, dispatch (host clock), upload and update (device); the
+     off-policy presets at full width for 170 iterations past their
+     10,000-step warm-up (the ingest and 64 updates one graph, the
+     update count read back), ms an iteration and updates/s after the
+     gate; for each of the four a second run under `HostContract`: the
+     update's graph equal to its eager run on one block at 0.0, every
+     uploaded block equal to its host block and every mirror snapshot
+     equal to the parameters the update read, bitwise, with overlap on;
+     and `td3_walker2d`'s host checkpoint round trip at 0.0 (learner,
+     pool stats, generator, env steps) with the ring and without;
 6. a `{"kernels": [...]}` line, then the card's name and power limit;
 7. last line: `{"ok": true, "device": {"platform": "gpu", ...}}`.
 
@@ -233,6 +253,7 @@ def check_gae(floor_ms: float) -> dict:
         ("preset", 64, 4096, {}),
         ("ppo preset", 128, 256, {}),
         ("mixture preset", 32, 1024, {}),
+        ("host ppo", 256, 8, {}),
         ("T17-E512", 17, 512, {}),
         ("E7", 17, 7, {}),
         ("E96", 17, 96, {}),
@@ -258,9 +279,11 @@ def check_gae(floor_ms: float) -> dict:
         print(f"gae {name:12s} T={T:3d} E={E:5d} max_abs_err={err:.3e}", flush=True)
 
     # a2c_cartpole's shape (the kernels-line entry), then ppo_cartpole's
-    # (two chunks of 64 rows, double-buffered), a2c_mixture's and a3c_pong's.
+    # (two chunks of 64 rows, double-buffered), a2c_mixture's, a3c_pong's
+    # and the host path's ppo_halfcheetah (one ragged strip of 8 of the
+    # tile's 16 columns, four chunks of 64 rows).
     timings = []
-    for T, E in ((64, 4096), (128, 256), (32, 1024), (20, 64)):
+    for T, E in ((64, 4096), (128, 256), (32, 1024), (20, 64), (256, 8)):
         args = gae_inputs(T, E, seed=100)
         timings.append(time_against_bound(
             f"gae [{T},{E}]", "gae_kernel", lambda: gae_cuda.gae(*args, GAMMA, LAM),
@@ -1382,6 +1405,398 @@ def profile_step(preset_name: str, n: int = 3, env_spec: str = "") -> None:
                       flush=True)
 
 
+# -- the host env path ----------------------------------------------------
+
+HOST_MUJOCO_ENVS = {"ppo_halfcheetah": "HalfCheetah-v5", "ddpg_walker2d": "Walker2d-v5",
+                    "td3_walker2d": "Walker2d-v5", "sac_humanoid": "Humanoid-v5"}
+HOST_FALLBACK_ENV = "native:Pendulum-v1"  # the C++ engine, where MuJoCo is missing
+HOST_PPO_ITERATIONS = 12     # two eager, a capture, then replays
+HOST_LOG_EVERY = 4           # the main paths log (and so wait for the card) every 4th / 10th
+HOST_OFFPOLICY_LOG_EVERY = 10  # iteration, so the iterations between overlap host and card
+HOST_CHECK_ITERATIONS = 6    # the graph-vs-eager and upload checks: iterations 1-6
+HOST_CHECK_AT = 4            # a replayed iteration
+HOST_OFFPOLICY_ITERATIONS = 170  # the presets' 10,000-step warm-up ends at iteration 157
+HOST_RESUME_ITERATIONS = 3
+
+
+def probe_host_envs() -> dict:
+    """Whether gymnasium and MuJoCo import (with their versions) and the
+    three MuJoCo envs of the presets reset; missing MuJoCo is reported, not
+    failed. Then the C++ env engine is built (g++), and a failed build
+    fails. Returns {preset: the env its host phases run on}."""
+    from actor_critic_tpu_torch import native
+
+    found = {}
+    for mod in ("gymnasium", "mujoco"):
+        try:
+            found[mod] = __import__(mod).__version__
+        except ImportError as e:
+            found[mod] = None
+            print(f"probe: {mod} does not import ({e})", flush=True)
+    resets = {}
+    if all(found.values()):
+        import gymnasium as gym
+
+        for env_id in sorted(set(HOST_MUJOCO_ENVS.values())):
+            try:
+                env = gym.make(env_id)
+                obs, _ = env.reset(seed=0)
+                env.close()
+                resets[env_id] = tuple(obs.shape)
+            except Exception as e:  # reported: the phases then run on the engine
+                resets[env_id] = f"{type(e).__name__}: {e}"
+    mujoco = all(found.values()) and all(isinstance(v, tuple) for v in resets.values())
+    print(f"probe: gymnasium {found['gymnasium']}, mujoco {found['mujoco']}; resets {resets}; "
+          f"the host phases run on {'MuJoCo' if mujoco else HOST_FALLBACK_ENV}", flush=True)
+    t0 = time.perf_counter()
+    native.build()
+    native.load()
+    print(f"probe: native env engine built in {time.perf_counter() - t0:.2f} s (g++ "
+          f"{' '.join(native.CXX_FLAGS)}) into {native.LIB.relative_to(native.BUILD_DIR.parent.parent)}",
+          flush=True)
+    return {p: (f"host:{e}" if mujoco else HOST_FALLBACK_ENV) for p, e in HOST_MUJOCO_ENVS.items()}
+
+
+def host_split(logged: list[dict], after: int) -> str:
+    """The mean split of the logged iterations from `after` on: collect,
+    wait and dispatch on the host clock, upload and update on the device."""
+    rows = [r for r in logged if r["iter"] >= after]
+    mean = lambda k: sum(r[k] for r in rows) / len(rows)
+    return (f"collect {mean('collect_s') * 1e3:.3f} ms, wait {mean('wait_s') * 1e3:.3f} ms, "
+            f"dispatch {mean('dispatch_s') * 1e3:.3f} ms (host clock); upload "
+            f"{mean('upload_ms'):.3f} ms, update {mean('update_ms'):.3f} ms (device, CUDA events)")
+
+
+class HostContract:
+    """An `iteration_hook` for a host trainer on the card, overlap on:
+
+    - the upload: after each iteration's dispatch, a device clone of every
+      static block buffer (in stream order after the update, before the
+      next upload) and a host copy of the block; at the end each uploaded
+      block must equal its host block bitwise;
+    - the snapshot: the mirror's snapshot enqueued before iteration N+1's
+      update must equal the acting module's parameters after update N
+      (cloned on the device in stream order at iteration N's hook),
+      bitwise, in the mirror's layout;
+    - graph vs eager: at iteration `check_at` (a replay) the update runs
+      once eagerly and once as the graph from the same state and block,
+      and every tensor it writes, its metrics and the generator's state
+      must agree at 0.0; the state is then put back.
+    Nothing here waits for the device except the snapshot's own event and
+    the graph-vs-eager check."""
+
+    def __init__(self, module_of, check_at: int):
+        self.module_of, self.check_at = module_of, check_at
+        self.blocks: list[tuple[dict, dict]] = []
+        self.params_after: dict[int, dict] = {}
+        self.snapshots: dict[int, dict] = {}
+        self.graph_vs_eager: dict = {}
+
+    def __call__(self, it, run) -> None:
+        import torch
+
+        from actor_critic_tpu_torch.algos import loop
+
+        self.blocks.append(({k: v.copy() for k, v in run.buffers.block().items()},
+                            {k: v.clone() for k, v in run.buffers.static.items()}))
+        module = self.module_of(run)
+        self.params_after[it] = {k: p.detach().clone() for k, p in module.named_parameters()}
+        if it > 1:
+            tree = run.snapshot.params()
+            self.snapshots[it] = {k: v.copy() for k, v in flat_tree(tree).items()}
+        if it == self.check_at:
+            assert run.update.captured is not None, "the update is not a graph yet"
+            torch.cuda.synchronize()
+            carried = run.carried()
+            start = {k: t.clone() for k, t in carried.items()}
+            gen = run.update.generator
+            gen_start = gen.get_state()
+            _, eager_metrics = loop.eager_step(run.update._step, run.update, run.update.stream)
+            eager = {k: t.clone() for k, t in carried.items()}
+            eager.update({f"metric {k}": v.clone() for k, v in eager_metrics.items()})
+            eager_gen = gen.get_state()
+            with torch.no_grad():
+                for k, t in carried.items():
+                    t.copy_(start[k])
+            gen.set_state(gen_start)
+            graph_metrics = run.update.captured.replay()
+            torch.cuda.synchronize()
+            diffs = {k: float((t.double() - eager[k].double()).abs().max())
+                     for k, t in carried.items()}
+            diffs.update({f"metric {k}": float((v.double() - eager[f'metric {k}'].double()).abs().max())
+                          for k, v in graph_metrics.items()})
+            self.graph_vs_eager = dict(worst=max(diffs.values()), tensors=len(diffs),
+                                       generator_equal=bool(torch.equal(gen.get_state(), eager_gen)))
+            # One more replay from the same state: its host-clock time
+            # (launch to synchronised end), its host time to return, and
+            # its kernels under torch.profiler.
+            for timed in (True, False):
+                with torch.no_grad():
+                    for k, t in carried.items():
+                        t.copy_(start[k])
+                gen.set_state(gen_start)
+                if timed:
+                    t0 = time.perf_counter()
+                    run.update.captured.replay()
+                    t1 = time.perf_counter()
+                    torch.cuda.synchronize()
+                    self.graph_vs_eager.update(launch_ms=(t1 - t0) * 1e3,
+                                               replay_ms=(time.perf_counter() - t0) * 1e3)
+                else:
+                    kernels, _ = profile_kernels(run.update.captured.replay, iters=1)
+                    self.graph_vs_eager.update(
+                        busy_ms=sum(us for _, us in kernels.values()) / 1e3,
+                        launches=sum(c for c, _ in kernels.values()))
+            with torch.no_grad():
+                for k, t in carried.items():
+                    t.copy_(start[k])
+            gen.set_state(gen_start)
+
+    def check(self, label: str) -> None:
+        import numpy as np
+
+        import torch
+
+        torch.cuda.synchronize()
+        fields = 0
+        for host, device in self.blocks:
+            assert sorted(host) == sorted(device), (sorted(host), sorted(device))
+            for k, v in host.items():
+                assert np.array_equal(device[k].cpu().numpy(), v), (label, k)
+                fields += 1
+        for it, tree in self.snapshots.items():
+            want = mirror_layout(self.params_after[it - 1])
+            assert sorted(tree) == sorted(want), (sorted(tree), sorted(want))
+            for k, v in want.items():
+                assert np.array_equal(tree[k], v), (label, it, k)
+        g = self.graph_vs_eager
+        print(f"host contract {label}: {len(self.blocks)} blocks uploaded, {fields} fields equal "
+              f"to the host blocks bitwise; {len(self.snapshots)} mirror snapshots equal to the "
+              f"parameters the update read, bitwise; graph vs eager on one block (iteration "
+              f"{self.check_at}): max abs difference {g['worst']:.3e} over {g['tensors']} tensors "
+              f"and metrics, the generator's state {'equal' if g['generator_equal'] else 'DIFFERENT'}; "
+              f"one replay {g['replay_ms']:.3f} ms (host clock, synchronised; the launch call "
+              f"returned after {g['launch_ms']:.3f} ms), device busy {g['busy_ms']:.3f} ms, "
+              f"{g['launches']} kernel launches (torch.profiler)", flush=True)
+        assert len(self.blocks) >= 4 and len(self.snapshots) >= 3, (len(self.blocks), len(self.snapshots))
+        assert g["worst"] == 0.0 and g["generator_equal"], g
+
+
+def flat_tree(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def mirror_layout(params: dict) -> dict:
+    """A module's parameters (by `named_parameters` name) as the mirror's
+    flat tree: `weight` → `kernel`, transposed to [in, out]."""
+    out = {}
+    for k, t in params.items():
+        path, _, leaf = k.rpartition(".")
+        if leaf == "weight":
+            out[f"params.{path}.kernel"] = t.t().contiguous().cpu().numpy()
+        else:
+            out[f"params.{k}"] = t.cpu().numpy()
+    return out
+
+
+def host_pool(preset_name: str, env: str):
+    from actor_critic_tpu_torch import train
+    from actor_critic_tpu_torch.config import PRESETS
+
+    preset = PRESETS[preset_name]
+    cfg = preset.config
+    return train.make_host_pool(env, preset.algo, cfg, 0), cfg
+
+
+def run_host_ppo(env: str) -> int:
+    """`ppo_halfcheetah` at its full width (E=8, T=256, 10 epochs × 32
+    minibatches, hidden (64, 64)) on `env` through `train.main`, the update
+    replayed as one CUDA graph from iteration 3; then the same trainer under
+    a `HostContract` (graph vs eager, the upload and the snapshot). Returns
+    GAE's launches on the main path (one an iteration)."""
+    import math
+
+    import torch
+
+    from actor_critic_tpu_torch.algos import ppo
+
+    n = HOST_PPO_ITERATIONS
+    logged, summary, launches = drive(
+        ["--preset", "ppo_halfcheetah", "--env", env, "--iterations", str(n), "--log-every",
+         str(HOST_LOG_EVERY), "--eval-every", str(n), "--eval-envs", "4", "--eval-steps", "1000",
+         "--seed", "0"], show_every=HOST_LOG_EVERY)
+    check_rows(logged, n)
+    assert launches == {"gae": n, "vtrace": 0}, launches
+    assert math.isfinite(logged[-1]["eval_return"]), logged[-1]
+    after = 2 * HOST_LOG_EVERY
+    per_iter_s, steps = per_iteration(logged, summary, after=HOST_LOG_EVERY)
+    print(f"main path ppo_halfcheetah on {env} (E=8, T=256, 10x32 minibatches, the update a CUDA "
+          f"graph from iteration 3, logged every {HOST_LOG_EVERY}): {n} iterations, GAE launches "
+          f"{launches['gae']}; eager iteration 1 {logged[0]['wall_s'] * 1e3:.1f} ms; "
+          f"{per_iter_s * 1e3:.3f} ms/iteration over the replays {HOST_LOG_EVERY + 1}-{n} "
+          f"({steps / per_iter_s:.0f} env-steps/s); split of iterations {after}, ..., {n} "
+          f"{host_split(logged, after)}; greedy eval {logged[-1]['eval_return']:.2f}", flush=True)
+
+    pool, cfg = host_pool("ppo_halfcheetah", env)
+    contract = HostContract(lambda run: run.device_state["params"], HOST_CHECK_AT)
+    try:
+        ppo.train_host(pool, cfg, HOST_CHECK_ITERATIONS, seed=1, log_every=0, device="cuda",
+                       iteration_hook=contract)
+    finally:
+        pool.close()
+    torch.cuda.synchronize()
+    contract.check(f"ppo_halfcheetah on {env}")
+    return launches["gae"]
+
+
+def run_host_offpolicy(preset_name: str, env: str) -> None:
+    """An off-policy preset at its full width (E=1, K=J=64, batch 256,
+    hidden (256, 256), a 1M ring) on `env` through `train.main` for
+    HOST_OFFPOLICY_ITERATIONS iterations, past the 10,000-step warm-up (the
+    gate opens at iteration 157, inside the replays), losses finite, the
+    update count read back from the final checkpoint; then the ingest
+    under a `HostContract` with the warm-up cut to 128 env steps."""
+    import dataclasses
+    import math
+    import shutil
+
+    import torch
+
+    from actor_critic_tpu_torch import train
+
+    n = HOST_OFFPOLICY_ITERATIONS
+    d = f"{SCRATCH}/host_{preset_name}"
+    shutil.rmtree(d, ignore_errors=True)
+    logged, summary, launches = drive(
+        ["--preset", preset_name, "--env", env, "--iterations", str(n), "--log-every",
+         str(HOST_OFFPOLICY_LOG_EVERY), "--eval-every", str(n), "--eval-envs", "2",
+         "--eval-steps", "1000", "--seed", "0", "--ckpt-dir", d, "--save-every", "0",
+         "--no-save-replay"], show_every=50)
+    check_rows(logged, n, keys=("critic_loss", "actor_loss", "q_mean"))
+    assert launches == {"gae": 0, "vtrace": 0}, launches
+    saved = final_checkpoint(d, n)["tensors"]
+    updates = int(saved["device_state.learner.update_count"])
+    pool, cfg = host_pool(preset_name, env)
+    pool.close()
+    opened = -(-cfg.warmup_steps // (cfg.steps_per_iter * cfg.num_envs))  # iteration 157
+    assert updates == (n - opened + 1) * cfg.updates_per_iter, (updates, opened)
+    assert int(saved["device_state.env_steps"]) == n * cfg.steps_per_iter * cfg.num_envs
+    ev = logged[-1]["eval_return"]
+    assert math.isfinite(ev), logged[-1]
+    rows = {r["iter"]: r for r in logged}
+    per = lambda a, b: (rows[b]["wall_s"] - rows[a]["wall_s"]) / (b - a)
+    every = HOST_OFFPOLICY_LOG_EVERY
+    shut = (every, opened // every * every)       # logged replays with the gate shut: 10-150
+    open_ = (-(-opened // every) * every, n)      # and open: 160-170
+    before, after = per(*shut), per(*open_)
+    spi = cfg.steps_per_iter * cfg.num_envs
+    print(f"main path {preset_name} on {env} (E={cfg.num_envs}, K=J={cfg.steps_per_iter}, "
+          f"ingest and updates a CUDA graph from iteration 3, logged every {every}): {n} "
+          f"iterations; {before * 1e3:.3f} ms/iteration over the replays {shut[0] + 1}-{shut[1]} "
+          f"(the gate shut), {after * 1e3:.3f} over {open_[0] + 1}-{n} (open): "
+          f"{spi / after:.0f} env-steps/s, {cfg.updates_per_iter / after:.0f} updates/s; split "
+          f"of the logged iterations after the gate {host_split(logged, open_[0])}; update_count "
+          f"{updates} (gate opened at iteration {opened}); critic_loss "
+          f"{rows[n]['critic_loss']:.4f}, greedy eval {ev:.2f}", flush=True)
+
+    mod = train.ALGOS[train.PRESETS[preset_name].algo]
+    pool, cfg = host_pool(preset_name, env)
+    cfg = dataclasses.replace(cfg, warmup_steps=OFFPOLICY_GRAPH_WARMUP)
+    contract = HostContract(lambda run: run.device_state["learner"].actor, HOST_CHECK_AT)
+    try:
+        learner, _ = mod.train_host(pool, cfg, HOST_CHECK_ITERATIONS, seed=1, log_every=0,
+                                    device="cuda", iteration_hook=contract)
+    finally:
+        pool.close()
+    contract.check(f"{preset_name} on {env} (warm-up {OFFPOLICY_GRAPH_WARMUP})")
+    assert int(learner.update_count) > 0
+
+
+def run_host_resume(preset_name: str, env: str) -> None:
+    """A host checkpoint's round trip on the card, with the ring and
+    without (`save_replay=False`): HOST_RESUME_ITERATIONS iterations saved,
+    then (a) the checkpoint holds the live learner at 0.0, (b) a restore
+    into a fresh template gives back at 0.0 the learner (the ring stub
+    without the ring), the pool's stats, the generator's state and
+    `env_steps`, and (c) the trainer's own resume gives back the learner
+    (an empty ring with the stats kept without the ring)."""
+    import dataclasses
+    import shutil
+    import warnings
+
+    import torch
+
+    from actor_critic_tpu_torch import train
+    from actor_critic_tpu_torch.algos.common import named_carried
+    from actor_critic_tpu_torch.algos.host_loop import host_ckpt_state, pool_state
+    from actor_critic_tpu_torch.utils.checkpoint import Checkpointer
+
+    mod = train.ALGOS[train.PRESETS[preset_name].algo]
+    n = HOST_RESUME_ITERATIONS
+    for save_replay in (True, False):
+        d = f"{SCRATCH}/host_resume_{preset_name}_{save_replay}"
+        shutil.rmtree(d, ignore_errors=True)
+        pool, cfg = host_pool(preset_name, env)
+        cfg = dataclasses.replace(cfg, warmup_steps=OFFPOLICY_GRAPH_WARMUP)
+        try:
+            live, _ = mod.train_host(pool, cfg, n, seed=2, log_every=0, ckpt=Checkpointer(d),
+                                     save_every=n, save_replay=save_replay, device="cuda")
+            pool_saved = pool.get_state()
+        finally:
+            pool.close()
+        saved = final_checkpoint(d, n)
+        ring = lambda k: " storage." in k or k.endswith(("insert_pos", "size"))
+        live_t = {f"device_state.learner.{k}": t for k, t in named_carried(live, "").items()}
+        diff = lambda a, b: float((a.detach().cpu().double() - b.double()).abs().max())
+        worst_save = max(diff(t, saved["tensors"][k]) for k, t in live_t.items()
+                         if save_replay or not ring(k))
+
+        pool, _ = host_pool(preset_name, env)
+        fresh = mod.init_learner(pool.spec.obs_shape, pool.spec.action_dim, cfg,
+                                 torch.Generator().manual_seed(99), "cuda")
+        gen = torch.Generator(device=fresh.update_count.device)
+        from actor_critic_tpu_torch.algos.host_loop import strip_replay
+
+        tmpl = host_ckpt_state(pool, gen, learner=fresh if save_replay else strip_replay(fresh),
+                               env_steps=torch.zeros((), dtype=torch.int64))
+        Checkpointer(d).restore(tmpl)
+        restored = {k: t for k, t in named_carried(tmpl, "").items()}
+        worst_restore = max(diff(t, saved["tensors"][k]) for k, t in restored.items())
+        gen_equal = bool(torch.equal(gen.get_state(), saved["generator"]))
+        pool.set_state(pool_state(tmpl.pool))
+        pool_equal = all(
+            bool((torch.as_tensor(pool.get_state()[g][f]) == torch.as_tensor(pool_saved[g][f])).all())
+            for g in ("obs_rms", "ret_rms") for f in ("mean", "var", "count"))
+        env_steps = int(tmpl.device_state["env_steps"])
+        pool.close()
+
+        pool, _ = host_pool(preset_name, env)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the replay-free resume warns by design
+            resumed, _ = mod.train_host(pool, cfg, n, seed=2, log_every=0, ckpt=Checkpointer(d),
+                                        resume=True, save_replay=save_replay, device="cuda")
+        pool.close()
+        res_t = {f"device_state.learner.{k}": t for k, t in named_carried(resumed, "").items()}
+        worst_resume = max(diff(t, live_t[k].cpu()) for k, t in res_t.items()
+                           if save_replay or not ring(k))
+        empty = int(resumed.replay.size) == 0
+        print(f"host resume {preset_name} on {env} ({'with' if save_replay else 'without'} the "
+              f"ring): save vs live {worst_save:.3e}, restore vs save {worst_restore:.3e} over "
+              f"{len(restored)} tensors, generator {'equal' if gen_equal else 'DIFFERENT'}, pool "
+              f"stats {'equal' if pool_equal else 'DIFFERENT'}, env_steps {env_steps}; the "
+              f"trainer's resume vs live {worst_resume:.3e}"
+              f"{'' if save_replay else f', ring empty after the resume: {empty}'}", flush=True)
+        assert worst_save == worst_restore == worst_resume == 0.0
+        assert gen_equal and pool_equal and env_steps == n * cfg.steps_per_iter * cfg.num_envs
+        assert save_replay or empty
+
+
 def main() -> int:
     import torch
 
@@ -1401,6 +1816,7 @@ def main() -> int:
     for name, (secs, text) in _build.build_log.items():
         print(f"nvcc {name}.cu ({secs:.2f} s):\n{text.strip()}", flush=True)
 
+    host_envs = probe_host_envs()
     floor_ms = launch_floor_ms()
     print(f"launch floor: {floor_ms * 1e3:.3f} us on the device (torch.profiler, "
           f"a one-element zero_())", flush=True)
@@ -1431,6 +1847,12 @@ def main() -> int:
     run_offpolicy_learning()
     run_offpolicy_resume_and_chunk()
     check_humanoid_update_loop()
+    host_gae = run_host_ppo(host_envs["ppo_halfcheetah"])
+    for preset_name in OFFPOLICY_PRESETS:
+        run_host_offpolicy(preset_name, host_envs[preset_name])
+    run_host_resume("td3_walker2d", host_envs["td3_walker2d"])
+    print(f"host envs the presets ran on: {host_envs}; GAE launches on the host PPO path "
+          f"{host_gae}", flush=True)
     check_impala_learns()
     profile_step("a2c_cartpole")
     # One step each way for the steps of ~21,000–24,000 launches: the

@@ -17,9 +17,9 @@ JAX package's `config.py` and `train.py`:
 - `--list-presets` names JAX's ten presets, in JAX's order;
 - `--replay-dtype` sets the ring's codecs, and exits on an algorithm with
   no ring, as JAX's;
-- what is not ported yet (`host:`/`native:` envs, so the MuJoCo presets
-  as they are, and the flags of later paths) exits with a message saying
-  so.
+- what is not ported yet (bf16 compute, also on the host path's
+  `host:`/`native:` envs and the MuJoCo presets, `--workers` and the
+  flags of later paths) exits with a message saying so.
 """
 
 import dataclasses
@@ -260,10 +260,14 @@ def test_algo_env_runs(algo, env, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--preset", "sac_humanoid"], "not ported"),
-    (["--preset", "ddpg_walker2d", "--replay-dtype", "mixed"], "not ported"),
-    (["--preset", "ppo_cartpole", "--env", "host:CartPole-v1"], "not ported"),
-    (["--algo", "ppo", "--env", "native:HalfCheetah-v5"], "not ported"),
+    (["--preset", "sac_humanoid", "--env", "native:Pendulum-v1", "--set", "bf16_compute=true"],
+     "not ported"),
+    (["--preset", "ddpg_walker2d", "--replay-dtype", "mixed", "--env", "native:Pendulum-v1",
+      "--set", "bf16_compute=true"], "not ported"),
+    (["--preset", "ppo_cartpole", "--env", "host:CartPole-v1", "--set", "bf16_compute=true"],
+     "not ported"),
+    (["--algo", "ppo", "--env", "native:Acrobot-v1", "--set", "bf16_compute=true"],
+     "not ported"),
     (["--algo", "ppo", "--env", "gym:CartPole-v1"], "env must be"),
     (["--preset", "a2c_cartpole", "--set", "bogus=1"], "no field"),
     (["--algo", "a2c"], "need --preset"),
