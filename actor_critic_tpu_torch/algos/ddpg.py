@@ -26,7 +26,9 @@ step as one CUDA graph.
 The host env path (`train_host`, below) collects on a `HostEnvPool` and
 runs the same insert, gate and update loop on each uploaded block
 (`make_host_ingest_update`), also as one CUDA graph
-(`algos/host_loop.py`).
+(`algos/host_loop.py`). `train_host_async` decouples collection into
+actor threads (`host_loop.off_policy_train_host_async`), on the host or
+the device data plane (`data_plane/device_replay.py`).
 """
 
 from __future__ import annotations
@@ -524,4 +526,48 @@ def train_host(
         overlap=overlap, make_host_explore=make_ddpg_host_explore,
         make_host_greedy=make_ddpg_host_greedy,
         save_replay=save_replay, device=device, iteration_hook=iteration_hook,
+    )
+
+
+def train_host_async(
+    pools,
+    cfg: DDPGConfig,
+    num_iterations: int,
+    seed: int = 0,
+    log_every: int = 10,
+    log_fn: Optional[Callable[[int, dict], None]] = None,
+    eval_every: int = 0,
+    eval_envs: int = 4,
+    eval_steps: int = 1000,
+    queue_depth: int = 4,
+    max_staleness: Optional[int] = None,
+    data_plane: str = "host",
+    plane_codec: str = "fp32",
+    transfer_pad_s: float = 0.0,
+    device="cuda",
+    iteration_hook=None,
+):
+    """DDPG/TD3 with decoupled actor threads (`host_loop.off_policy_train_host_async`):
+    one exploration thread per pool pushes [K, E_a] transition blocks
+    through the bounded queue, and the learner ingests each into the replay
+    ring and updates; replay absorbs the behaviour staleness, so there is
+    no correction knob. `data_plane="device"` stages the blocks encoded in
+    a ring on the card. Returns (learner, history)."""
+    from actor_critic_tpu_torch.algos.host_loop import off_policy_train_host_async
+    from actor_critic_tpu_torch.models.host_actor import (
+        make_ddpg_host_explore,
+        make_ddpg_host_greedy,
+    )
+
+    return off_policy_train_host_async(
+        pools, cfg, num_iterations,
+        init_learner=init_learner,
+        make_ingest_update=make_host_ingest_update,
+        make_host_explore=make_ddpg_host_explore,
+        make_host_greedy=make_ddpg_host_greedy,
+        seed=seed, log_every=log_every, log_fn=log_fn,
+        eval_every=eval_every, eval_envs=eval_envs, eval_steps=eval_steps,
+        queue_depth=queue_depth, max_staleness=max_staleness,
+        data_plane=data_plane, plane_codec=plane_codec, transfer_pad_s=transfer_pad_s,
+        device=device, iteration_hook=iteration_hook,
     )

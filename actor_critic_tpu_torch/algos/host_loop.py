@@ -34,8 +34,14 @@ and the collect loop never waits for the update itself. Without a mirror,
 or with `overlap=False`, the host acts through the module on the device
 every env step and waits for it.
 
-The async actor-learner loops, the telemetry spans and the stall watchdog
-of the JAX module are not ported yet (Queue 1).
+The async actor-learner half (JAX's `async_host_*` checkpoint functions
+and `off_policy_train_host_async`) is below the synchronous loops: actor
+threads (`traj_queue.ActorService`) collect through the mirrors and push
+blocks into a queue, and the learner's thread takes them (`AsyncFeed`:
+through pinned staging from the host `TrajQueue`, or by slot from the
+device ring), replays its update, and publishes the update's input
+parameters (`publish_snapshot`). The telemetry spans and the stall
+watchdog of the JAX module are not ported yet (Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -267,21 +273,29 @@ def greedy_eval_act(module, greedy: Callable, host_greedy: Optional[Callable],
 
 class HostUpdate:
     """A host trainer's device update, `body() -> metrics`, which reads the
-    static block buffers and writes the learner in place (the counterpart
-    of the JAX trainers' jitted update). On the card the first
-    `loop.WARMUP_ITERATIONS` calls run eagerly on a side stream; the next
-    captures `body` into one CUDA graph (`loop.CapturedStep`, the trainer's
-    generator registered with it) and every call from then on replays it.
-    On the CPU every call runs eagerly. The metrics of a replay are the
-    graph's output tensors, overwritten by the next replay."""
+    static block buffers (or the device ring's slot) and writes the learner
+    in place (the counterpart of the JAX trainers' jitted update). On the
+    card the first `loop.WARMUP_ITERATIONS` calls run eagerly on a side
+    stream; the next captures `body` into one CUDA graph
+    (`loop.CapturedStep`, the trainer's generator registered with it, in
+    `capture_error_mode`) and every call from then on replays it. On the
+    CPU every call runs eagerly. The metrics of a replay are the graph's
+    output tensors, overwritten by the next replay."""
 
-    def __init__(self, body: Callable[[], dict[str, torch.Tensor]], generator: torch.Generator):
+    def __init__(self, body: Callable[[], dict[str, torch.Tensor]], generator: torch.Generator,
+                 capture_error_mode: str = "global"):
         self.body = body
         self.generator = generator
+        self.capture_error_mode = capture_error_mode
         cuda = generator.device.type == "cuda"
         self.stream = torch.cuda.Stream(generator.device) if cuda else None
         self.eager_left = loop.WARMUP_ITERATIONS if cuda else 0
         self.captured: Optional[loop.CapturedStep] = None
+
+    @property
+    def warming(self) -> bool:
+        """Whether the next call runs eagerly or captures (on the card)."""
+        return self.stream is not None and self.captured is None
 
     def _step(self, _):
         return self, self.body()
@@ -293,7 +307,8 @@ class HostUpdate:
             self.eager_left -= 1
             return loop.eager_step(self._step, self, self.stream)[1]
         if self.captured is None:
-            self.captured = loop.CapturedStep(self._step, self)
+            self.captured = loop.CapturedStep(self._step, self,
+                                              capture_error_mode=self.capture_error_mode)
         return self.captured.replay()
 
 
@@ -312,8 +327,8 @@ class IterationClock:
         self.times: dict[str, float] = {}
         self._events: list[torch.cuda.Event] = []
 
-    def start(self) -> None:
-        self.times = {"collect_s": 0.0, "wait_s": 0.0, "dispatch_s": 0.0}
+    def start(self, phases: tuple[str, ...] = ("collect_s", "wait_s", "dispatch_s")) -> None:
+        self.times = dict.fromkeys(phases, 0.0)
         self._events = []
 
     def add(self, phase: str, seconds: float) -> None:
@@ -341,15 +356,20 @@ class IterationClock:
 class HostRun:
     """What a host trainer's iteration works on, handed to an
     `iteration_hook(it, run)` after each iteration's dispatch: the block
-    buffers (host arrays and static device buffers), the mirror's snapshot
-    (None without a mirror), the device update, the tensors the update
-    writes by name (`carried()`), and the clock."""
+    buffers (host arrays and static device buffers; None on the async
+    learner's device data plane), the mirror's snapshot (None without a
+    mirror), the device update, the tensors the update writes by name
+    (`carried()`), the clock, and for an async learner its queue (a
+    `TrajQueue` or `DeviceTrajRing`) and its actors' gate (a hook that runs
+    the update eagerly clears it meanwhile, as `run_updates` does)."""
 
-    buffers: BlockBuffers
+    buffers: Optional[BlockBuffers]
     snapshot: Optional[host_actor.MirrorSnapshot]
     update: HostUpdate
     device_state: dict[str, Any]
     clock: IterationClock
+    queue: Any = None
+    gate: Any = None
 
     def carried(self) -> dict[str, torch.Tensor]:
         return named_carried(self.device_state, "")
@@ -684,3 +704,403 @@ def off_policy_train_host(
             iteration_hook(it + 1, run)
     return learner, history
 
+
+
+# -- the async actor-learner -------------------------------------------
+
+DATA_PLANES = ("host", "device")
+
+
+def make_async_queue(data_plane: str, depth: int, max_staleness: Optional[int], policy: str,
+                     block_spec: Optional[dict] = None, codec: str = "fp32",
+                     transfer_pad_s: float = 0.0, device="cpu"):
+    """The hand-off of an async learner: the host `TrajQueue`, or the
+    `DeviceTrajRing` shaped like `block_spec` on `device`."""
+    from actor_critic_tpu_torch.algos.traj_queue import TrajQueue
+
+    if data_plane not in DATA_PLANES:
+        raise ValueError(f"data_plane must be 'host' or 'device', got {data_plane!r}")
+    if data_plane == "host":
+        return TrajQueue(depth=depth, max_staleness=max_staleness, policy=policy)
+    from actor_critic_tpu_torch.data_plane.ring import DeviceTrajRing
+
+    return DeviceTrajRing(depth=depth, block_spec=block_spec, codec=codec,
+                          max_staleness=max_staleness, policy=policy,
+                          transfer_pad_s=transfer_pad_s, device=device)
+
+
+class AsyncFeed:
+    """The learner's end of an async hand-off: `stage(block, **scalars)`
+    makes a consumed block the input of the updates that follow, and
+    `done(block)` ends its lease after the last of them.
+
+    Host plane (`TrajQueue`): the block's arrays and the `scalars` (the
+    off-policy env-step count) are copied on the host into the learner's
+    pinned staging (`buffers`, a double-buffered `BlockBuffers`, each set
+    rewritten only after its upload has run), the queue's slot is released
+    at once, and the staging is uploaded into the static device buffers
+    the update reads (`buffers.static`). A later put may rewrite the slot,
+    never the bytes the update reads. `transfer_pad_s` sleeps before the
+    copy (a testbed knob for a slow link).
+
+    Device plane (`DeviceTrajRing`): the scalars go into 0-dim int64
+    device tensors (`scalars`) by fill kernels, and `ring.select` points the
+    slot index at the block and makes the stream wait for its enqueue; the
+    update gathers the slot itself, and `done` releases it."""
+
+    def __init__(self, queue, num_steps: int, device: torch.device, transfer_pad_s: float = 0.0):
+        from actor_critic_tpu_torch.data_plane.ring import DeviceTrajRing
+
+        self.queue = queue
+        self.device_plane = isinstance(queue, DeviceTrajRing)
+        self.device = device
+        self.transfer_pad_s = float(transfer_pad_s)
+        self.buffers = None if self.device_plane else BlockBuffers(num_steps, device)
+        self.scalars: dict[str, torch.Tensor] = {}
+
+    @property
+    def wait_s(self) -> float:
+        """Host seconds spent waiting for a staging set's upload."""
+        return 0.0 if self.buffers is None else self.buffers.wait_s
+
+    def scalar(self, name: str) -> torch.Tensor:
+        """The device-plane scalar `name` (made at its first use, before any
+        capture reads it)."""
+        t = self.scalars.get(name)
+        if t is None:
+            t = self.scalars[name] = torch.zeros((), dtype=torch.int64, device=self.device)
+        return t
+
+    def stage(self, block, **scalars: int) -> None:
+        if self.device_plane:
+            for name, value in scalars.items():
+                self.scalar(name).fill_(int(value))
+            self.queue.select(block)
+            return
+        if self.transfer_pad_s > 0:
+            time.sleep(self.transfer_pad_s)
+        buffers = self.buffers
+        buffers.begin_block()
+        for name, value in block.arrays.items():
+            buffers.put(name, value)
+        for name, value in scalars.items():
+            buffers.put(name, np.asarray(value, np.int64))
+        self.queue.release(block)
+        buffers.upload()
+
+    def done(self, block) -> None:
+        if self.device_plane:
+            self.queue.release(block)
+
+
+def publish_snapshot(snapshot: host_actor.MirrorSnapshot, publisher, version: int) -> float:
+    """Publish the parameters `snapshot` copied before the update's replay
+    (the update's INPUT, in stream order) as `version`, once its copy has
+    run; the publisher freezes a copy of its own. Returns the host seconds
+    spent waiting for the copy (the previous update finishing)."""
+    t0 = time.perf_counter()
+    tree = snapshot.params()
+    waited = time.perf_counter() - t0
+    publisher.publish(tree, version)
+    return waited
+
+
+def run_updates(update: HostUpdate, n: int, gate) -> dict[str, torch.Tensor]:
+    """`n` calls of `update`; the actors held at their block boundaries
+    (`gate` cleared) while it runs eagerly or is captured on the card.
+    Returns the last call's metrics."""
+    if update.warming:
+        gate.clear()
+    try:
+        for _ in range(n):
+            metrics = update()
+    finally:
+        gate.set()
+    return metrics
+
+
+def check_actors(actors: list) -> None:
+    """Raise a dead actor's exception every iteration, not only once the
+    queue drains: a surviving actor would otherwise keep a halved fleet
+    looking healthy."""
+    for a in actors:
+        if a.error is not None:
+            raise RuntimeError(f"actor {a.actor_id} died") from a.error
+
+
+def stop_actors(stop, actors: list, queue) -> None:
+    stop.set()
+    for a in actors:
+        a.join(timeout=30.0)
+    queue.close()
+
+
+def async_row(it: int, block, queue, actors: list, steps_per_block: int) -> dict:
+    """An async learner's log-row entries: the fleet's collected and the
+    learner's consumed env steps, which actor fed this update and how many
+    versions stale its block was, the queue's depth and drops, the
+    learner's idle seconds waiting on the queue, and per actor its
+    cumulative collect seconds and blocks pushed."""
+    qs = queue.stats()
+    row = {
+        "env_steps": sum(a.steps_collected for a in actors),
+        "consumed_env_steps": (it + 1) * steps_per_block,
+        "block_actor": block.actor_id,
+        "block_staleness": max(it - block.version, 0),
+        "queue_depth": qs["depth"],
+        "queue_drops_full": qs["drops_full"],
+        "queue_drops_stale": qs["drops_stale"],
+        "learner_idle_s": qs["learner_idle_s"],
+    }
+    for a in actors:
+        row[f"collect_s_{a.actor_id}"] = a.collect_s
+        row[f"blocks_{a.actor_id}"] = a.blocks_pushed
+    return row
+
+
+@dataclasses.dataclass
+class AsyncHostCheckpoint:
+    """An async learner's checkpoint: the device state (the net and its
+    Adam state; on the device plane also the ring's quantizer stats,
+    `ring_quant`), the trainer's generator, and EVERY actor pool's
+    normalizer state by actor index (each actor's pool runs its own
+    statistics)."""
+
+    generator: torch.Generator
+    device_state: dict[str, Any]
+    pools: dict[str, dict[str, torch.Tensor]]
+
+
+def ring_quant_tensors(tree: dict) -> dict:
+    """`DeviceTrajRing.quant_host()` as tensors of the same dtypes."""
+    return {name: {k: torch.from_numpy(np.array(v)) for k, v in st.items()}
+            for name, st in tree.items()}
+
+
+def ring_quant_tree(tensors: dict) -> dict:
+    """The inverse of `ring_quant_tensors`, for `install_quant`."""
+    return {name: {k: t.numpy() for k, t in st.items()} for name, st in tensors.items()}
+
+
+def async_host_ckpt_state(pools, generator: torch.Generator, **device_state) -> AsyncHostCheckpoint:
+    """The checkpoint state of an async learner. The learner's thread reads
+    the pools' stats while actors may be mid-block: each leaf is rebound
+    (never written in place) by an update, so a read is at worst one batch
+    stale per leaf."""
+    return AsyncHostCheckpoint(generator=generator, device_state=device_state,
+                               pools={str(i): pool_tensors(p.get_state())
+                                      for i, p in enumerate(pools)})
+
+
+def async_host_maybe_save(ckpt, it: int, save_every: int, num_iterations: int, pools,
+                          metrics: dict, generator: torch.Generator, data_plane: str = "host",
+                          **device_state) -> None:
+    """`host_maybe_save` over the whole fleet's pools (`it` is the 1-based
+    count of consumed blocks). The metrics file records the fleet's size
+    and the data plane, which a resume checks before the restore."""
+    if ckpt is None or not should_save(it, save_every, num_iterations):
+        return
+    metrics = {
+        **{k: float(v) for k, v in (metrics or {}).items()},
+        "_pool_scale_actions": float(getattr(pools[0], "scales_actions", False)),
+        "_async_actors": float(len(pools)),
+        "_data_plane_device": float(data_plane == "device"),
+    }
+    ckpt.save(it, async_host_ckpt_state(pools, generator, **device_state), metrics)
+
+
+def async_host_resume(ckpt, template: AsyncHostCheckpoint, pools,
+                      data_plane: str = "host") -> tuple[Optional[AsyncHostCheckpoint], int]:
+    """Restore the latest async checkpoint into `template` in place and push
+    every actor pool's normalizer state back; (None, 0) when nothing is
+    saved. The fleet size (`--async-actors`) and the data plane must be the
+    checkpoint's: each pool's stats belong to its own actor's envs, and
+    the device plane's checkpoint holds the ring's stats."""
+    step = ckpt.latest_step()
+    if step is None:
+        return None, 0
+    saved_metrics = ckpt.restore_metrics(step)
+    saved_actors = saved_metrics.get("_async_actors")
+    if saved_actors is not None and int(saved_actors) != len(pools):
+        raise ValueError(
+            f"checkpoint carries {int(saved_actors)} actor-pool states but this run has "
+            f"{len(pools)} actors — resume with the original --async-actors count")
+    saved_plane = saved_metrics.get("_data_plane_device", 0.0)
+    if bool(saved_plane) != (data_plane == "device"):
+        saved_name = "device" if saved_plane else "host"
+        raise ValueError(
+            f"checkpoint was written by a --data-plane {saved_name} run but this run uses "
+            f"--data-plane {data_plane} — the save trees differ (the device plane checkpoints "
+            "its ring's quantizer stats); resume with the original flag")
+    ckpt.restore(template, step)
+    saved_scale = saved_metrics.get("_pool_scale_actions")
+    for i, pool in enumerate(pools):
+        restored = pool_state(template.pools[str(i)])
+        pool.set_state(restored)
+        _warn_restore_mismatch(restored, pool, saved_scale)
+    return template, step
+
+
+def off_policy_train_host_async(
+    pools,
+    cfg,
+    num_iterations: int,
+    *,
+    init_learner: Callable,
+    make_ingest_update: Callable,
+    make_host_explore: Callable,
+    make_host_greedy: Optional[Callable] = None,
+    seed: int = 0,
+    log_every: int = 10,
+    log_fn: Optional[Callable[[int, dict], None]] = None,
+    eval_every: int = 0,
+    eval_envs: int = 4,
+    eval_steps: int = 1000,
+    queue_depth: int = 4,
+    max_staleness: Optional[int] = None,
+    data_plane: str = "host",
+    plane_codec: str = "fp32",
+    transfer_pad_s: float = 0.0,
+    device="cuda",
+    iteration_hook: Optional[Callable[[int, HostRun], None]] = None,
+):
+    """The async actor-learner loop of the off-policy trainers (DDPG/TD3,
+    SAC): replay absorbs the behaviour policy's staleness (every consumed
+    block lands in the ring, and updates sample it uniformly), so only the
+    ingest's hand-off goes through the queue.
+
+    One actor thread per pool explores through the numpy mirror
+    (`make_host_explore(spec, cfg)`, parameters refreshed from the
+    `PolicyPublisher` once a block) and pushes [K, E_a] transition blocks;
+    this (learner) thread takes each block and runs the ingest + J updates
+    (`make_ingest_update(action_dim, cfg)`, as `off_policy_train_host`),
+    one CUDA graph on the card from the third block, with the FLEET's
+    collected env-step count as the gate's input. `max_staleness` defaults
+    to None: a stale block is still valid off-policy experience. Each actor
+    warms up on uniform actions for its share (warmup_steps / A) of the
+    warm-up: the mirror's gate sees the actor's own step count times A.
+    `num_iterations` counts consumed blocks. No checkpoints here (as in
+    JAX).
+
+    `data_plane="device"`: actors stage encoded blocks in a
+    `DeviceTrajRing` (codec `plane_codec`), and the update gathers and
+    decodes the slot, writes it into the replay ring and updates
+    (`device_replay.make_device_ingest_update`): the learner copies no block
+    to the card. Returns (learner, history)."""
+    import threading
+
+    from actor_critic_tpu_torch import resolve_device
+    from actor_critic_tpu_torch.algos.traj_queue import (
+        ActorService,
+        PolicyPublisher,
+        consume_block,
+        validate_pools,
+    )
+    from actor_critic_tpu_torch.data_plane import device_replay
+
+    spec, E_a = validate_pools(pools)
+    A = len(pools)
+    device = resolve_device(device)
+    if data_plane not in DATA_PLANES:
+        raise ValueError(f"data_plane must be 'host' or 'device', got {data_plane!r}")
+    generator = torch.Generator(device=device).manual_seed(seed)
+    learner = init_learner(spec.obs_shape, spec.action_dim, cfg,
+                           torch.Generator().manual_seed(seed), device)
+    np_params = host_actor.mirror_params(learner.actor)
+    if not host_actor.supports_mirror(np_params):
+        raise ValueError("async actor-learner mode needs the numpy actor mirror (MLP torso; "
+                         "models/host_actor.py)")
+    host_explore = make_host_explore(spec, cfg)
+
+    def actor_act_factory(actor_id: int):
+        # Read and written on that actor's thread only; times A it stands for
+        # the fleet's count, so the mirror's warm-up gate hands each actor
+        # its 1/A share of the uniform warm-up.
+        counter = {"steps": 0}
+
+        def make_act_fn(actor_params, rng):
+            def act(o):
+                action = host_explore(actor_params, o, rng, counter["steps"] * A)
+                counter["steps"] += np.asarray(o).shape[0]
+                return action, {}
+
+            return act
+
+        return make_act_fn
+
+    queue = make_async_queue(
+        data_plane, queue_depth, max_staleness, "drop_oldest",
+        block_spec=device_replay.offpolicy_block_spec(spec, cfg, A), codec=plane_codec,
+        transfer_pad_s=transfer_pad_s, device=device)
+    ingest_update = make_ingest_update(spec.action_dim, cfg)
+    feed = AsyncFeed(queue, cfg.steps_per_iter, device, transfer_pad_s)
+    if feed.device_plane:
+        device_ingest = device_replay.make_device_ingest_update(ingest_update, queue.codecs)
+        env_steps_t = feed.scalar("env_steps")
+
+        def body() -> dict[str, torch.Tensor]:
+            return device_ingest(learner, queue.state, queue.slot_index, env_steps_t, generator)
+    else:
+
+        def body() -> dict[str, torch.Tensor]:
+            b = feed.buffers.static
+            traj = OffPolicyTransition(obs=b["obs"], action=b["action"], reward=b["reward"],
+                                       next_obs=b["final_obs"], terminated=b["terminated"],
+                                       done=b["done"])
+            return ingest_update(learner, traj, b["env_steps"], generator)
+
+    publisher = PolicyPublisher(np_params, version=0)
+    stop, gate = threading.Event(), threading.Event()
+    gate.set()
+    actors = [
+        ActorService(i, pool, queue, publisher, cfg.steps_per_iter, actor_act_factory(i),
+                     rng=np.random.default_rng(seed + 0x5EED + i * 7919), stop=stop, gate=gate)
+        for i, pool in enumerate(pools)
+    ]
+    eval_pool = eval_act = None
+    if eval_every > 0 and make_host_greedy is not None:
+        eval_pool = pools[-1].eval_pool(eval_envs)
+        eval_act = greedy_eval_act(learner.actor, None, make_host_greedy(spec, cfg), device)
+
+    snapshot = host_actor.MirrorSnapshot(learner.actor, pin=device.type == "cuda")
+    update = HostUpdate(body, generator, capture_error_mode="thread_local")
+    clock = IterationClock(device)
+    run = HostRun(feed.buffers, snapshot, update, {"learner": learner}, clock, queue, gate)
+    history: list = []
+    metrics: dict = {}
+    trackers = MergedEpisodeTracker([a.tracker for a in actors])
+    try:
+        for a in actors:
+            a.start()
+        for it in range(num_iterations):
+            check_actors(actors)
+            queue.set_consumer_version(it)
+            block = consume_block(queue, actors)
+            clock.start(("wait_s", "dispatch_s"))
+            t0 = time.perf_counter()
+            wait0 = feed.wait_s
+            clock.mark()
+            feed.stage(block, env_steps=sum(a.steps_collected for a in actors))
+            clock.mark()
+            # The actors' next parameters: this update's input, copied in
+            # stream order before its replay.
+            snapshot.enqueue()
+            metrics = run_updates(update, 1, gate)
+            clock.mark()
+            if iteration_hook is not None:
+                iteration_hook(it + 1, run)
+            feed.done(block)
+            waited = feed.wait_s - wait0
+            clock.add("dispatch_s", time.perf_counter() - t0 - waited)
+            clock.add("wait_s", waited + publish_snapshot(snapshot, publisher, it))
+            extra = async_row(it, block, queue, actors, cfg.steps_per_iter * E_a)
+            if eval_pool is not None and (it + 1) % eval_every == 0:
+                extra.update(timed_eval(eval_pool, eval_act(), eval_steps))
+            maybe_log(it, log_every, metrics, trackers, history, log_fn, extra=extra,
+                      num_iterations=num_iterations,
+                      force="eval_return" in extra or it == 0, clock=clock)
+    finally:
+        stop_actors(stop, actors, queue)
+        if eval_pool is not None:
+            eval_pool.close()
+    return learner, history

@@ -72,12 +72,16 @@ class CapturedStep:
     """`iterations` consecutive train steps captured into one CUDA graph
     from `state` (which must have run the step eagerly before, on a side
     stream); the capture runs no iteration. `replay()` runs them and
-    returns the last one's metrics, valid until the next replay."""
+    returns the last one's metrics, valid until the next replay.
+    `capture_error_mode` is `torch.cuda.graph`'s: the async learners
+    capture in "thread_local" mode, so that actor threads may go on
+    enqueueing their copies while the learner's thread captures."""
 
-    def __init__(self, step: Callable, state, iterations: int = 1):
+    def __init__(self, step: Callable, state, iterations: int = 1,
+                 capture_error_mode: str = "global"):
         self.graph = torch.cuda.CUDAGraph()
         self.graph.register_generator_state(state.generator)
-        with torch.cuda.graph(self.graph):
+        with torch.cuda.graph(self.graph, capture_error_mode=capture_error_mode):
             for _ in range(iterations):
                 _, self.metrics = step(state)
 

@@ -1,6 +1,7 @@
 """PPO-clip (counterpart of `actor_critic_tpu/algos/ppo.py`): the fused
-trainer, and the host env path's (`train_host`, below); the async and
-device-data-plane trainers come with the async slice.
+trainer, the host env path's (`train_host`, below), and the async
+actor-learner's (`train_host_async`, with V-trace's staleness correction,
+on the host or the device data plane).
 
 One train step is
 
@@ -40,6 +41,7 @@ from actor_critic_tpu_torch.algos.common import (
     Transition,
     advance,
     anneal_fraction,
+    corrected_advantages,
     fold_episodes,
     gae_targets,
     init_train_state,
@@ -585,4 +587,364 @@ def train_host(
                                   generator, params=net, opt_state=opt_state)
         if iteration_hook is not None:
             iteration_hook(it + 1, run)
+    return net, opt_state, history
+
+
+# --------------------------------------------------------------------------
+# The async actor-learner: actor threads on host pools, a queue, and a
+# learner correcting the blocks' staleness with V-trace
+# --------------------------------------------------------------------------
+
+CORRECTIONS = ("vtrace", "none")
+
+
+def async_block_spec(spec: EnvSpec, cfg: PPOConfig, actors: int,
+                     correction: str = "vtrace") -> dict:
+    """name → `data_plane.ring.ArraySpec` of the [T, E_a] block an async
+    `ActorService` pushes (E_a = num_envs // actors; discrete actions are
+    int64, the numpy mirror's argmax): the device ring's storage spec.
+    `correction="none"` blocks also carry the mirror's `final_values` and
+    `bootstrap_value` (the `block_extras` contract)."""
+    from actor_critic_tpu_torch.data_plane.ring import array_spec as s
+
+    actors = max(int(actors), 1)
+    T = cfg.rollout_steps
+    E = cfg.num_envs // actors
+
+    def obs_s(lead):
+        # Host pools emit float32 observations (pixel pools are not ported).
+        return s((*lead, *spec.obs_shape), "float32")
+
+    action = s((T, E), "int64") if spec.discrete else s((T, E, spec.action_dim), "float32")
+    out = {
+        "obs": obs_s((T, E)),
+        "action": action,
+        "log_prob": s((T, E), "float32"),
+        "value": s((T, E), "float32"),
+        "reward": s((T, E), "float32"),
+        "done": s((T, E), "float32"),
+        "terminated": s((T, E), "float32"),
+        "final_obs": obs_s((T, E)),
+        "last_obs": obs_s((E,)),
+    }
+    if correction == "none":
+        out["final_values"] = s((T, E), "float32")
+        out["bootstrap_value"] = s((E,), "float32")
+    return out
+
+
+def make_async_update_fn(env_spec: EnvSpec, cfg: PPOConfig, can_truncate: bool = True,
+                         correction: str = "vtrace", rho_bar: float = 1.0, c_bar: float = 1.0):
+    """The staleness-corrected update of the async learner:
+    `update(net, opt_state, schedule, obs, action, log_prob, value, reward,
+    done, terminated, final_obs, last_obs, perms, iteration=None) ->
+    metrics`, on [T, E_a] tensors, the net and `opt_state` written in place.
+
+    The trajectory was acted under older parameters, so the targets come
+    from the LEARNER's: the policy's log-probs of the stored actions, the
+    values at the stored observations, the rollout bootstrap and the
+    truncation bootstrap, all re-evaluated here; then V-trace
+    (`common.corrected_advantages`, the CUDA kernel on the card) from the
+    recorded BEHAVIOUR log-probs gives the value targets and the
+    policy-gradient advantages, and `ppo_update` runs the epochs on the
+    corrected batch (IMPACT-style reuse; the recorded behaviour value stays
+    the value-clip anchor). The metrics add `mean_rho`, the mean clipped
+    ratio. Coefficients as `make_host_update_fn`'s."""
+    if correction != "vtrace":
+        raise ValueError(f"unknown correction: {correction!r}")
+    opt = make_optimizer(cfg)
+
+    def async_update(net, opt_state, schedule, obs, action, log_prob, value, reward, done,
+                     terminated, final_obs, last_obs, perms, iteration=None):
+        T, E = reward.shape
+        flat_obs = obs.reshape(T * E, *obs.shape[2:])
+        flat_act = action.reshape(T * E, *action.shape[2:])
+        with torch.no_grad():
+            dist, values_cur = net(flat_obs)
+            target_lp = dist.log_prob(flat_act).reshape(T, E)
+            values_cur = values_cur.reshape(T, E)
+            _, bootstrap = net(last_obs)
+            if can_truncate:
+                _, fv = net(final_obs.reshape(T * E, *final_obs.shape[2:]))
+                truncated = done * (1.0 - terminated)
+                rewards = reward + cfg.gamma * fv.reshape(T, E) * truncated
+            else:
+                rewards = reward
+        pg_adv, vs, mean_rho = corrected_advantages(
+            target_lp, log_prob, rewards, values_cur, done, bootstrap, cfg.gamma,
+            cfg.gae_lambda, rho_bar=rho_bar, c_bar=c_bar, correction="vtrace")
+        batch = PPOBatch(
+            obs=flat_obs,
+            action=flat_act,
+            log_prob_old=log_prob.reshape(T * E),
+            value_old=value.reshape(T * E),
+            advantage=pg_adv.reshape(T * E),
+            ret=vs.reshape(T * E),
+        )
+        coefficients = (schedule.coefficients[0] if iteration is None
+                        else schedule.coefficients_at(iteration))
+        clip_eps, entropy_coef = coefficients.unbind()
+        metrics = ppo_update(net, opt, opt_state, batch, perms, cfg, schedule.optimizer,
+                             clip_eps, entropy_coef)
+        return dict(metrics, mean_rho=mean_rho)
+
+    return async_update
+
+
+def make_async_update_step(env_spec: EnvSpec, cfg: PPOConfig, can_truncate: bool = True,
+                           correction: str = "vtrace", rho_bar: float = 1.0,
+                           c_bar: float = 1.0):
+    """`step(net, opt_state, schedule, generator, block, iteration) ->
+    metrics` of the async learner, on a [T, E_a] block by field, its
+    permutations drawn from `generator` (`make_host_update_step`'s
+    signature). `correction="vtrace"`: `make_async_update_fn`'s update.
+    `correction="none"` returns `make_host_update_step` itself, the
+    synchronous host path's update (the lockstep-equivalence tests rely on
+    it)."""
+    if correction == "none":
+        return make_host_update_step(env_spec, cfg, can_truncate)
+    update = make_async_update_fn(env_spec, cfg, can_truncate, correction, rho_bar, c_bar)
+
+    def step(net, opt_state, schedule, generator, block, iteration) -> dict[str, torch.Tensor]:
+        T, E = block["reward"].shape
+        perms = draw_permutations(generator, cfg.epochs, T * E)
+        return update(net, opt_state, schedule, block["obs"], block["action"], block["log_prob"],
+                      block["value"], block["reward"], block["done"], block["terminated"],
+                      block["final_obs"], block["last_obs"], perms, iteration=iteration)
+
+    return step
+
+
+def make_device_update_step(env_spec: EnvSpec, cfg: PPOConfig, ring_codecs: dict,
+                            can_truncate: bool = True, correction: str = "vtrace",
+                            rho_bar: float = 1.0, c_bar: float = 1.0):
+    """The device data plane's update: `step(net, opt_state, schedule,
+    generator, ring_state, slot, iteration) -> metrics` gathers the slot
+    from the ring and decodes it (`data_plane.ring.gather_block`), then runs
+    `make_async_update_step`'s body, all in one CUDA graph on the card; the
+    slot index is its only input per block. With the all-raw fp32 codec it
+    computes bit for bit what the host plane's update computes."""
+    from actor_critic_tpu_torch.data_plane.ring import gather_block
+
+    step = make_async_update_step(env_spec, cfg, can_truncate, correction, rho_bar, c_bar)
+
+    def device_update(net, opt_state, schedule, generator, ring_state, slot,
+                      iteration) -> dict[str, torch.Tensor]:
+        block = gather_block(ring_state, slot, ring_codecs)
+        return step(net, opt_state, schedule, generator, block, iteration)
+
+    return device_update
+
+
+def train_host_async(
+    pools,
+    cfg: PPOConfig,
+    num_iterations: int,
+    seed: int = 0,
+    log_every: int = 10,
+    log_fn: Optional[Callable[[int, dict], None]] = None,
+    eval_every: int = 0,
+    eval_envs: int = 4,
+    eval_steps: int = 1000,
+    updates_per_block: int = 1,
+    queue_depth: int = 4,
+    max_staleness: Optional[int] = 8,
+    correction: str = "vtrace",
+    rho_bar: float = 1.0,
+    c_bar: float = 1.0,
+    strict_lockstep: bool = False,
+    ckpt=None,
+    save_every: int = 0,
+    resume: bool = False,
+    data_plane: str = "host",
+    plane_codec: str = "fp32",
+    transfer_pad_s: float = 0.0,
+    device="cuda",
+    iteration_hook=None,
+):
+    """Async actor-learner PPO on host env pools.
+
+    One `traj_queue.ActorService` thread per pool collects [T, E_a] blocks
+    through the numpy mirror (parameters refreshed from the
+    `PolicyPublisher` once a block) and pushes them into a bounded queue;
+    this (learner) thread takes them as they come (a straggler slows only
+    its own contribution), corrects the behaviour lag with V-trace
+    (`make_async_update_step`) and reuses each block for `updates_per_block`
+    updates. A full queue drops its OLDEST block rather than block an
+    actor; `max_staleness` drops blocks that aged past the bound while
+    queued. `num_iterations` counts consumed blocks.
+
+    On the card each update is one CUDA graph (`host_loop.HostUpdate`,
+    captured in "thread_local" mode while the actors run). Before the
+    update's replay the learner enqueues a copy of its parameters
+    (`MirrorSnapshot`), and after it publishes that copy, the update's
+    INPUT, once its event has completed: the actors' next blocks act with
+    parameters one update stale, and the learner waits for the previous
+    update only once the next is enqueued.
+
+    `data_plane="device"` swaps the host `TrajQueue` for the
+    `data_plane.DeviceTrajRing`: actors enqueue encoded blocks (`plane_codec`
+    fp32/f16/int8) on the slot's stream, and the update gathers and decodes
+    the slot inside its graph (`make_device_update_step`): the learner
+    copies no block to the card. `transfer_pad_s` pads every block copy
+    (the learner's staging on the host plane, the actor's enqueue on the
+    device plane).
+
+    Needs the numpy mirror (MLP torsos). With `ckpt` the run saves on the
+    consumed-block cadence: the net, Adam, the generator and ALL A actor
+    pools' normalizer stats (and the ring's quantizer stats on the device
+    plane), and `resume` restores them; actors restart fresh episodes, and
+    `--async-actors` must not change across a resume. `strict_lockstep`
+    is the test hook: with one actor, `queue_depth=1`,
+    `updates_per_block=1` and `correction="none"` the run is `train_host`
+    bit for bit. `iteration_hook(it, run)` is called after each block's
+    updates are enqueued, before its slot is released. Returns (net,
+    opt_state, history)."""
+    import threading
+
+    from actor_critic_tpu_torch.algos import host_loop
+    from actor_critic_tpu_torch.algos.traj_queue import (
+        ActorService,
+        PolicyPublisher,
+        consume_block,
+        validate_pools,
+    )
+    from actor_critic_tpu_torch.models import host_actor
+
+    spec, E_a = validate_pools(pools)
+    if updates_per_block < 1:
+        raise ValueError("updates_per_block must be >= 1")
+    if correction not in CORRECTIONS:
+        raise ValueError(f"unknown correction: {correction!r}")
+    if data_plane not in host_loop.DATA_PLANES:
+        raise ValueError(f"data_plane must be 'host' or 'device', got {data_plane!r}")
+    device = resolve_device(device)
+    net, opt_state = init_host_params(spec, cfg, seed, device)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    schedule = make_schedule(cfg, device)
+    iteration = torch.zeros(1, dtype=torch.int64, device=device)
+    if not host_actor.supports_mirror(host_actor.mirror_params(net)):
+        raise ValueError("async actor-learner mode needs the numpy actor mirror (MLP torso; "
+                         "models/host_actor.py): pixel pools must run the lockstep train_host")
+    host_policy = host_actor.make_ppo_host_policy(spec, cfg)
+    host_value = host_actor.make_ppo_host_value(spec, cfg)
+    queue = host_loop.make_async_queue(
+        data_plane, queue_depth, None if strict_lockstep else max_staleness,
+        "block" if strict_lockstep else "drop_oldest",
+        block_spec=async_block_spec(spec, cfg, len(pools), correction), codec=plane_codec,
+        transfer_pad_s=transfer_pad_s, device=device)
+    feed = host_loop.AsyncFeed(queue, cfg.rollout_steps, device, transfer_pad_s)
+    if feed.device_plane:
+        device_update = make_device_update_step(spec, cfg, queue.codecs, True, correction,
+                                                rho_bar, c_bar)
+
+        def body() -> dict[str, torch.Tensor]:
+            return device_update(net, opt_state, schedule, generator, queue.state,
+                                 queue.slot_index, iteration)
+    else:
+        update_step = make_async_update_step(spec, cfg, True, correction, rho_bar, c_bar)
+
+        def body() -> dict[str, torch.Tensor]:
+            return update_step(net, opt_state, schedule, generator, feed.buffers.static,
+                               iteration)
+
+    def make_act_fn(actor_params, rng):
+        def act(o):
+            action, logp, value = host_policy(actor_params, o, rng)
+            return action, {"log_prob": logp, "value": value}
+
+        return act
+
+    block_extras = None
+    if correction == "none":
+        # The lockstep update takes its truncation and rollout bootstraps
+        # from the SAME behaviour parameters as the recorded values; V-trace
+        # re-evaluates every value under the learner's instead.
+        def block_extras(actor_params, last_obs, block):
+            T_, E_ = block["reward"].shape
+            fo = block["final_obs"]
+            fv = host_value(actor_params, fo.reshape(T_ * E_, *fo.shape[2:])).reshape(T_, E_)
+            return {"final_values": fv, "bootstrap_value": host_value(actor_params, last_obs)}
+
+    def device_state() -> dict:
+        state = {"params": net, "opt_state": opt_state}
+        if feed.device_plane:
+            # The ring's stats only: its blocks are transient.
+            state["ring_quant"] = host_loop.ring_quant_tensors(queue.quant_host())
+        return state
+
+    start_it = 0
+    if ckpt is not None and resume:
+        template = host_loop.async_host_ckpt_state(pools, generator, **device_state())
+        restored, start_it = host_loop.async_host_resume(ckpt, template, pools, data_plane)
+        if restored is not None and feed.device_plane:
+            queue.install_quant(host_loop.ring_quant_tree(template.device_state["ring_quant"]))
+
+    publisher = PolicyPublisher(host_actor.mirror_params(net), version=start_it)
+    stop, gate = threading.Event(), threading.Event()
+    gate.set()
+    actors = [
+        # Actor 0 draws the lockstep trainer's stream; the others offset by a
+        # large prime.
+        ActorService(i, pool, queue, publisher, cfg.rollout_steps, make_act_fn,
+                     rng=np.random.default_rng(seed + 0x5EED + i * 7919), stop=stop,
+                     block_extras=block_extras, strict=strict_lockstep, gate=gate)
+        for i, pool in enumerate(pools)
+    ]
+    eval_pool = eval_act = None
+    if eval_every > 0:
+        # The LAST pool's: in straggler layouts that is the fast actor.
+        eval_pool = pools[-1].eval_pool(eval_envs)
+        eval_act = host_loop.greedy_eval_act(net, make_greedy_act(spec, cfg),
+                                             host_actor.make_ppo_host_greedy(spec, cfg), device)
+
+    snapshot = host_actor.MirrorSnapshot(net, pin=device.type == "cuda")
+    update = host_loop.HostUpdate(body, generator, capture_error_mode="thread_local")
+    clock = host_loop.IterationClock(device)
+    run = host_loop.HostRun(feed.buffers, snapshot, update,
+                            {"params": net, "opt_state": opt_state}, clock, queue, gate)
+    history: list = []
+    metrics: dict = {}
+    trackers = host_loop.MergedEpisodeTracker([a.tracker for a in actors])
+    try:
+        if start_it < num_iterations:
+            # A resume that finds the run complete starts NO actors:
+            # collection would only move the restored normalizer stats.
+            for a in actors:
+                a.start()
+        for it in range(start_it, num_iterations):
+            host_loop.check_actors(actors)
+            queue.set_consumer_version(it)
+            block = consume_block(queue, actors)
+            clock.start(("wait_s", "dispatch_s"))
+            t0 = time.perf_counter()
+            wait0 = feed.wait_s
+            clock.mark()
+            feed.stage(block)
+            iteration.fill_(it)
+            clock.mark()
+            # The actors' next parameters: this update's input, copied in
+            # stream order before its replay.
+            snapshot.enqueue()
+            metrics = host_loop.run_updates(update, updates_per_block, gate)
+            clock.mark()
+            if iteration_hook is not None:
+                iteration_hook(it + 1, run)
+            feed.done(block)
+            waited = feed.wait_s - wait0
+            clock.add("dispatch_s", time.perf_counter() - t0 - waited)
+            clock.add("wait_s", waited + host_loop.publish_snapshot(snapshot, publisher, it))
+            extra = host_loop.async_row(it, block, queue, actors, cfg.rollout_steps * E_a)
+            if eval_pool is not None and (it + 1) % eval_every == 0:
+                extra.update(host_loop.timed_eval(eval_pool, eval_act(), eval_steps))
+            host_loop.maybe_log(it, log_every, metrics, trackers, history, log_fn, extra=extra,
+                                num_iterations=num_iterations,
+                                force="eval_return" in extra or it == start_it, clock=clock)
+            if ckpt is not None:
+                host_loop.async_host_maybe_save(ckpt, it + 1, save_every, num_iterations, pools,
+                                                metrics, generator, data_plane, **device_state())
+    finally:
+        host_loop.stop_actors(stop, actors, queue)
+        if eval_pool is not None:
+            eval_pool.close()
     return net, opt_state, history

@@ -19,7 +19,8 @@ through a `torch.where` on it, in place. The step is capturable
 standard-normal noises) come from the trainer's generator through
 `draw_update`, or from a test through `apply_update`. The host env path
 (`train_host`) runs the same update loop on each uploaded block, as
-`ddpg.train_host` does.
+`ddpg.train_host` does, and `train_host_async` with actor threads, as
+`ddpg.train_host_async` does.
 """
 
 from __future__ import annotations
@@ -362,4 +363,48 @@ def train_host(
         overlap=overlap, make_host_explore=make_sac_host_explore,
         make_host_greedy=make_sac_host_greedy,
         save_replay=save_replay, device=device, iteration_hook=iteration_hook,
+    )
+
+
+def train_host_async(
+    pools,
+    cfg: SACConfig,
+    num_iterations: int,
+    seed: int = 0,
+    log_every: int = 10,
+    log_fn: Optional[Callable[[int, dict], None]] = None,
+    eval_every: int = 0,
+    eval_envs: int = 4,
+    eval_steps: int = 1000,
+    queue_depth: int = 4,
+    max_staleness: Optional[int] = None,
+    data_plane: str = "host",
+    plane_codec: str = "fp32",
+    transfer_pad_s: float = 0.0,
+    device="cuda",
+    iteration_hook=None,
+):
+    """SAC with decoupled actor threads (`host_loop.off_policy_train_host_async`):
+    one exploration thread per pool pushes [K, E_a] transition blocks
+    through the bounded queue, and the learner ingests each into the replay
+    ring and updates; replay absorbs the behaviour staleness, so there is
+    no correction knob. `data_plane="device"` stages the blocks encoded in
+    a ring on the card. Returns (learner, history)."""
+    from actor_critic_tpu_torch.algos.host_loop import off_policy_train_host_async
+    from actor_critic_tpu_torch.models.host_actor import (
+        make_sac_host_explore,
+        make_sac_host_greedy,
+    )
+
+    return off_policy_train_host_async(
+        pools, cfg, num_iterations,
+        init_learner=init_learner,
+        make_ingest_update=make_host_ingest_update,
+        make_host_explore=make_sac_host_explore,
+        make_host_greedy=make_sac_host_greedy,
+        seed=seed, log_every=log_every, log_fn=log_fn,
+        eval_every=eval_every, eval_envs=eval_envs, eval_steps=eval_steps,
+        queue_depth=queue_depth, max_staleness=max_staleness,
+        data_plane=data_plane, plane_codec=plane_codec, transfer_pad_s=transfer_pad_s,
+        device=device, iteration_hook=iteration_hook,
     )

@@ -59,6 +59,18 @@ eval pool), `--no-overlap` (act on the device every env step instead of
 through the numpy mirror with parameters one update stale) and
 `--no-save-replay` (checkpoints without the ring).
 
+The async actor-learner (`--async-actors A`, on a host or native env with
+PPO, DDPG/TD3 or SAC): A actor threads, each with its own pool of
+num_envs / A envs, collect through the numpy mirrors and push blocks into
+a bounded queue, and the learner takes them as they come, each update one
+CUDA graph on the card (`algos/traj_queue.py`, `ppo.train_host_async`,
+`host_loop.off_policy_train_host_async`); `--iterations` counts consumed
+blocks. Its flags: `--updates-per-block`, `--max-staleness`,
+`--queue-depth`, `--async-correction vtrace|none` (PPO) and
+`--data-plane host|device` with `--data-plane-codec fp32|f16|int8` (the
+device ring of `data_plane/`). PPO's async runs checkpoint and resume
+(every actor pool's stats, and the ring's on the device plane).
+
 Not ported yet, and refused with a message that says so: `--workers` (the
 sharded host pool), bf16 compute, and the flags of the other paths that
 come later (`UNPORTED_FLAGS`).
@@ -117,13 +129,6 @@ ALGOS = {"a2c": a2c, "ppo": ppo, "ddpg": ddpg, "td3": ddpg, "sac": sac,
 # belongs to (ROADMAP.md Queue 1). Each is refused with that message.
 UNPORTED_FLAGS = {
     "--workers": "the sharded host pool",
-    "--async-actors": "the async actor-learner",
-    "--updates-per-block": "the async actor-learner",
-    "--max-staleness": "the async actor-learner",
-    "--queue-depth": "the async actor-learner",
-    "--async-correction": "the async actor-learner",
-    "--data-plane": "the async actor-learner's device data plane",
-    "--data-plane-codec": "the async actor-learner's device data plane",
     "--update-dtype": "bf16 compute",
     "--distributed": "multi-GPU",
     "--coordinator": "multi-GPU",
@@ -335,6 +340,43 @@ def parse_args(argv=None) -> argparse.Namespace:
         "mean/scale standardization with fp32 actions, 'int8' also the bounded "
         "actions; default fp32. The same as --set replay_dtype=...; never change it "
         "on a resumed run")
+    p.add_argument(
+        "--async-actors", type=int, default=0, metavar="A",
+        help="host trainers (ppo/ddpg/td3/sac): decouple collection from the learner "
+        "(algos/traj_queue.py): A actor threads each drive their own pool of num_envs/A "
+        "envs and push [K, E/A] blocks into a bounded queue; the learner takes them as they "
+        "come (PPO corrects the behaviour staleness per --async-correction). 0 (default) = "
+        "the lockstep host loop")
+    p.add_argument(
+        "--updates-per-block", type=int, default=1, metavar="M",
+        help="async PPO: updates (epoch/minibatch passes) the learner takes from each "
+        "consumed block (IMPACT-style reuse)")
+    p.add_argument(
+        "--max-staleness", type=int, default=None, metavar="S",
+        help="async mode: drop blocks whose behaviour version lags the learner by more than "
+        "S when consumed; -1 = unbounded. Default: 8 for PPO, unbounded for ddpg/td3/sac "
+        "(replay absorbs staleness)")
+    p.add_argument(
+        "--queue-depth", type=int, default=4, metavar="D",
+        help="async mode: queue capacity in blocks (a full queue recycles its oldest "
+        "pending block's slot)")
+    p.add_argument(
+        "--async-correction", choices=("vtrace", "none"), default="vtrace",
+        help="async PPO: the staleness correction: 'vtrace' (clipped importance-weighted "
+        "targets under the learner's parameters, the V-trace kernel on the card) or 'none' "
+        "(GAE under the recorded behaviour values, A3C-style)")
+    p.add_argument(
+        "--data-plane", choices=("host", "device"), default="host",
+        help="async mode: where blocks wait between actor and learner (data_plane/): "
+        "'host' (a numpy queue; the learner copies each consumed block to the card) or "
+        "'device' (actors enqueue encoded blocks into a ring on the card; the learner's "
+        "update gathers and decodes its slot). Never change it on a resumed run")
+    p.add_argument(
+        "--data-plane-codec", choices=("fp32", "f16", "int8"), default="fp32",
+        help="device data plane: the per-key block codec (data_plane/codecs.py): fp32 = "
+        "raw (bitwise the host plane), f16 halves the observation bytes, int8 "
+        "standardizes obs and rewards to calibrated int8 and packs the flags; actions, "
+        "log-probs and values always stay raw")
     p.add_argument("--list-presets", action="store_true")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     for flag in UNPORTED_FLAGS:
@@ -499,6 +541,116 @@ def run_host(pool: HostEnvPool, preset, args: argparse.Namespace, logger: JsonlL
     return last
 
 
+def build_actor_pools(preset, args: argparse.Namespace, actors: int) -> list[HostEnvPool]:
+    """One host pool per async actor (the JAX CLI's): num_envs / A envs
+    each, seeds strided by 100003 (a pool seeds its envs seed..seed+E, so
+    adjacent offsets would repeat trajectories), PPO's pools normalizing
+    obs and reward, the off-policy ones neither."""
+    kind, _, name = preset.env.partition(":")
+    if not is_host_spec(preset.env):
+        raise SystemExit(
+            "--async-actors decouples HOST collection from the learner; jax:* envs fuse "
+            "rollouts into the update and have nothing to decouple")
+    if preset.algo not in ("ppo", "ddpg", "td3", "sac"):
+        raise SystemExit(f"--async-actors drives the host trainers (ppo/ddpg/td3/sac); "
+                         f"{preset.algo} has no host loop to decouple")
+    cfg = preset.config
+    if actors > cfg.num_envs or cfg.num_envs % actors != 0:
+        raise SystemExit(
+            f"num_envs={cfg.num_envs} must split evenly across --async-actors={actors} (one "
+            "fixed [K, E/A] block shape keeps the learner on one update graph)")
+    sub = dataclasses.replace(cfg, num_envs=cfg.num_envs // actors)
+    return [make_host_pool(preset.env, preset.algo, sub, args.seed + i * 100003,
+                           args.scale_actions, preset.env_kwargs)
+            for i in range(actors)]
+
+
+def resolve_staleness(args: argparse.Namespace, algo: str):
+    """--max-staleness: S >= 0 is a bound, -1 unbounded, absent the
+    algorithm's default (8 for PPO, unbounded off-policy)."""
+    if args.max_staleness is None:
+        return 8 if algo == "ppo" else None
+    return args.max_staleness if args.max_staleness >= 0 else None
+
+
+def run_host_async(pools: list[HostEnvPool], preset, args: argparse.Namespace,
+                   logger: JsonlLogger, device: torch.device) -> dict:
+    """Train `preset` with `len(pools)` actor threads through its async
+    learner (`ppo.train_host_async`, `ddpg/sac.train_host_async`); returns
+    the last metrics. `iterations` counts consumed blocks. On the CPU the
+    learner's ops run on one intra-op thread: with the actor threads beside
+    them, torch's thread pool oversubscribes the cores (a PPO update took
+    100× longer)."""
+    threads = torch.get_num_threads()
+    if device.type == "cpu":
+        torch.set_num_threads(1)
+    try:
+        return _run_host_async(pools, preset, args, logger, device)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _run_host_async(pools, preset, args, logger, device) -> dict:
+    ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
+    if ckpt is not None and args.resume and ckpt.latest_step() is not None:
+        print(f"resumed from block {ckpt.latest_step()}", flush=True)
+    last: dict = {}
+    t0 = time.perf_counter()
+    eval_s = 0.0
+
+    def log_fn(it: int, metrics: dict) -> None:
+        nonlocal eval_s
+        eval_s += metrics.get("eval_s", 0.0)
+        row = {**metrics, "wall_s": time.perf_counter() - t0 - eval_s}
+        last.clear()
+        last.update(row)
+        logger.log(it, row)
+
+    kwargs = dict(
+        num_iterations=args.iterations, seed=args.seed, log_every=args.log_every,
+        log_fn=log_fn, eval_every=args.eval_every, eval_envs=args.eval_envs,
+        eval_steps=args.eval_steps, queue_depth=args.queue_depth,
+        max_staleness=resolve_staleness(args, preset.algo), data_plane=args.data_plane,
+        plane_codec=args.data_plane_codec, device=device)
+    if preset.algo == "ppo":
+        ppo.train_host_async(pools, preset.config, updates_per_block=args.updates_per_block,
+                             correction=args.async_correction, ckpt=ckpt,
+                             save_every=args.save_every, resume=args.resume, **kwargs)
+    else:
+        # Replay absorbs behaviour staleness: no correction knob, and the
+        # staleness bound is off unless asked for.
+        ALGOS[preset.algo].train_host_async(pools, preset.config, **kwargs)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    if not last and ckpt is not None:
+        last = {k: v for k, v in ckpt.restore_metrics().items() if not k.startswith("_")}
+    return last
+
+
+def check_async_flags(args: argparse.Namespace, algo: str) -> None:
+    """The JAX CLI's refusals of the async flags, before any env or device
+    work."""
+    if args.data_plane == "device" and args.async_actors <= 0:
+        raise SystemExit(
+            "--data-plane device relocates the async actor–learner hand-off onto the card — "
+            "pass --async-actors N (the lockstep pipeline has no trajectory queue to relocate)")
+    if args.async_actors < 0:
+        raise SystemExit(f"--async-actors must be >= 0, got {args.async_actors}")
+    if args.async_actors > 0:
+        if (args.ckpt_dir or args.resume) and algo != "ppo":
+            raise SystemExit(
+                "--async-actors checkpointing is wired for PPO only (the save tree carries "
+                "every actor pool's normalizer state — ppo.train_host_async); off-policy async "
+                "runs don't support --ckpt-dir/--resume yet")
+        if args.updates_per_block < 1:
+            raise SystemExit(f"--updates-per-block must be >= 1, got {args.updates_per_block}")
+        if args.queue_depth < 1:
+            raise SystemExit(f"--queue-depth must be >= 1, got {args.queue_depth}")
+        if args.no_overlap:
+            print("--no-overlap is meaningless with --async-actors (actors always act through "
+                  "the numpy mirror); ignored", flush=True)
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     if args.list_presets:
@@ -526,13 +678,17 @@ def main(argv=None) -> int:
         # The weights act on type redraws; an explicit
         # --env-set redraw_types=false wins.
         preset.env_kwargs.setdefault("redraw_types", True)
+    check_async_flags(args, preset.algo)
     device = resolve_device(args.device)
     print(f"algo={preset.algo} env={preset.env} iterations={args.iterations} "
           f"config={dataclasses.asdict(preset.config)} env_kwargs={preset.env_kwargs}",
           flush=True)
     host = is_host_spec(preset.env)
+    pools = build_actor_pools(preset, args, args.async_actors) if args.async_actors else None
     try:
-        if host:
+        if pools is not None:
+            env = pools[0]
+        elif host:
             env = make_host_pool(preset.env, preset.algo, preset.config, args.seed,
                                  args.scale_actions, preset.env_kwargs)
         else:
@@ -546,13 +702,15 @@ def main(argv=None) -> int:
             elif args.chunk > 1:
                 snap_cadences(args)
             with JsonlLogger(args.metrics, echo=not args.quiet) as logger:
-                if host:
+                if pools is not None:
+                    final = run_host_async(pools, preset, args, logger, device)
+                elif host:
                     final = run_host(env, preset, args, logger, device)
                 else:
                     final = run_fused(env, preset, args, logger, device)
         finally:
-            if host:
-                env.close()
+            for pool in pools or ([env] if host else []):
+                pool.close()
     except NotImplementedError as e:
         raise SystemExit(str(e)) from e
     cfg = preset.config
@@ -561,7 +719,9 @@ def main(argv=None) -> int:
         "env": preset.env,
         "device": str(device),
         "iterations": args.iterations,
-        "env_steps": args.iterations * steps_per_iteration(preset.algo, cfg),
+        # Consumed env steps: an async learner's block is 1/A of an iteration's.
+        "env_steps": args.iterations * steps_per_iteration(preset.algo, cfg)
+        // max(args.async_actors, 1),
         **{k: finite_or_none(v) for k, v in final.items()},
     }), flush=True)
     return 0

@@ -13,7 +13,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    fails);
 3. kernels: the launch floor (the device time of a one-element zero_());
    each kernel against its plain PyTorch version on the card, at its main
-   paths' shapes and at boundary shapes (ragged strips, chunk boundaries
+   paths' shapes (async PPO's [256, 4] and [256, 8] among them) and at
+   boundary shapes (ragged strips, chunk boundaries
    in T, bases off 16 bytes), with its tolerance, and its time beside the
    plain version's, the card's bound and the launch floor; then one A2C
    update and one IMPALA update on the card against the same update on
@@ -86,7 +87,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      equal to the parameters the update read, bitwise, with overlap on;
      and `td3_walker2d`'s host checkpoint round trip at 0.0 (learner,
      pool stats, generator, env steps) with the ring and without;
-6. a `{"kernels": [...]}` line, then the card's name and power limit;
+   - the async actor-learner, on the same env: a capture in "thread_local"
+     mode while a thread enqueues blocks into the device ring (puts inside
+     every capture, replays equal to eager); async PPO with one actor,
+     depth 1, one update a block and correction none against
+     `train_host` at 0.0 on the host plane and the device plane (fp32),
+     the device-plane run also holding its update graph (gather, decode,
+     update) against its eager run and showing in torch.profiler's trace
+     that the learner's thread copies nothing to the card while the actor
+     enqueues; `ppo_halfcheetah --async-actors 2` at full width through
+     `train.main` on the host plane and the device plane (fp32, int8),
+     V-trace's launches counted on the card equal to the consumed blocks,
+     ms a consumed block, consumed env-steps/s, the split (collect per
+     actor, learner idle, upload, update), drops and staleness, then the
+     host plane's V-trace update graph against its eager run; the other
+     async flags (`--updates-per-block 2 --max-staleness 4 --queue-depth 2
+     --async-correction none`: GAE twice a block, counted); the three
+     off-policy presets with one actor on both planes across their
+     10,000-step warm-up (updates/s after the gate) and the device plane's
+     ingest + update graph against its eager run; async PPO's checkpoint
+     on both planes (every actor pool's stats, the ring's stats at int8):
+     the round trip at 0.0, a resume of a complete run starting no actor,
+     a resume that trains on;
+6. a `{"kernels": [...]}` line (each kernel's launches on every main path
+   that runs it under `launches_by_path`), then the card's name and power
+   limit;
 7. last line: `{"ok": true, "device": {"platform": "gpu", ...}}`.
 
 Exits non-zero, printing no result, where no CUDA device is present.
@@ -264,6 +289,7 @@ def check_gae(floor_ms: float) -> dict:
         ("multi-block", 64, 4096 + 37, {}),
         ("multi-chunk", 256, 4133, {}),
         ("offset-base", 20, 64, {"offset": True}),
+        ("async A=2", 256, 4, {}),
     ]
     max_err = 0.0
     for i, (name, T, E, opts) in enumerate(cases):
@@ -283,7 +309,7 @@ def check_gae(floor_ms: float) -> dict:
     # and the host path's ppo_halfcheetah (one ragged strip of 8 of the
     # tile's 16 columns, four chunks of 64 rows).
     timings = []
-    for T, E in ((64, 4096), (128, 256), (32, 1024), (20, 64), (256, 8)):
+    for T, E in ((64, 4096), (128, 256), (32, 1024), (20, 64), (256, 8), (256, 4)):
         args = gae_inputs(T, E, seed=100)
         timings.append(time_against_bound(
             f"gae [{T},{E}]", "gae_kernel", lambda: gae_cuda.gae(*args, GAMMA, LAM),
@@ -343,6 +369,8 @@ def check_vtrace() -> dict:
         ("multi-block", 20, 4096 + 37, {}, 1.0, 1.0, 1.0),
         ("multi-chunk", 129, 4133, {"lp_scale": 1.0}, 1.0, 2.0, 0.9),
         ("offset-base", 20, 64, {"offset": True}, 1.0, 1.0, 1.0),
+        ("async A=2", 256, 4, {}, 1.0, 1.0, LAM),
+        ("async A=1", 256, 8, {}, 1.0, 1.0, LAM),
     ]
     max_err = 0.0
     for i, (name, T, E, opts, rho_bar, c_bar, lam) in enumerate(cases):
@@ -366,13 +394,17 @@ def check_vtrace() -> dict:
             max_err = max(max_err, err)
         print(f"vtrace {name:12s} T={T:3d} E={E:5d} max_abs_err={err:.3e}", flush=True)
 
-    T, E = 20, 64  # the preset's shape
-    args = vtrace_inputs(T, E, seed=100)
-    timing = time_against_bound(
-        f"vtrace [{T},{E}]", "vtrace_kernel", lambda: vtrace_cuda.vtrace(*args, GAMMA),
-        lambda: returns.vtrace(*args, GAMMA),
-        bytes_moved=(8 * T * E + E) * 4,  # 5 inputs + 3 outputs [T,E], bootstrap [E]
-        flops=21 * T * E)  # 20 float operations and one exp per element
+    # impala_pong's shape (the kernels-line entry), then async PPO's at
+    # ppo_halfcheetah's width with two actors and with one.
+    timings = []
+    for T, E in ((20, 64), (256, 4), (256, 8)):
+        args = vtrace_inputs(T, E, seed=100)
+        timings.append(time_against_bound(
+            f"vtrace [{T},{E}]", "vtrace_kernel", lambda: vtrace_cuda.vtrace(*args, GAMMA),
+            lambda: returns.vtrace(*args, GAMMA),
+            bytes_moved=(8 * T * E + E) * 4,  # 5 inputs + 3 outputs [T,E], bootstrap [E]
+            flops=21 * T * E))  # 20 float operations and one exp per element
+    timing = timings[0]
     return {
         "name": "vtrace",
         "route": "cuda",
@@ -1467,6 +1499,64 @@ def host_split(logged: list[dict], after: int) -> str:
             f"{mean('upload_ms'):.3f} ms, update {mean('update_ms'):.3f} ms (device, CUDA events)")
 
 
+def graph_vs_eager(run) -> dict:
+    """A host trainer's update (`run.update`, a replay by now) once eagerly
+    and once as its graph from the same state and block: every tensor it
+    writes, its metrics and the generator's state, the worst difference
+    (expected 0.0); then one more replay timed on the host clock and one
+    under torch.profiler. The state is put back after each."""
+    import torch
+
+    from actor_critic_tpu_torch.algos import loop
+
+    assert run.update.captured is not None, "the update is not a graph yet"
+    torch.cuda.synchronize()
+    carried = run.carried()
+    start = {k: t.clone() for k, t in carried.items()}
+    gen = run.update.generator
+    gen_start = gen.get_state()
+    _, eager_metrics = loop.eager_step(run.update._step, run.update, run.update.stream)
+    eager = {k: t.clone() for k, t in carried.items()}
+    eager.update({f"metric {k}": v.clone() for k, v in eager_metrics.items()})
+    eager_gen = gen.get_state()
+    with torch.no_grad():
+        for k, t in carried.items():
+            t.copy_(start[k])
+    gen.set_state(gen_start)
+    graph_metrics = run.update.captured.replay()
+    torch.cuda.synchronize()
+    diffs = {k: float((t.double() - eager[k].double()).abs().max())
+             for k, t in carried.items()}
+    diffs.update({f"metric {k}": float((v.double() - eager[f'metric {k}'].double()).abs().max())
+                  for k, v in graph_metrics.items()})
+    out = dict(worst=max(diffs.values()), tensors=len(diffs),
+               generator_equal=bool(torch.equal(gen.get_state(), eager_gen)))
+    # One more replay from the same state: its host-clock time
+    # (launch to synchronised end), its host time to return, and
+    # its kernels under torch.profiler.
+    for timed in (True, False):
+        with torch.no_grad():
+            for k, t in carried.items():
+                t.copy_(start[k])
+        gen.set_state(gen_start)
+        if timed:
+            t0 = time.perf_counter()
+            run.update.captured.replay()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            out.update(launch_ms=(t1 - t0) * 1e3, replay_ms=(time.perf_counter() - t0) * 1e3)
+        else:
+            kernels, _ = profile_kernels(run.update.captured.replay, iters=1)
+            out.update(
+                busy_ms=sum(us for _, us in kernels.values()) / 1e3,
+                launches=sum(c for c, _ in kernels.values()))
+    with torch.no_grad():
+        for k, t in carried.items():
+            t.copy_(start[k])
+    gen.set_state(gen_start)
+    return out
+
+
 class HostContract:
     """An `iteration_hook` for a host trainer on the card, overlap on:
 
@@ -1493,10 +1583,6 @@ class HostContract:
         self.graph_vs_eager: dict = {}
 
     def __call__(self, it, run) -> None:
-        import torch
-
-        from actor_critic_tpu_torch.algos import loop
-
         self.blocks.append(({k: v.copy() for k, v in run.buffers.block().items()},
                             {k: v.clone() for k, v in run.buffers.static.items()}))
         module = self.module_of(run)
@@ -1505,52 +1591,7 @@ class HostContract:
             tree = run.snapshot.params()
             self.snapshots[it] = {k: v.copy() for k, v in flat_tree(tree).items()}
         if it == self.check_at:
-            assert run.update.captured is not None, "the update is not a graph yet"
-            torch.cuda.synchronize()
-            carried = run.carried()
-            start = {k: t.clone() for k, t in carried.items()}
-            gen = run.update.generator
-            gen_start = gen.get_state()
-            _, eager_metrics = loop.eager_step(run.update._step, run.update, run.update.stream)
-            eager = {k: t.clone() for k, t in carried.items()}
-            eager.update({f"metric {k}": v.clone() for k, v in eager_metrics.items()})
-            eager_gen = gen.get_state()
-            with torch.no_grad():
-                for k, t in carried.items():
-                    t.copy_(start[k])
-            gen.set_state(gen_start)
-            graph_metrics = run.update.captured.replay()
-            torch.cuda.synchronize()
-            diffs = {k: float((t.double() - eager[k].double()).abs().max())
-                     for k, t in carried.items()}
-            diffs.update({f"metric {k}": float((v.double() - eager[f'metric {k}'].double()).abs().max())
-                          for k, v in graph_metrics.items()})
-            self.graph_vs_eager = dict(worst=max(diffs.values()), tensors=len(diffs),
-                                       generator_equal=bool(torch.equal(gen.get_state(), eager_gen)))
-            # One more replay from the same state: its host-clock time
-            # (launch to synchronised end), its host time to return, and
-            # its kernels under torch.profiler.
-            for timed in (True, False):
-                with torch.no_grad():
-                    for k, t in carried.items():
-                        t.copy_(start[k])
-                gen.set_state(gen_start)
-                if timed:
-                    t0 = time.perf_counter()
-                    run.update.captured.replay()
-                    t1 = time.perf_counter()
-                    torch.cuda.synchronize()
-                    self.graph_vs_eager.update(launch_ms=(t1 - t0) * 1e3,
-                                               replay_ms=(time.perf_counter() - t0) * 1e3)
-                else:
-                    kernels, _ = profile_kernels(run.update.captured.replay, iters=1)
-                    self.graph_vs_eager.update(
-                        busy_ms=sum(us for _, us in kernels.values()) / 1e3,
-                        launches=sum(c for c, _ in kernels.values()))
-            with torch.no_grad():
-                for k, t in carried.items():
-                    t.copy_(start[k])
-            gen.set_state(gen_start)
+            self.graph_vs_eager = graph_vs_eager(run)
 
     def check(self, label: str) -> None:
         import numpy as np
@@ -1797,6 +1838,519 @@ def run_host_resume(preset_name: str, env: str) -> None:
         assert save_replay or empty
 
 
+# -- the async actor-learner and the device data plane ----------------------
+
+ASYNC_ACTORS = 2                 # ppo_halfcheetah's E=8 as 2 actors of 4 envs
+ASYNC_PPO_BLOCKS = 12            # two eager blocks, a capture, then replays
+ASYNC_LOG_EVERY = 4
+ASYNC_CHECK_BLOCKS = 5           # the graph-vs-eager runs: blocks 1-5, checked at 4
+ASYNC_LOCKSTEP_ITERATIONS = 5    # two eager, a capture, replays
+# Consumed blocks of the off-policy async drives, on each plane: the
+# fleet's 10,000 collected env steps open the gate by block ~3-20 on the
+# host plane (its actor outruns the learner by 8-100 blocks to one, with
+# the GIL deciding) and by block ~25-28 on the device plane.
+ASYNC_OFFPOLICY_BLOCKS = 48
+ASYNC_RESUME_BLOCKS = 4
+
+
+def host_pools(preset_name: str, env: str, actors: int):
+    """`train.build_actor_pools`' fleet for `preset_name` on `env`, and its
+    config."""
+    import argparse
+
+    from actor_critic_tpu_torch import train
+    from actor_critic_tpu_torch.config import PRESETS
+
+    preset = dataclasses.replace(PRESETS[preset_name], env=env)
+    args = argparse.Namespace(seed=0, scale_actions=None)
+    return train.build_actor_pools(preset, args, actors), preset.config
+
+
+def async_split(logged: list[dict], after: int, actors: int) -> str:
+    """The split of an async run's logged blocks from `after` on: each
+    actor's collect ms a block (its cumulative collect seconds over its
+    blocks pushed), the learner's idle seconds on the queue, upload and
+    update ms (device, CUDA events), wait and dispatch ms (host clock)."""
+    rows = [r for r in logged if r["iter"] >= after]
+    mean = lambda k: sum(r[k] for r in rows) / len(rows)
+    last = logged[-1]
+    collect = ", ".join(
+        f"actor {i} {last[f'collect_s_{i}'] / max(last[f'blocks_{i}'], 1) * 1e3:.3f} ms a block "
+        f"({int(last[f'blocks_{i}'])} blocks)" for i in range(actors))
+    return (f"collect {collect}; learner_idle_s {last['learner_idle_s']:.3f} in all; upload "
+            f"{mean('upload_ms'):.3f} ms, update {mean('update_ms'):.3f} ms (device, CUDA "
+            f"events); wait {mean('wait_s') * 1e3:.3f} ms, dispatch {mean('dispatch_s') * 1e3:.3f} "
+            f"ms (host clock)")
+
+
+def learner_htod_copies(trace_path: str) -> tuple[list[int], list[int]]:
+    """(bytes of each host-to-device copy the LEARNER's thread issued, the
+    same for every other thread) in a torch.profiler chrome trace. The
+    learner's thread is the one that launched the CUDA graphs; a runtime
+    memcpy call and its device copy are paired by their correlation id."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    launches = [e for e in events if e.get("cat") == "cuda_runtime"
+                and e.get("name", "").startswith("cudaGraphLaunch")]
+    assert launches, "no cudaGraphLaunch in the profiled window"
+    learner_tids = {e["tid"] for e in launches}
+    calls = {e["args"]["correlation"]: e["tid"] for e in events
+             if e.get("cat") == "cuda_runtime" and "Memcpy" in e.get("name", "")
+             and "correlation" in e.get("args", {})}
+    mine, others = [], []
+    for e in events:
+        if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", ""):
+            corr = e.get("args", {}).get("correlation")
+            nbytes = int(e.get("args", {}).get("bytes", -1))
+            (mine if calls.get(corr) in learner_tids else others).append(nbytes)
+    return mine, others
+
+
+class ConsumeProfile:
+    """An `iteration_hook` that runs torch.profiler over the learner's
+    blocks `first`..`last` (replays) and keeps its chrome trace."""
+
+    def __init__(self, first: int, last: int, path: str):
+        self.first, self.last, self.path = first, last, path
+        self.prof = None
+
+    def __call__(self, it, run) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        if it == self.first - 1:
+            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof.__enter__()
+        elif it == self.last and self.prof is not None:
+            import torch
+
+            torch.cuda.synchronize()
+            self.prof.__exit__(None, None, None)
+            self.prof.export_chrome_trace(self.path)
+
+
+def gated_graph_vs_eager(run) -> dict:
+    """`graph_vs_eager` on an async learner's update, its actors held at
+    their block boundaries meanwhile (the eager run's ops would otherwise
+    wait on the GIL the actors' numpy loops hold)."""
+    run.gate.clear()
+    try:
+        return graph_vs_eager(run)
+    finally:
+        run.gate.set()
+
+
+def check_async_kernel_launches(logged: list[dict], launches: dict, blocks: int,
+                                upb: int) -> None:
+    assert launches == {"gae": 0, "vtrace": blocks * upb}, (launches, blocks, upb)
+    assert logged[-1]["consumed_env_steps"] > 0
+
+
+def run_async_ppo(env: str) -> int:
+    """`ppo_halfcheetah --async-actors 2` at full width (E=8 as two actors of
+    4, T=256, 10 × 32 minibatches) through `train.main` for
+    ASYNC_PPO_BLOCKS consumed blocks, on the host plane and on the device
+    plane with the fp32 and the int8 codec: V-trace's launches counted on
+    the card equal the consumed blocks; ms a consumed block, consumed
+    env-steps/s, the split, drops and staleness printed. Then the host
+    plane's V-trace update graph against its eager run on one block at 0.0,
+    and torch.profiler over two replayed blocks: the learner copies each
+    block to the card (the device plane's consume path, which copies none,
+    is shown in `check_async_strict_lockstep`). Returns V-trace's launches
+    on the host plane's run."""
+    import os
+
+    from actor_critic_tpu_torch.algos import ppo
+
+    n = ASYNC_PPO_BLOCKS
+    host_launches = None
+    for plane, codec in (("host", "fp32"), ("device", "fp32"), ("device", "int8")):
+        t0 = time.perf_counter()
+        logged, summary, launches = drive(
+            ["--preset", "ppo_halfcheetah", "--env", env, "--async-actors", str(ASYNC_ACTORS),
+             "--iterations", str(n), "--log-every", str(ASYNC_LOG_EVERY), "--seed", "0",
+             "--data-plane", plane, "--data-plane-codec", codec], show_every=ASYNC_LOG_EVERY)
+        check_rows(logged, n)
+        check_async_kernel_launches(logged, launches, n, 1)
+        host_launches = host_launches if host_launches is not None else launches["vtrace"]
+        after = 2 * ASYNC_LOG_EVERY
+        per_block, _ = per_iteration(logged, summary, after=ASYNC_LOG_EVERY)
+        steps = logged[-1]["consumed_env_steps"] / logged[-1]["iter"]
+        last = logged[-1]
+        print(f"main path async ppo_halfcheetah on {env}, --data-plane {plane} ({codec}): "
+              f"{ASYNC_ACTORS} actors of 4 envs, {n} consumed blocks of {int(steps)} env steps, "
+              f"V-trace launches {launches['vtrace']} (= blocks × updates_per_block); eager "
+              f"block 1 {logged[0]['wall_s'] * 1e3:.1f} ms; {per_block * 1e3:.3f} ms a consumed "
+              f"block over the replays {ASYNC_LOG_EVERY + 1}-{n} ({steps / per_block:.0f} "
+              f"consumed env-steps/s); fleet collected {int(last['env_steps'])} env steps; "
+              f"drops full {int(last['queue_drops_full'])}, stale {int(last['queue_drops_stale'])}; "
+              f"staleness of the last block {int(last['block_staleness'])}, mean_rho "
+              f"{last['mean_rho']:.4f}; split of blocks {after}, ..., {n}: "
+              f"{async_split(logged, after, ASYNC_ACTORS)}; {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+    pools, cfg = host_pools("ppo_halfcheetah", env, ASYNC_ACTORS)
+    hook = AsyncContract(os.path.abspath(f"{SCRATCH}/async_consume_host.json"))
+    try:
+        ppo.train_host_async(pools, cfg, ASYNC_CHECK_BLOCKS, seed=1, log_every=0,
+                             data_plane="host", device="cuda", iteration_hook=hook)
+    finally:
+        for p in pools:
+            p.close()
+    mine, _ = hook.check(f"ppo_halfcheetah on {env}, host plane (the V-trace update)")
+    # The contrast: the host plane's learner copies each block to the card.
+    assert mine and max(mine) > 8, mine
+    return host_launches
+
+
+class AsyncContract:
+    """An `iteration_hook` for an async PPO learner on the card: at block
+    ASYNC_CHECK_BLOCKS - 2 (the capture's block) its update's graph against
+    its eager run on that block (`gated_graph_vs_eager`), and torch.profiler
+    over the next two blocks (replays), whose chrome trace `check` reads."""
+
+    def __init__(self, trace: str):
+        self.out: dict = {}
+        self.trace = trace
+        self.profiler = ConsumeProfile(ASYNC_CHECK_BLOCKS - 1, ASYNC_CHECK_BLOCKS, trace)
+
+    def __call__(self, it, run) -> None:
+        if it == ASYNC_CHECK_BLOCKS - 2:
+            self.out.update(gated_graph_vs_eager(run))
+        self.profiler(it, run)
+
+    def check(self, label: str) -> tuple[list[int], list[int]]:
+        """Print and hold the graph check (0.0); returns the host-to-device
+        copies of the learner's thread and of the others in the window."""
+        out = self.out
+        mine, others = learner_htod_copies(self.trace)
+        print(f"async graph vs eager, {label}, on one block (block {ASYNC_CHECK_BLOCKS - 2}): "
+              f"max abs difference {out['worst']:.3e} over {out['tensors']} tensors and "
+              f"metrics, the generator's state {'equal' if out['generator_equal'] else 'DIFFERENT'}; "
+              f"one replay {out['replay_ms']:.3f} ms (launch call {out['launch_ms']:.3f} ms), "
+              f"device busy {out['busy_ms']:.3f} ms, {out['launches']} kernel launches; profiled "
+              f"blocks {ASYNC_CHECK_BLOCKS - 1}-{ASYNC_CHECK_BLOCKS}: the learner's thread issued "
+              f"{len(mine)} host-to-device copies (bytes {sorted(set(mine))}), the other threads "
+              f"{len(others)} (bytes {sorted(set(others))})", flush=True)
+        assert out["worst"] == 0.0 and out["generator_equal"], out
+        return mine, others
+
+
+def check_capture_beside_enqueues() -> None:
+    """The async learners capture their update in "thread_local" mode while
+    actor threads may enqueue: a thread puts `ppo_halfcheetah`-shaped int8
+    blocks (2 actors' width) into a `DeviceTrajRing` as fast as it can
+    (pinned staging, a copy on the slot's stream, events) while this thread
+    captures a 1,000-kernel graph five times; puts land inside every
+    capture, every capture succeeds, and every replay equals the eager run
+    at 0.0."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from actor_critic_tpu_torch.algos import ppo
+    from actor_critic_tpu_torch.config import PRESETS
+    from actor_critic_tpu_torch.data_plane import DeviceTrajRing
+    from actor_critic_tpu_torch.envs.env import EnvSpec
+
+    block_spec = ppo.async_block_spec(EnvSpec(obs_shape=(3,), action_dim=1, discrete=False),
+                                      PRESETS["ppo_halfcheetah"].config, ASYNC_ACTORS)
+    ring = DeviceTrajRing(4, block_spec, "int8", device="cuda")
+    rng = np.random.default_rng(0)
+    block = {k: rng.normal(size=v.shape).astype(v.dtype) for k, v in block_spec.items()}
+    stop = threading.Event()
+
+    def producer():
+        while not stop.is_set():
+            ring.put(block, version=0, timeout=0.25)
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((256, 64), generator=g, device="cuda")
+    w = torch.randn((64, 64), generator=g, device="cuda") / 8
+
+    def body():
+        y = x
+        for _ in range(500):
+            y = torch.tanh(y @ w)
+        return y
+
+    eager = body()
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    during = []
+    try:
+        for _ in range(5):
+            graph = torch.cuda.CUDAGraph()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                body()
+            torch.cuda.current_stream().wait_stream(side)
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                before = ring.stats()["puts"]
+                out = body()
+                during.append(ring.stats()["puts"] - before)
+            out.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager)
+    finally:
+        stop.set()
+        thread.join(timeout=30.0)
+    puts = ring.stats()["puts"]
+    print(f"capture beside enqueues: 5 thread_local captures of 1,000 kernels, puts inside "
+          f"each capture {during} ({puts} in all, {ring.bytes_per_block()} B a block), every "
+          f"replay equal to the eager run", flush=True)
+    assert min(during) > 0, during
+
+
+def check_async_strict_lockstep(env: str) -> None:
+    """Async PPO with one actor, queue depth 1, updates_per_block 1 and
+    correction none equals `ppo.train_host` on the card at 0.0 (parameters
+    and every Adam state), `ppo_halfcheetah`'s config at full width (E=8,
+    T=256, 10 × 32 minibatches) for ASYNC_LOCKSTEP_ITERATIONS iterations
+    (two eager, a capture, replays), on the host plane and on the device
+    plane with the fp32 codec. The device-plane run also holds the device
+    plane's update graph (gather, decode, update) against its eager run on
+    one block, and shows in torch.profiler's trace that the learner's
+    thread copies nothing to the card on its consume path while the actor
+    enqueues."""
+    import os
+
+    import torch
+
+    from actor_critic_tpu_torch.algos import ppo
+    from actor_critic_tpu_torch.algos.common import named_carried
+
+    n = ASYNC_LOCKSTEP_ITERATIONS
+    runs = {}
+    for plane in (None, "host", "device"):
+        pool, cfg = host_pool("ppo_halfcheetah", env)
+        t0 = time.perf_counter()
+        try:
+            if plane is None:
+                net, opt_state, _ = ppo.train_host(pool, cfg, n, seed=0, log_every=0,
+                                                   device="cuda")
+            else:
+                hook = (AsyncContract(os.path.abspath(f"{SCRATCH}/async_consume_device.json"))
+                        if plane == "device" else None)
+                net, opt_state, _ = ppo.train_host_async(
+                    [pool], cfg, n, seed=0, log_every=0, queue_depth=1, updates_per_block=1,
+                    correction="none", strict_lockstep=True, data_plane=plane,
+                    plane_codec="fp32", device="cuda", iteration_hook=hook)
+        finally:
+            pool.close()
+        torch.cuda.synchronize()
+        runs[plane] = (named_carried({"params": net, "opt_state": opt_state}, ""),
+                       time.perf_counter() - t0)
+    want, want_s = runs[None]
+    for plane in ("host", "device"):
+        got, secs = runs[plane]
+        assert sorted(got) == sorted(want)
+        worst = max(float((got[k].double() - want[k].double()).abs().max()) for k in want)
+        print(f"strict lockstep on the card, ppo_halfcheetah on {env}, {plane} plane: async (1 "
+              f"actor, depth 1, 1 update a block, correction none) vs train_host over {n} "
+              f"iterations: max abs difference {worst:.3e} over {len(want)} tensors (parameters, "
+              f"Adam moments and count); {secs:.1f} s (train_host {want_s:.1f} s)", flush=True)
+        assert worst == 0.0, (plane, worst)
+    mine, others = hook.check(f"ppo_halfcheetah on {env}, device plane (gather, decode, update)")
+    assert not mine, f"the learner copied {mine} bytes to the card on its consume path"
+    assert others, "the profiled window saw no actor enqueue"
+
+
+def run_async_flags(env: str) -> None:
+    """The async PPO flags the other phases leave at their defaults, through
+    `train.main` on the card: `ppo_halfcheetah` at full width with two
+    epochs, `--async-actors 2 --updates-per-block 2 --max-staleness 4
+    --queue-depth 2 --async-correction none` for 4 consumed blocks: GAE
+    (not V-trace) launched twice a block, counted on the card, no block
+    older than 4 versions consumed, the queue never deeper than 2."""
+    n = 4
+    logged, _, launches = drive(
+        ["--preset", "ppo_halfcheetah", "--env", env, "--set", "epochs=2", "--async-actors",
+         "2", "--updates-per-block", "2", "--max-staleness", "4", "--queue-depth", "2",
+         "--async-correction", "none", "--iterations", str(n), "--log-every", "1", "--seed",
+         "0"], show_every=n)
+    check_rows(logged, n)
+    print(f"async flags, ppo_halfcheetah on {env}: --updates-per-block 2 --max-staleness 4 "
+          f"--queue-depth 2 --async-correction none, {n} consumed blocks: launches {launches}; "
+          f"staleness {[int(r['block_staleness']) for r in logged]}, queue depth "
+          f"{[int(r['queue_depth']) for r in logged]}, drops stale "
+          f"{int(logged[-1]['queue_drops_stale'])}", flush=True)
+    assert launches == {"gae": 2 * n, "vtrace": 0}, launches
+    assert all(r["block_staleness"] <= 4 and r["queue_depth"] <= 2 for r in logged), logged
+    assert "mean_rho" not in logged[-1]
+
+
+def run_async_offpolicy(preset_name: str, env: str) -> None:
+    """An off-policy preset at full width (E=1, so one actor; K=J=64, batch
+    256, hidden (256, 256), a 1M ring) with `--async-actors 1` through
+    `train.main` for ASYNC_OFFPOLICY_BLOCKS consumed blocks on both planes:
+    the gate opens once the fleet has collected the preset's 10,000-step
+    warm-up; updates/s over the blocks after it. Then the device plane's
+    ingest + update graph against its eager run on one block at 0.0 (the
+    warm-up cut to 128 env steps)."""
+    import dataclasses as dc
+
+    from actor_critic_tpu_torch import train
+
+    n = ASYNC_OFFPOLICY_BLOCKS
+    mod = train.ALGOS[train.PRESETS[preset_name].algo]
+    for plane in ("host", "device"):
+        t0 = time.perf_counter()
+        logged, summary, launches = drive(
+            ["--preset", preset_name, "--env", env, "--async-actors", "1", "--iterations", str(n),
+             "--log-every", "1", "--seed", "0", "--data-plane", plane], show_every=20)
+        check_rows(logged, n, keys=("critic_loss", "actor_loss", "q_mean"))
+        assert launches == {"gae": 0, "vtrace": 0}, launches
+        cfg = train.PRESETS[preset_name].config
+        # The gate reads the fleet's count staged with the block: the row
+        # before the first open block already shows it past the warm-up.
+        past = [r["iter"] for r in logged if r["env_steps"] >= cfg.warmup_steps]
+        assert past and past[0] < n - 5, (
+            f"the fleet collected {logged[-1]['env_steps']} env steps in {n} blocks: the gate "
+            f"({cfg.warmup_steps}) opened too late to time updates after it")
+        opened = past[0] + 1
+        rows = {r["iter"]: r for r in logged}
+        a, b = min(opened + 2, n - 5), n
+        per = (rows[b]["wall_s"] - rows[a]["wall_s"]) / (b - a)
+        last = rows[n]
+        print(f"main path async {preset_name} on {env}, --data-plane {plane}: 1 actor, {n} "
+              f"consumed blocks of {cfg.steps_per_iter}; the gate opened at block ~{opened} "
+              f"(fleet collected {int(rows[opened - 1]['env_steps'])} env steps); "
+              f"{per * 1e3:.3f} ms a consumed block over {a + 1}-{b} ({cfg.updates_per_iter / per:.0f} "
+              f"updates/s); fleet collected {int(last['env_steps'])}; drops full "
+              f"{int(last['queue_drops_full'])}; split {async_split(logged, a, 1)}; critic_loss "
+              f"{last['critic_loss']:.4f}; {time.perf_counter() - t0:.1f} s", flush=True)
+
+    pools, cfg = host_pools(preset_name, env, 1)
+    cfg = dc.replace(cfg, warmup_steps=OFFPOLICY_GRAPH_WARMUP)
+    out: dict = {}
+
+    def hook(it, run):
+        if it == ASYNC_CHECK_BLOCKS - 1:
+            out.update(gated_graph_vs_eager(run))
+
+    try:
+        learner, _ = mod.train_host_async(pools, cfg, ASYNC_CHECK_BLOCKS, seed=1, log_every=0,
+                                          data_plane="device", device="cuda",
+                                          iteration_hook=hook)
+    finally:
+        for p in pools:
+            p.close()
+    print(f"async graph vs eager, {preset_name} on {env}, device plane (gather, decode, into "
+          f"the 1M ring, gate, {cfg.updates_per_iter} updates on one block, block "
+          f"{ASYNC_CHECK_BLOCKS - 1}): max abs difference {out['worst']:.3e} over "
+          f"{out['tensors']} tensors and metrics, the generator's state "
+          f"{'equal' if out['generator_equal'] else 'DIFFERENT'}; one replay "
+          f"{out['replay_ms']:.3f} ms, {out['launches']} kernel launches; update_count "
+          f"{int(learner.update_count)}", flush=True)
+    assert out["worst"] == 0.0 and out["generator_equal"], out
+
+
+def run_async_resume(env: str) -> None:
+    """Async PPO's checkpoint on the card, both planes (the device plane
+    with the int8 codec, whose stats ride the checkpoint):
+    `ppo_halfcheetah`'s width with one epoch (E=8 as 2 actors, T=256, 32
+    minibatches), ASYNC_RESUME_BLOCKS blocks saved; then (a) a restore into
+    a fresh template equals the live net, Adam state and generator at 0.0
+    and every actor pool's stats and the ring's stats exactly; (b) a resume
+    that finds the run complete starts no actors and logs nothing, its
+    pools' stats the saved ones; (c) a resume to 2 more blocks trains on
+    (blocks 5 and 6 logged, the checkpoint at 6)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from actor_critic_tpu_torch.algos import host_loop, ppo
+    from actor_critic_tpu_torch.algos.common import named_carried
+    from actor_critic_tpu_torch.utils.checkpoint import Checkpointer
+
+    n = ASYNC_RESUME_BLOCKS
+    for plane, codec in (("host", "fp32"), ("device", "int8")):
+        d = f"{SCRATCH}/async_resume_{plane}"
+        shutil.rmtree(d, ignore_errors=True)
+        kw = dict(seed=2, log_every=1, data_plane=plane, plane_codec=codec, device="cuda")
+        pools, cfg = host_pools("ppo_halfcheetah", env, ASYNC_ACTORS)
+        cfg = dataclasses.replace(cfg, epochs=1)
+        try:
+            net, opt_state, _ = ppo.train_host_async(pools, cfg, n, ckpt=Checkpointer(d),
+                                                     save_every=n, **kw)
+            live = named_carried({"params": net, "opt_state": opt_state}, "")
+        finally:
+            for p in pools:
+                p.close()
+        saved = final_checkpoint(d, n)
+        pools, _ = host_pools("ppo_halfcheetah", env, ASYNC_ACTORS)
+        fresh, fresh_opt = ppo.init_host_params(pools[0].spec, cfg, 99, "cuda")
+        gen = torch.Generator(device="cuda")
+        state = {"params": fresh, "opt_state": fresh_opt}
+        if plane == "device":
+            spec = ppo.async_block_spec(pools[0].spec, cfg, ASYNC_ACTORS)
+            from actor_critic_tpu_torch.data_plane import DeviceTrajRing
+
+            ring = DeviceTrajRing(1, spec, codec, device="cuda")
+            state["ring_quant"] = host_loop.ring_quant_tensors(ring.quant_host())
+        tmpl = host_loop.async_host_ckpt_state(pools, gen, **state)
+        Checkpointer(d).restore(tmpl)
+        restored = named_carried(tmpl, "")
+        worst = max(float((restored[f"device_state.{k}"].double().cpu() - t.double().cpu())
+                          .abs().max()) for k, t in live.items())
+        worst_saved = max(float((t.double().cpu() - saved["tensors"][k].double()).abs().max())
+                          for k, t in restored.items())
+        gen_equal = bool(torch.equal(gen.get_state(), saved["generator"]))
+        pool_keys = [k for k in restored if k.startswith("pools.")]
+        quant_keys = [k for k in restored if ".ring_quant." in k]
+        pools_state = pools[0].get_state()
+        for p in pools:
+            p.close()
+        # (b) the run is complete: no actor starts, nothing is logged.
+        pools, _ = host_pools("ppo_halfcheetah", env, ASYNC_ACTORS)
+        try:
+            _, _, hist_done = ppo.train_host_async(pools, cfg, n, ckpt=Checkpointer(d),
+                                                   resume=True, **kw)
+            stats_after = [p.get_state()["obs_rms"]["count"] for p in pools]
+        finally:
+            for p in pools:
+                p.close()
+        saved_counts = [float(saved["tensors"][f"pools.{i}.obs_rms.count"])
+                        for i in range(ASYNC_ACTORS)]
+        # (c) a resume to n + 2 trains on.
+        pools, _ = host_pools("ppo_halfcheetah", env, ASYNC_ACTORS)
+        try:
+            _, _, hist_more = ppo.train_host_async(pools, cfg, n + 2, ckpt=Checkpointer(d),
+                                                   resume=True, save_every=n + 2, **kw)
+        finally:
+            for p in pools:
+                p.close()
+        later = final_checkpoint(d, n + 2)
+        moved = max(float((later["tensors"][k].double() - saved["tensors"][k].double())
+                          .abs().max()) for k in saved["tensors"] if k.startswith("device_state.params"))
+        print(f"async resume, ppo_halfcheetah on {env}, {plane} plane ({codec}): restore vs live "
+              f"{worst:.3e} over {len(live)} tensors, restore vs save {worst_saved:.3e} over "
+              f"{len(restored)} ({len(pool_keys)} actor-pool stats, {len(quant_keys)} ring-stat "
+              f"tensors), generator {'equal' if gen_equal else 'DIFFERENT'}; a resume of the "
+              f"complete run logged {len(hist_done)} rows, obs-stat counts {stats_after} (saved "
+              f"{saved_counts}); a resume to {n + 2} logged blocks "
+              f"{[it for it, _ in hist_more]}, parameters moved {moved:.3e}", flush=True)
+        assert worst == 0.0 and worst_saved == 0.0 and gen_equal
+        per_pool = len(host_loop.pool_tensors(pools_state))
+        assert len(pool_keys) == per_pool * ASYNC_ACTORS and (plane == "host") == (not quant_keys)
+        assert hist_done == [] and np.allclose(stats_after, saved_counts, rtol=0, atol=0)
+        assert [it for it, _ in hist_more] == [n + 1, n + 2] and moved > 0.0
+
+
+
+def phase(label: str, fn, *args, **kwargs):
+    """`fn(*args, **kwargs)`, its host seconds printed after it as `phase
+    <label>: <s> s` (the script's time budget is read off these lines)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    print(f"phase {label}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1825,45 +2379,59 @@ def main() -> int:
         e["launch_floor_ms"] = floor_ms
         print(f"{e['name']}: kernel {e['ms'] / floor_ms:.2f}x the launch floor, "
               f"{e['ms'] / e['bound_ms']:.2f}x its bound", flush=True)
-    check_update_on_card()
-    check_impala_update_on_card()
+    phase("update on the card", check_update_on_card)
+    phase("IMPALA update on the card", check_impala_update_on_card)
     for preset_name in ("a2c_cartpole", "ppo_cartpole", "a2c_mixture", "impala_pong", "a3c_pong"):
-        check_graph_equals_eager(preset_name)
+        phase(f"graph vs eager {preset_name}", check_graph_equals_eager, preset_name)
     for preset_name in OFFPOLICY_PRESETS:
-        check_offpolicy_graph_equals_eager(preset_name)
-    check_eval_graphs()
+        phase(f"graph vs eager {preset_name}", check_offpolicy_graph_equals_eager, preset_name)
+    phase("eval graphs", check_eval_graphs)
     # Each kernel's launches on its own main path.
-    launches = {"gae": run_a2c_cartpole()["gae"], "vtrace": run_impala_pong()["vtrace"]}
-    run_ppo_cartpole()
-    run_a3c_pong()
-    run_a2c_mixture()
-    run_a2c_mixture_curriculum()
-    run_resume("a2c_cartpole", [])
-    run_resume("impala_pong", [])
-    run_resume("a2c_mixture", ["--eval-every", str(RESUME_AT), "--curriculum=-1e9:0,0,0,1"])
-    run_chunk()
+    launches = {"gae": phase("a2c_cartpole", run_a2c_cartpole)["gae"],
+                "vtrace": phase("impala_pong", run_impala_pong)["vtrace"]}
+    phase("ppo_cartpole", run_ppo_cartpole)
+    phase("a3c_pong", run_a3c_pong)
+    phase("a2c_mixture", run_a2c_mixture)
+    phase("a2c_mixture curriculum", run_a2c_mixture_curriculum)
+    phase("resume a2c_cartpole", run_resume, "a2c_cartpole", [])
+    phase("resume impala_pong", run_resume, "impala_pong", [])
+    phase("resume a2c_mixture", run_resume, "a2c_mixture",
+          ["--eval-every", str(RESUME_AT), "--curriculum=-1e9:0,0,0,1"])
+    phase("chunk", run_chunk)
     for preset_name in OFFPOLICY_PRESETS:
-        run_offpolicy_main(preset_name)
-    run_offpolicy_learning()
-    run_offpolicy_resume_and_chunk()
-    check_humanoid_update_loop()
-    host_gae = run_host_ppo(host_envs["ppo_halfcheetah"])
+        phase(preset_name, run_offpolicy_main, preset_name)
+    phase("off-policy learning", run_offpolicy_learning)
+    phase("off-policy resume and chunk", run_offpolicy_resume_and_chunk)
+    phase("humanoid update loop", check_humanoid_update_loop)
+    host_gae = phase("host ppo_halfcheetah", run_host_ppo, host_envs["ppo_halfcheetah"])
     for preset_name in OFFPOLICY_PRESETS:
-        run_host_offpolicy(preset_name, host_envs[preset_name])
-    run_host_resume("td3_walker2d", host_envs["td3_walker2d"])
+        phase(f"host {preset_name}", run_host_offpolicy, preset_name, host_envs[preset_name])
+    phase("host resume", run_host_resume, "td3_walker2d", host_envs["td3_walker2d"])
     print(f"host envs the presets ran on: {host_envs}; GAE launches on the host PPO path "
           f"{host_gae}", flush=True)
-    check_impala_learns()
-    profile_step("a2c_cartpole")
+    phase("capture beside enqueues", check_capture_beside_enqueues)
+    phase("async strict lockstep", check_async_strict_lockstep, host_envs["ppo_halfcheetah"])
+    async_vtrace = phase("async ppo_halfcheetah", run_async_ppo, host_envs["ppo_halfcheetah"])
+    phase("async flags", run_async_flags, host_envs["ppo_halfcheetah"])
+    for preset_name in OFFPOLICY_PRESETS:
+        phase(f"async {preset_name}", run_async_offpolicy, preset_name, host_envs[preset_name])
+    phase("async resume", run_async_resume, host_envs["ppo_halfcheetah"])
+    phase("IMPALA learns", check_impala_learns)
+    phase("profile a2c_cartpole", profile_step, "a2c_cartpole")
     # One step each way for the steps of ~21,000–24,000 launches: the
     # profiler's bookkeeping of them takes longer than the steps.
-    profile_step("ppo_cartpole", n=1)
-    profile_step("a2c_mixture", n=1)
-    profile_step("impala_pong")
-    profile_step("sac_humanoid", n=1, env_spec=OFFPOLICY_ENV)
+    phase("profile ppo_cartpole", profile_step, "ppo_cartpole", n=1)
+    phase("profile a2c_mixture", profile_step, "a2c_mixture", n=1)
+    phase("profile impala_pong", profile_step, "impala_pong")
+    phase("profile sac_humanoid", profile_step, "sac_humanoid", n=1, env_spec=OFFPOLICY_ENV)
+    by_path = {"gae": {"a2c_cartpole": launches["gae"], "host ppo_halfcheetah": host_gae},
+               "vtrace": {"impala_pong": launches["vtrace"],
+                          "async ppo_halfcheetah (host plane)": async_vtrace}}
     for e in entries:
         e["launches"] = launches[e["name"]]
-        assert e["launches"] > 0, f"kernel {e['name']} was not launched on the main path"
+        e["launches_by_path"] = by_path[e["name"]]
+        assert all(v > 0 for v in by_path[e["name"]].values()), \
+            f"kernel {e['name']} was not launched on a main path: {by_path[e['name']]}"
 
     print(f"script: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

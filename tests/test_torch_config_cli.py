@@ -19,11 +19,16 @@ JAX package's `config.py` and `train.py`:
   no ring, as JAX's;
 - what is not ported yet (bf16 compute, also on the host path's
   `host:`/`native:` envs and the MuJoCo presets, `--workers` and the
-  flags of later paths) exits with a message saying so.
+  flags of later paths) exits with a message saying so;
+- the async actor-learner's seven flags (`--async-actors`,
+  `--updates-per-block`, `--max-staleness`, `--queue-depth`,
+  `--async-correction`, `--data-plane`, `--data-plane-codec`) each run
+  their path, and the JAX CLI's refusals around them exit as JAX's do.
 """
 
 import dataclasses
 import json
+import sys
 
 import pytest
 import torch
@@ -333,3 +338,123 @@ def test_replay_dtype_needs_a_ring():
         train.main(["--preset", "ppo_cartpole", "--replay-dtype", "mixed", "--device", "cpu"])
     with pytest.raises(SystemExit):
         train.parse_args(["--algo", "sac", "--replay-dtype", "bf16"])
+
+
+@pytest.fixture
+def cpu_learner():
+    """One intra-op thread (the learner's ops beside the actor threads would
+    otherwise oversubscribe the cores) and a 0.1 ms GIL switch interval: an
+    actor's Python loop holds the GIL up to the interval (5 ms by default)
+    each time a learner op releases it, and at 5 ms the CPU learner's
+    thousands of ops a block take minutes. On the card an update is one
+    graph replay, a single call."""
+    threads, interval = torch.get_num_threads(), sys.getswitchinterval()
+    torch.set_num_threads(1)
+    sys.setswitchinterval(1e-4)
+    yield
+    sys.setswitchinterval(interval)
+    torch.set_num_threads(threads)
+
+
+ASYNC_BASE = ["--preset", "ppo_halfcheetah", "--env", "native:Pendulum-v1", "--set",
+              "num_envs=4", "--set", "rollout_steps=8", "--set", "epochs=1", "--set",
+              "num_minibatches=1", "--set", "hidden=8", "--iterations", "3", "--log-every", "1",
+              "--device", "cpu"]
+
+
+@pytest.mark.parametrize("flags,check", [
+    (["--async-actors", "2"], lambda r: r["blocks_1"] >= 1 and "mean_rho" in r),
+    (["--async-actors", "1", "--updates-per-block", "2"], lambda r: "mean_rho" in r),
+    (["--async-actors", "2", "--max-staleness", "1"], lambda r: r["queue_drops_stale"] >= 0),
+    (["--async-actors", "1", "--max-staleness", "-1"], lambda r: r["queue_drops_stale"] == 0),
+    (["--async-actors", "1", "--queue-depth", "1"], lambda r: r["queue_depth"] <= 1),
+    (["--async-actors", "1", "--async-correction", "none"], lambda r: "mean_rho" not in r),
+    (["--async-actors", "2", "--data-plane", "device"], lambda r: "mean_rho" in r),
+    (["--async-actors", "1", "--data-plane", "device", "--data-plane-codec", "int8"],
+     lambda r: r["consumed_env_steps"] == 3 * 8 * 4),
+], ids=["async-actors", "updates-per-block", "max-staleness", "max-staleness-off", "queue-depth",
+        "async-correction", "data-plane", "data-plane-codec"])
+def test_async_flags_run_their_path(flags, check, capsys, tmp_path, cpu_learner):
+    metrics = tmp_path / "m.jsonl"
+    assert train.main(ASYNC_BASE + flags + ["--metrics", str(metrics), "--quiet"]) == 0
+    rows = [json.loads(line) for line in metrics.read_text().splitlines()]
+    assert [r["iter"] for r in rows] == [1, 2, 3]
+    actors = int(flags[1])
+    for r in rows:
+        assert {"block_actor", "block_staleness", "queue_drops_full", "learner_idle_s",
+                "consumed_env_steps", "wait_s", "dispatch_s"} <= set(r)
+        assert r["consumed_env_steps"] == r["iter"] * 8 * (4 // actors)
+        assert r["env_steps"] >= r["consumed_env_steps"]
+    assert check(rows[-1]), rows[-1]
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["iterations"] == 3 and summary["consumed_env_steps"] == 3 * 8 * (4 // actors)
+
+
+def test_async_offpolicy_through_the_cli(capsys, tmp_path, cpu_learner):
+    argv = ["--preset", "sac_humanoid", "--env", "native:Pendulum-v1", "--set", "hidden=8,8",
+            "--set", "updates_per_iter=2", "--set", "steps_per_iter=4", "--set",
+            "batch_size=4", "--set", "warmup_steps=8", "--async-actors", "1", "--iterations",
+            "4", "--data-plane", "device", "--metrics", str(tmp_path / "m.jsonl"), "--quiet",
+            "--device", "cpu"]
+    assert train.main(argv) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["consumed_env_steps"] == 16 and summary["critic_loss"] is not None
+
+
+def test_async_ppo_resume_through_the_cli(capsys, tmp_path, cpu_learner):
+    ck = str(tmp_path / "ck")
+    base = ASYNC_BASE + ["--async-actors", "2", "--ckpt-dir", ck, "--save-every", "2",
+                         "--metrics", str(tmp_path / "m.jsonl"), "--quiet"]
+    assert train.main(base) == 0
+    assert train.main([a if a != "3" else "5" for a in base] + ["--resume"]) == 0
+    out = capsys.readouterr().out
+    assert "resumed from block 3" in out
+    assert json.loads(out.strip().splitlines()[-1])["consumed_env_steps"] == 5 * 8 * 2
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--preset", "ppo_cartpole", "--async-actors", "2"], "decouples HOST collection"),
+    (["--algo", "a2c", "--env", "native:CartPole-v1", "--async-actors", "2"],
+     "has no host loop"),
+    (["--preset", "ppo_halfcheetah", "--env", "native:Pendulum-v1", "--async-actors", "3"],
+     "must split evenly"),
+    (["--preset", "ppo_halfcheetah", "--env", "native:Pendulum-v1", "--async-actors", "16"],
+     "must split evenly"),
+    (["--preset", "ppo_halfcheetah", "--env", "native:Pendulum-v1", "--data-plane", "device"],
+     "pass --async-actors"),
+    (["--preset", "sac_humanoid", "--env", "native:Pendulum-v1", "--async-actors", "1",
+      "--ckpt-dir", "/nonexistent/ck"], "checkpointing is wired for PPO only"),
+    (["--preset", "td3_walker2d", "--env", "native:Pendulum-v1", "--async-actors", "1",
+      "--resume"], "checkpointing is wired for PPO only"),
+    (["--preset", "ppo_halfcheetah", "--env", "native:Pendulum-v1", "--async-actors", "2",
+      "--updates-per-block", "0"], "--updates-per-block"),
+    (["--preset", "ppo_halfcheetah", "--env", "native:Pendulum-v1", "--async-actors", "2",
+      "--queue-depth", "0"], "--queue-depth"),
+    (["--preset", "ppo_halfcheetah", "--env", "native:Pendulum-v1", "--async-actors", "-1"],
+     "--async-actors"),
+], ids=["jax-env", "no-host-trainer", "uneven-split", "more-actors-than-envs",
+        "device-plane-alone", "offpolicy-ckpt", "offpolicy-resume", "updates-per-block",
+        "queue-depth", "negative-actors"])
+def test_async_selections_that_exit_as_jax(argv, match):
+    with pytest.raises(SystemExit, match=match):
+        train.main(argv + ["--device", "cpu", "--iterations", "1"])
+
+
+@pytest.mark.parametrize("flag,path", [("--workers", "the sharded host pool"),
+                                       ("--serve-port", "serving"),
+                                       ("--distributed", "multi-GPU")])
+def test_later_paths_stay_refused_beside_async(flag, path, capsys):
+    with pytest.raises(SystemExit):
+        train.main(["--preset", "ppo_halfcheetah", "--env", "native:Pendulum-v1",
+                    "--async-actors", "2", flag, "2", "--device", "cpu"])
+    err = capsys.readouterr().err
+    assert f"{flag} is not ported yet" in err and path in err
+
+
+@pytest.mark.parametrize("value,algo,want", [(None, "ppo", 8), (None, "sac", None),
+                                             (3, "ddpg", 3), (-1, "ppo", None),
+                                             (0, "ppo", 0)])
+def test_resolve_staleness_as_jax(value, algo, want):
+    import argparse
+
+    assert train.resolve_staleness(argparse.Namespace(max_staleness=value), algo) == want

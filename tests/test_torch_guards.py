@@ -57,7 +57,12 @@ def test_import_scan_covers_every_module_of_the_port():
                  "actor_critic_tpu_torch/replay/quantize.py",
                  "actor_critic_tpu_torch/algos/ddpg.py",
                  "actor_critic_tpu_torch/algos/sac.py",
-                 "actor_critic_tpu_torch/ops/polyak.py"):
+                 "actor_critic_tpu_torch/ops/polyak.py",
+                 "actor_critic_tpu_torch/algos/traj_queue.py",
+                 "actor_critic_tpu_torch/envs/sleep_pad.py",
+                 "actor_critic_tpu_torch/data_plane/codecs.py",
+                 "actor_critic_tpu_torch/data_plane/ring.py",
+                 "actor_critic_tpu_torch/data_plane/device_replay.py"):
         assert name in scanned, name
 
 
