@@ -963,6 +963,8 @@ def off_policy_train_host_async(
     transfer_pad_s: float = 0.0,
     device="cuda",
     iteration_hook: Optional[Callable[[int, HostRun], None]] = None,
+    publish_hook: Optional[Callable[[int, Any], None]] = None,
+    gate: Optional[threading.Event] = None,
 ):
     """The async actor-learner loop of the off-policy trainers (DDPG/TD3,
     SAC): replay absorbs the behaviour policy's staleness (every consumed
@@ -986,7 +988,12 @@ def off_policy_train_host_async(
     `DeviceTrajRing` (codec `plane_codec`), and the update gathers and
     decodes the slot, writes it into the replay ring and updates
     (`device_replay.make_device_ingest_update`): the learner copies no block
-    to the card. Returns (learner, history)."""
+    to the card. `publish_hook(it, np_params)` (serve-while-training) is
+    called right after block `it`'s publish with the publisher's frozen copy
+    of the actor, and once after the last block with the final actor (`it`
+    = `num_iterations`). `gate`, as `ppo.train_host_async`'s, is cleared
+    while the update runs eagerly or is captured. Returns (learner,
+    history)."""
     import threading
 
     from actor_critic_tpu_torch import resolve_device
@@ -1050,7 +1057,7 @@ def off_policy_train_host_async(
             return ingest_update(learner, traj, b["env_steps"], generator)
 
     publisher = PolicyPublisher(np_params, version=0)
-    stop, gate = threading.Event(), threading.Event()
+    stop, gate = threading.Event(), gate if gate is not None else threading.Event()
     gate.set()
     actors = [
         ActorService(i, pool, queue, publisher, cfg.steps_per_iter, actor_act_factory(i),
@@ -1093,12 +1100,16 @@ def off_policy_train_host_async(
             waited = feed.wait_s - wait0
             clock.add("dispatch_s", time.perf_counter() - t0 - waited)
             clock.add("wait_s", waited + publish_snapshot(snapshot, publisher, it))
+            if publish_hook is not None:
+                publish_hook(it, publisher.get()[1])
             extra = async_row(it, block, queue, actors, cfg.steps_per_iter * E_a)
             if eval_pool is not None and (it + 1) % eval_every == 0:
                 extra.update(timed_eval(eval_pool, eval_act(), eval_steps))
             maybe_log(it, log_every, metrics, trackers, history, log_fn, extra=extra,
                       num_iterations=num_iterations,
                       force="eval_return" in extra or it == 0, clock=clock)
+        if publish_hook is not None:
+            publish_hook(num_iterations, host_actor.mirror_params(learner.actor))
     finally:
         stop_actors(stop, actors, queue)
         if eval_pool is not None:

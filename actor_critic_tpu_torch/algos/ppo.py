@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, NamedTuple, Optional, Union
+from typing import Any, Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -761,6 +761,8 @@ def train_host_async(
     transfer_pad_s: float = 0.0,
     device="cuda",
     iteration_hook=None,
+    publish_hook: Optional[Callable[[int, Any], None]] = None,
+    gate=None,
 ):
     """Async actor-learner PPO on host env pools.
 
@@ -798,8 +800,14 @@ def train_host_async(
     is the test hook: with one actor, `queue_depth=1`,
     `updates_per_block=1` and `correction="none"` the run is `train_host`
     bit for bit. `iteration_hook(it, run)` is called after each block's
-    updates are enqueued, before its slot is released. Returns (net,
-    opt_state, history)."""
+    updates are enqueued, before its slot is released.
+    `publish_hook(it, np_params)` (serve-while-training) is called right
+    after block `it`'s publish with the publisher's frozen copy, and once
+    after the last block with the final parameters (`it` =
+    `num_iterations`). `gate` (a `threading.Event`, a fresh one by default)
+    is cleared while an update runs eagerly or is captured: the actors, and
+    a serving sidecar's flushes, wait on it. Returns (net, opt_state,
+    history)."""
     import threading
 
     from actor_critic_tpu_torch.algos import host_loop
@@ -881,7 +889,7 @@ def train_host_async(
             queue.install_quant(host_loop.ring_quant_tree(template.device_state["ring_quant"]))
 
     publisher = PolicyPublisher(host_actor.mirror_params(net), version=start_it)
-    stop, gate = threading.Event(), threading.Event()
+    stop, gate = threading.Event(), gate if gate is not None else threading.Event()
     gate.set()
     actors = [
         # Actor 0 draws the lockstep trainer's stream; the others offset by a
@@ -934,6 +942,8 @@ def train_host_async(
             waited = feed.wait_s - wait0
             clock.add("dispatch_s", time.perf_counter() - t0 - waited)
             clock.add("wait_s", waited + host_loop.publish_snapshot(snapshot, publisher, it))
+            if publish_hook is not None:
+                publish_hook(it, publisher.get()[1])
             extra = host_loop.async_row(it, block, queue, actors, cfg.rollout_steps * E_a)
             if eval_pool is not None and (it + 1) % eval_every == 0:
                 extra.update(host_loop.timed_eval(eval_pool, eval_act(), eval_steps))
@@ -943,6 +953,8 @@ def train_host_async(
             if ckpt is not None:
                 host_loop.async_host_maybe_save(ckpt, it + 1, save_every, num_iterations, pools,
                                                 metrics, generator, data_plane, **device_state())
+        if publish_hook is not None:
+            publish_hook(num_iterations, host_actor.mirror_params(net))
     finally:
         host_loop.stop_actors(stop, actors, queue)
         if eval_pool is not None:

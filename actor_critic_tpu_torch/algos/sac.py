@@ -383,6 +383,8 @@ def train_host_async(
     transfer_pad_s: float = 0.0,
     device="cuda",
     iteration_hook=None,
+    publish_hook=None,
+    gate=None,
 ):
     """SAC with decoupled actor threads (`host_loop.off_policy_train_host_async`):
     one exploration thread per pool pushes [K, E_a] transition blocks
@@ -406,5 +408,5 @@ def train_host_async(
         eval_every=eval_every, eval_envs=eval_envs, eval_steps=eval_steps,
         queue_depth=queue_depth, max_staleness=max_staleness,
         data_plane=data_plane, plane_codec=plane_codec, transfer_pad_s=transfer_pad_s,
-        device=device, iteration_hook=iteration_hook,
+        device=device, iteration_hook=iteration_hook, publish_hook=publish_hook, gate=gate,
     )

@@ -38,7 +38,8 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 
-from actor_critic_tpu_torch.utils.checkpoint import NonFiniteError
+from actor_critic_tpu_torch.utils import numguard
+from actor_critic_tpu_torch.utils.numguard import NonFiniteError
 
 
 class TrajBlock(NamedTuple):
@@ -227,7 +228,7 @@ def consume_block(queue, actors: list, timeout: float = 0.5, context: str = ""):
             raise RuntimeError("every actor thread exited with no blocks pending")
 
 
-def _snapshot_frozen(tree: Any) -> Any:
+def snapshot_frozen(tree: Any) -> Any:
     """A copy of every numpy leaf of a dict/list/tuple tree, each marked
     read-only: the publisher keeps THESE, so no caller holds a writable
     alias of what actors read, and an actor that writes into behaviour
@@ -237,27 +238,13 @@ def _snapshot_frozen(tree: Any) -> Any:
         out.flags.writeable = False
         return out
     if isinstance(tree, dict):
-        return {k: _snapshot_frozen(v) for k, v in tree.items()}
+        return {k: snapshot_frozen(v) for k, v in tree.items()}
     if isinstance(tree, tuple):
-        vals = [_snapshot_frozen(v) for v in tree]
+        vals = [snapshot_frozen(v) for v in tree]
         return type(tree)(*vals) if hasattr(type(tree), "_fields") else tuple(vals)
     if isinstance(tree, list):
-        return [_snapshot_frozen(v) for v in tree]
+        return [snapshot_frozen(v) for v in tree]
     return tree
-
-
-def _nonfinite_leaves(tree: Any, path: str) -> list[str]:
-    if isinstance(tree, np.ndarray):
-        if np.issubdtype(tree.dtype, np.floating) and not np.isfinite(tree).all():
-            return [path]
-        return []
-    if isinstance(tree, dict):
-        items = tree.items()
-    elif isinstance(tree, (tuple, list)):
-        items = enumerate(tree)
-    else:
-        return []
-    return [p for k, v in items for p in _nonfinite_leaves(v, f"{path}.{k}")]
 
 
 class PolicyPublisher:
@@ -266,21 +253,21 @@ class PolicyPublisher:
     The learner `publish`es each update's INPUT parameters with version =
     blocks consumed so far; actors `get` the latest at block boundaries.
     `wait_for` is the strict mode's hook. Stored trees are frozen copies
-    (`_snapshot_frozen`). A tree with a NaN or an inf is refused
+    (`snapshot_frozen`). A tree with a NaN or an inf is refused
     (`NonFiniteError`, out of the learner's loop) and never installed: the
     actors keep acting with the last good one."""
 
     def __init__(self, params: Any, version: int = 0):
         self._cv = threading.Condition()
-        self._params = _snapshot_frozen(params)
+        self._params = snapshot_frozen(params)
         self._version = int(version)
 
     def publish(self, params: Any, version: int) -> None:
-        bad = _nonfinite_leaves(params, "params")
+        bad = numguard.nonfinite_paths(params, "params")
         if bad:
             raise NonFiniteError(
                 f"behaviour-params publish refused: non-finite values at {', '.join(bad[:6])}")
-        snapshot = _snapshot_frozen(params)  # copy OUTSIDE the lock
+        snapshot = snapshot_frozen(params)  # copy OUTSIDE the lock
         with self._cv:
             self._params = snapshot
             self._version = int(version)

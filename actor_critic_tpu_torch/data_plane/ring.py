@@ -227,7 +227,11 @@ class DeviceTrajRing:
             # Per slot: a stream, pinned staging at the storage dtypes, and
             # the enqueue and release events. All made here, before any
             # actor runs, so an actor's put allocates nothing.
-            self._streams = [torch.cuda.Stream(self.device) for _ in range(depth)]
+            # From the high-priority pool: torch hands out its 32 streams of a
+            # pool round robin, so a normal-priority slot stream may be the
+            # stream the learner captures its update on, and an actor's put
+            # during that capture would join it.
+            self._streams = [torch.cuda.Stream(self.device, priority=-1) for _ in range(depth)]
             self._staging = [
                 {name: torch.empty(leaf.shape, dtype=torch_dtype(self._storage_dtypes[name]),
                                    pin_memory=True)

@@ -70,6 +70,13 @@ blocks. Its flags: `--updates-per-block`, `--max-staleness`,
 `--data-plane host|device` with `--data-plane-codec fp32|f16|int8` (the
 device ring of `data_plane/`). PPO's async runs checkpoint and resume
 (every actor pool's stats, and the ring's on the device plane).
+`--serve-port P` (with `--async-actors`) serves the learner while it
+trains: a policy-serving gateway (`serving/`) on port P (0 = OS-assigned,
+printed) whose 'learner' policy registers at version 0 with every act
+bucket (`--serve-buckets`) captured before training starts, and is
+hot-swapped to version it + 1 at block it's publish and to blocks + 1
+with the final parameters; `python -m actor_critic_tpu_torch.serve`
+serves checkpoints on their own.
 
 Not ported yet, and refused with a message that says so: `--workers` (the
 sharded host pool), bf16 compute, and the flags of the other paths that
@@ -138,8 +145,6 @@ UNPORTED_FLAGS = {
     "--gossip-every": "multi-GPU",
     "--gossip-weight": "multi-GPU",
     "--mailbox-dir": "multi-GPU",
-    "--serve-port": "serving",
-    "--serve-buckets": "serving",
     "--telemetry-dir": "telemetry",
     "--telemetry-port": "telemetry",
     "--telemetry-bind": "telemetry",
@@ -377,6 +382,16 @@ def parse_args(argv=None) -> argparse.Namespace:
         "raw (bitwise the host plane), f16 halves the observation bytes, int8 "
         "standardizes obs and rewards to calibrated int8 and packs the flags; actions, "
         "log-probs and values always stay raw")
+    p.add_argument(
+        "--serve-port", type=int, default=None, metavar="PORT",
+        help="async mode: serve-while-training — bind a policy-serving gateway (serving/) on "
+        "PORT (0 = OS-assigned, printed) whose 'learner' policy hot-swaps to every published "
+        "learner snapshot: /v1/act answers with the current training params, version = "
+        "blocks consumed + 1; the final parameters install as version blocks + 1")
+    p.add_argument(
+        "--serve-buckets", default="1,4,16", metavar="B,B,..",
+        help="--serve-port: act bucket sizes of the gateway, each one CUDA graph on the card "
+        "(default 1,4,16; captured before training starts)")
     p.add_argument("--list-presets", action="store_true")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     for flag in UNPORTED_FLAGS:
@@ -590,6 +605,41 @@ def run_host_async(pools: list[HostEnvPool], preset, args: argparse.Namespace,
         torch.set_num_threads(threads)
 
 
+def start_serving_sidecar(preset, spec, args: argparse.Namespace, device: torch.device):
+    """Serve-while-training: a policy-serving gateway whose one 'learner'
+    policy tracks the training run. Built before training starts, so every
+    act bucket is captured (one CUDA graph each on the card) while nothing
+    else runs; the publish hook then only hot-swaps parameters. Versions:
+    the init placeholder registers at 0, block `it`'s publish swaps to
+    `it + 1`, the final parameters to blocks + 1, so /v1/act's `version` is
+    strictly monotone. The gateway's flushes wait on the learner's gate
+    (while an update runs eagerly or is captured), as its actors do.
+    Returns `(gateway, learner_kwargs)`: `publish_hook` and `gate` for the
+    async learner; the caller closes the gateway."""
+    import threading
+
+    from actor_critic_tpu_torch import serving
+
+    buckets = tuple(int(b) for b in args.serve_buckets.split(",") if b.strip())
+    gate = threading.Event()
+    gate.set()
+    engine = serving.PolicyEngine(spec, preset.config, algo=preset.algo, buckets=buckets,
+                                  seed=args.seed, device=device, gate=gate)
+    store = serving.PolicyStore()
+    template = serving.init_params(spec, preset.config, preset.algo, seed=args.seed)
+    store.register("learner", engine, template, default=True)
+    n_warm = engine.warm(store.get("learner").params)
+    gateway = serving.ServeGateway(store, port=args.serve_port)
+    print(f"serving learner on {gateway.url} (warm: {n_warm} act buckets)", flush=True)
+
+    def publish_hook(it: int, np_params) -> None:
+        # The publisher's frozen copy; swap numguards it and uploads it into
+        # tensors of the version's own.
+        store.swap("learner", np_params, version=it + 1)
+
+    return gateway, {"publish_hook": publish_hook, "gate": gate}
+
+
 def _run_host_async(pools, preset, args, logger, device) -> dict:
     ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
     if ckpt is not None and args.resume and ckpt.latest_step() is not None:
@@ -612,14 +662,22 @@ def _run_host_async(pools, preset, args, logger, device) -> dict:
         eval_steps=args.eval_steps, queue_depth=args.queue_depth,
         max_staleness=resolve_staleness(args, preset.algo), data_plane=args.data_plane,
         plane_codec=args.data_plane_codec, device=device)
-    if preset.algo == "ppo":
-        ppo.train_host_async(pools, preset.config, updates_per_block=args.updates_per_block,
-                             correction=args.async_correction, ckpt=ckpt,
-                             save_every=args.save_every, resume=args.resume, **kwargs)
-    else:
-        # Replay absorbs behaviour staleness: no correction knob, and the
-        # staleness bound is off unless asked for.
-        ALGOS[preset.algo].train_host_async(pools, preset.config, **kwargs)
+    gateway = None
+    if args.serve_port is not None:
+        gateway, sidecar = start_serving_sidecar(preset, pools[0].spec, args, device)
+        kwargs.update(sidecar)
+    try:
+        if preset.algo == "ppo":
+            ppo.train_host_async(pools, preset.config, updates_per_block=args.updates_per_block,
+                                 correction=args.async_correction, ckpt=ckpt,
+                                 save_every=args.save_every, resume=args.resume, **kwargs)
+        else:
+            # Replay absorbs behaviour staleness: no correction knob, and the
+            # staleness bound is off unless asked for.
+            ALGOS[preset.algo].train_host_async(pools, preset.config, **kwargs)
+    finally:
+        if gateway is not None:
+            gateway.close()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     if not last and ckpt is not None:
@@ -649,6 +707,12 @@ def check_async_flags(args: argparse.Namespace, algo: str) -> None:
         if args.no_overlap:
             print("--no-overlap is meaningless with --async-actors (actors always act through "
                   "the numpy mirror); ignored", flush=True)
+    if args.serve_port is not None and args.async_actors <= 0:
+        # Serve-while-training rides the async publish cadence: the lockstep
+        # and fused paths have no PolicyPublisher to hook. (JAX's other
+        # refusal, --distributed, is refused above as not ported.)
+        raise SystemExit("--serve-port hooks the async learner's per-block publish "
+                         "(PolicyPublisher) — pass --async-actors N")
 
 
 def main(argv=None) -> int:

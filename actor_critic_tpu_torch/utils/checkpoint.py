@@ -20,7 +20,7 @@ place, and the oldest beyond `max_to_keep` are removed.
 graph captures is the init's own storage (`common.init_rollout`).
 
 A state with a non-finite float tensor is refused at save
-(`NonFiniteError`): the previous good checkpoint stays the latest. The
+(`numguard.NonFiniteError`): the previous good checkpoint stays the latest. The
 metrics may carry a non-finite loss and are written as they are (null).
 """
 
@@ -34,13 +34,13 @@ from typing import Any, Optional, Union
 import torch
 
 from actor_critic_tpu_torch.algos.common import OffPolicyState, TrainState, carried_tensors
+from actor_critic_tpu_torch.utils import numguard
 from actor_critic_tpu_torch.utils.cadence import finite_or_none
+from actor_critic_tpu_torch.utils.numguard import NonFiniteError
+
+__all__ = ["Checkpointer", "NonFiniteError"]
 
 STATE_FILE, METRICS_FILE = "state.pt", "metrics.json"
-
-
-class NonFiniteError(ValueError):
-    """A state with NaN or Inf in a float tensor was asked to be saved."""
 
 
 class Checkpointer:
@@ -71,8 +71,7 @@ class Checkpointer:
         iteration `step`, replacing one already there. Reads the tensors to
         the host, so it waits for the device."""
         tensors = {k: t.detach().to("cpu", copy=True) for k, t in carried_tensors(state).items()}
-        bad = sorted(k for k, t in tensors.items()
-                     if t.is_floating_point() and not bool(torch.isfinite(t).all()))
+        bad = sorted(numguard.nonfinite_paths(tensors))
         if bad:
             raise NonFiniteError(f"refusing to save a non-finite state at iteration {step}: {bad}")
         tmp = os.path.join(self.directory, f".{step}.tmp")

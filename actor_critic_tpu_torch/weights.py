@@ -57,6 +57,25 @@ def from_flax(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     return state
 
 
+def to_flax(module: torch.nn.Module) -> dict[str, Any]:
+    """The inverse of `from_flax`: `module`'s parameters as a flax tree of
+    numpy arrays, `{"params": {<module path>: {"kernel", "bias"}, ...}}`
+    (a Linear weight transposed to [in, out] and a Conv2d weight permuted to
+    [kh, kw, in, out], C-contiguous float32, as flax stores them)."""
+    tree: dict[str, Any] = {}
+    for name, p in module.named_parameters():
+        *path, leaf = name.split(".")
+        arr = p.detach().cpu().numpy()
+        if leaf == "weight":
+            leaf = "kernel"
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.array(arr, dtype=np.float32, order="C")
+    return {"params": tree}
+
+
 def _find_state(opt_state: Any, match) -> Any:
     stack = [opt_state]
     while stack:

@@ -109,6 +109,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      on both planes (every actor pool's stats, the ring's stats at int8):
      the round trip at 0.0, a resume of a complete run starting no actor,
      a resume that trains on;
+   - policy serving: `PolicyEngine` at full width for `ppo_cartpole` and
+     the policies of `ppo_halfcheetah`, `td3_walker2d` (HalfCheetah-v5's and
+     Walker2d-v5's shapes: 17 obs, 6 actions) and `sac_humanoid`
+     (Humanoid-v5's: 348, 17), every bucket 1..64 one CUDA graph equal to
+     the eager act at 0.0 and timed against it, rows against batch-1,
+     batch-1 p50 / p99, `auto`'s choice and walls, the sampled stream
+     against its softmax; `python -m actor_critic_tpu_torch.serve
+     --preset ppo_cartpole --random-init --port 0` in a subprocess with
+     `--max-inflight` 1 and 2 and client threads here: mixed sizes at once
+     = the in-process batch-1 actions, HTTP batch-1 p50 / p99, rows/s of 16
+     clients, /healthz and /metrics (the SLO histograms), a /v1/swap from
+     an exported checkpoint and swaps under load with no torn (version,
+     actions); serve-while-training through `train.main --serve-port 0`:
+     async `ppo_halfcheetah` (2 actors, the device plane, V-trace: its
+     launches = consumed blocks) and `sac_humanoid` (one actor), polled by
+     a client process, versions monotone, the store at blocks + 1, the
+     served action = the learner's greedy act at 0.0, latency during
+     training against the idle gateway, consumed env-steps/s against the
+     async phase's run without the sidecar;
 6. a `{"kernels": [...]}` line (each kernel's launches on every main path
    that runs it under `launches_by_path`), then the card's name and power
    limit;
@@ -1849,8 +1868,11 @@ ASYNC_LOCKSTEP_ITERATIONS = 5    # two eager, a capture, replays
 # fleet's 10,000 collected env steps open the gate by block ~3-20 on the
 # host plane (its actor outruns the learner by 8-100 blocks to one, with
 # the GIL deciding) and by block ~25-28 on the device plane.
-ASYNC_OFFPOLICY_BLOCKS = 48
+ASYNC_OFFPOLICY_BLOCKS = {"host": 32, "device": 48}
 ASYNC_RESUME_BLOCKS = 4
+# Consumed env-steps/s of the async PPO phase's runs, by (plane, codec): the
+# serve-while-training phase's run without --serve-port.
+ASYNC_RATES: dict[tuple[str, str], float] = {}
 
 
 def host_pools(preset_name: str, env: str, actors: int):
@@ -1972,6 +1994,7 @@ def run_async_ppo(env: str) -> int:
         check_rows(logged, n)
         check_async_kernel_launches(logged, launches, n, 1)
         host_launches = host_launches if host_launches is not None else launches["vtrace"]
+        ASYNC_RATES[(plane, codec)] = consumed_rate(logged, summary)
         after = 2 * ASYNC_LOG_EVERY
         per_block, _ = per_iteration(logged, summary, after=ASYNC_LOG_EVERY)
         steps = logged[-1]["consumed_env_steps"] / logged[-1]["iter"]
@@ -2185,7 +2208,7 @@ def run_async_flags(env: str) -> None:
 def run_async_offpolicy(preset_name: str, env: str) -> None:
     """An off-policy preset at full width (E=1, so one actor; K=J=64, batch
     256, hidden (256, 256), a 1M ring) with `--async-actors 1` through
-    `train.main` for ASYNC_OFFPOLICY_BLOCKS consumed blocks on both planes:
+    `train.main` for ASYNC_OFFPOLICY_BLOCKS consumed blocks on each plane:
     the gate opens once the fleet has collected the preset's 10,000-step
     warm-up; updates/s over the blocks after it. Then the device plane's
     ingest + update graph against its eager run on one block at 0.0 (the
@@ -2194,9 +2217,9 @@ def run_async_offpolicy(preset_name: str, env: str) -> None:
 
     from actor_critic_tpu_torch import train
 
-    n = ASYNC_OFFPOLICY_BLOCKS
     mod = train.ALGOS[train.PRESETS[preset_name].algo]
     for plane in ("host", "device"):
+        n = ASYNC_OFFPOLICY_BLOCKS[plane]
         t0 = time.perf_counter()
         logged, summary, launches = drive(
             ["--preset", preset_name, "--env", env, "--async-actors", "1", "--iterations", str(n),
@@ -2342,6 +2365,575 @@ def run_async_resume(env: str) -> None:
 
 
 
+# -- policy serving ---------------------------------------------------------
+
+# The presets served at full width; the MuJoCo envs' shapes (the card's
+# machine has no MuJoCo): HalfCheetah-v5 and Walker2d-v5 17 obs and 6
+# actions, Humanoid-v5 348 and 17.
+SERVE_SHAPES = {"ppo_cartpole": None, "ppo_halfcheetah": (17, 6), "td3_walker2d": (17, 6),
+                "sac_humanoid": (348, 17)}
+SERVE_CALLS = 200             # timed acts a bucket and way (graph, eager)
+SERVE_LATENCY_CALLS = 1000    # batch-1 acts for p50 / p99 through engine.act
+SERVE_HTTP_CALLS = 500        # batch-1 requests for p50 / p99 through HTTP
+SERVE_LOAD_S = 3.0            # seconds of mixed-size load for rows/s
+SERVE_CLIENTS = 16            # concurrent clients of the load and the checks
+SERVE_MIXED_SIZES = (1, 3, 2, 1, 4, 6, 8, 2, 5, 1, 7, 3, 2, 6, 1, 4)
+SERVE_SWAPS = 4               # checkpoints swapped in under load (versions 2..5)
+SERVE_TRAIN_BLOCKS = 12       # serve-while-training: consumed blocks
+SERVE_POLL_CLIENTS = 2        # clients polling the sidecar back to back
+SERVE_SAC_WARMUP = 256        # env steps: the SAC learner updates from block 5 on
+
+
+def serve_spec(preset_name: str):
+    from actor_critic_tpu_torch.config import PRESETS
+    from actor_critic_tpu_torch.envs.env import EnvSpec
+    from actor_critic_tpu_torch.train import make_env
+
+    preset = PRESETS[preset_name]
+    shape = SERVE_SHAPES[preset_name]
+    if shape is None:
+        return make_env(preset.env, preset.env_kwargs).spec, preset
+    return EnvSpec(obs_shape=(shape[0],), action_dim=shape[1], discrete=False), preset
+
+
+def percentiles_ms(walls: list[float]) -> str:
+    import numpy as np
+
+    ms = np.asarray(walls) * 1e3
+    return f"p50 {np.percentile(ms, 50):.4f} ms, p99 {np.percentile(ms, 99):.4f} ms"
+
+
+def timed_calls(fn, n: int) -> list[float]:
+    fn()
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def check_serving_graphs() -> None:
+    """Each preset's policy at full width on the card through `PolicyEngine`
+    (the default buckets 1..64, one CUDA graph each, captured by `warm`):
+    every bucket's replay equals the eager act on the same lane buffers at
+    0.0, and its host time (staging in and out included) beside the eager
+    act's; a row's action at every bucket against its batch-1 action
+    (equal bytes counted, the largest difference); batch-1 p50 / p99
+    through `engine.act`; the choice of `backend="auto"` and the two walls
+    it compared; for `ppo_cartpole` the sampled stream against the
+    policy's softmax."""
+    import numpy as np
+    import torch
+
+    from actor_critic_tpu_torch import serving, weights
+    from actor_critic_tpu_torch.serving import engine as engine_mod
+
+    for preset_name in SERVE_SHAPES:
+        spec, preset = serve_spec(preset_name)
+        cfg, algo = preset.config, preset.algo
+        engine = serving.PolicyEngine(spec, cfg, algo=algo, device="cuda")
+        params = engine.prepare_params(serving.init_params(spec, cfg, algo, seed=0))
+        t0 = time.perf_counter()
+        assert engine.warm(params) == len(engine.buckets)
+        capture_s = time.perf_counter() - t0
+        assert engine.graphs_captured == len(engine.buckets)
+        # torch hands out the 32 streams of a priority pool round robin: the
+        # engine's streams come from the high-priority pool, so no
+        # normal-priority stream (a learner's capture stream) is one of them.
+        pool = {torch.cuda.Stream().cuda_stream for _ in range(64)}
+        mine = {lane.stream.cuda_stream for lane in engine._lanes}
+        assert len(pool) <= 32 and not (mine & pool), (len(pool), mine & pool)
+        rng = np.random.default_rng(0)
+        obs64 = rng.normal(size=(engine.max_rows, *spec.obs_shape)).astype(np.float32)
+        solo = np.concatenate([engine.act(params, obs64[j:j + 1]) for j in range(len(obs64))])
+        lines = []
+        for b in engine.buckets:
+            obs = obs64[:b]
+            graph, eager = engine.act(params, obs), engine.eager_act(params, obs)
+            assert graph.dtype == eager.dtype and graph.shape == eager.shape == \
+                ((b,) if spec.discrete else (b, spec.action_dim))
+            diff = float(np.abs(graph.astype(np.float64) - eager).max())
+            assert diff == 0.0 and np.isfinite(graph).all(), (preset_name, b, diff)
+            g_ms = np.median(timed_calls(lambda: engine.act(params, obs), SERVE_CALLS)) * 1e3
+            e_ms = np.median(timed_calls(lambda: engine.eager_act(params, obs), SERVE_CALLS)) * 1e3
+            same = int(sum(graph[j].tobytes() == solo[j].tobytes() for j in range(b)))
+            cross = float(np.abs(graph.astype(np.float64) - solo[:b]).max())
+            lines.append(f"b={b}: graph = eager (max diff {diff}), graph {g_ms:.4f} ms / eager "
+                         f"{e_ms:.4f} ms a call (median, host clock, copies included); rows "
+                         f"equal to batch-1 {same}/{b} (max diff {cross:.3g})")
+        lat = timed_calls(lambda: engine.act(params, obs64[:1]), SERVE_LATENCY_CALLS)
+        torch_greedy = engine_mod.make_act_program(spec, cfg, algo)
+        net = engine_mod.make_actor(spec, cfg, algo).cuda()
+        net.load_state_dict(weights.from_flax(params))
+        with torch.no_grad():
+            own = torch_greedy(net, torch.from_numpy(obs64).cuda()).cpu().numpy()
+        assert own.tobytes() == engine.act(params, obs64).tobytes(), preset_name
+        auto = serving.PolicyEngine(spec, cfg, algo=algo, backend="auto", device="cuda")
+        choice = auto.resolve_backend(serving.init_params(spec, cfg, algo, seed=0))
+        print(f"serving {preset_name} ({algo}, obs {spec.obs_shape}, "
+              f"{'discrete' if spec.discrete else 'continuous'} {spec.action_dim}): "
+              f"warm captured {engine.graphs_captured} graphs in {capture_s:.2f} s on a "
+              f"high-priority stream (64 normal-priority streams made: {len(pool)} distinct); "
+              f"batch-1 "
+              f"engine.act {percentiles_ms(lat)} over {SERVE_LATENCY_CALLS}; the bucket-64 "
+              f"graph = the module's own eager act on the card; auto picks {choice} (batch-1 "
+              f"min of 7: device {auto.auto_choice['device_ms']:.4f} ms, mirror "
+              f"{auto.auto_choice['mirror_ms']:.4f} ms)", flush=True)
+        for line in lines:
+            print(f"  {preset_name} {line}", flush=True)
+    spec, preset = serve_spec("ppo_cartpole")
+    engine = serving.PolicyEngine(spec, preset.config, sample=True, buckets=(64,),
+                                  device="cuda")
+    tree = serving.init_params(spec, preset.config, seed=2)
+    tree["params"]["policy"]["kernel"] *= 200.0  # logits of order 1: a skewed softmax
+    params = engine.prepare_params(tree)
+    engine.warm(params)
+    obs = np.repeat(np.random.default_rng(4).normal(size=(1, 4)).astype(np.float32), 64, 0)
+    draws = np.concatenate([engine.act(params, obs) for _ in range(100)])
+    net = engine_mod.make_actor(spec, preset.config)
+    net.load_state_dict(weights.from_flax(tree))
+    probs = torch.softmax(net(torch.from_numpy(obs[:1]))[0].logits, -1)[0].detach().numpy()
+    freq = np.bincount(draws, minlength=spec.action_dim) / draws.size
+    assert np.abs(freq - probs).max() < 0.03, (freq, probs)
+    print(f"serving ppo_cartpole --sample on the card: {draws.size} draws from one lane's graph, "
+          f"frequencies {np.round(freq, 4).tolist()} against the softmax "
+          f"{np.round(probs, 4).tolist()}", flush=True)
+
+
+class ServeProcess:
+    """`python -m actor_critic_tpu_torch.serve` in a subprocess, its URL read
+    from its output; `stop()` sends SIGINT and waits for exit 0."""
+
+    def __init__(self, argv: list[str]):
+        import os
+        import signal
+
+        self.signal = signal.SIGINT
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "actor_critic_tpu_torch.serve", *argv],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env={**os.environ, "PYTHONPATH": os.getcwd()})
+        self.lines: list[str] = []
+        self.url = None
+        deadline = time.monotonic() + 180
+        while self.url is None and time.monotonic() < deadline:
+            line = self.proc.stdout.readline()
+            if not line:
+                break
+            self.lines.append(line.rstrip())
+            if line.startswith("serving gateway: "):
+                self.url = line.split()[2].removesuffix("/v1/act")
+        if self.url is None:
+            self.kill()
+            raise RuntimeError("the serve CLI did not come up:\n" + "\n".join(self.lines))
+
+    def stop(self) -> None:
+        self.proc.send_signal(self.signal)
+        rc = self.proc.wait(timeout=30)
+        self.lines += self.proc.stdout.read().splitlines()
+        assert rc == 0, (rc, self.lines[-5:])
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+
+
+def http_json(url: str, body=None, timeout: float = 30.0):
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    try:
+        with urllib.request.urlopen(urllib.request.Request(url, data=data),
+                                    timeout=timeout) as r:
+            raw, status = r.read(), r.status
+    except urllib.error.HTTPError as e:
+        raw, status = e.read(), e.code
+    try:
+        return status, json.loads(raw)
+    except ValueError:
+        return status, raw.decode()
+
+
+class KeepAlive:
+    """One HTTP/1.1 connection with TCP_NODELAY, for back-to-back requests."""
+
+    def __init__(self, url: str):
+        import http.client
+        import socket
+
+        host, port = url.removeprefix("http://").split(":")
+        self.conn = http.client.HTTPConnection(host, int(port), timeout=30)
+        self.conn.connect()
+        self.conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+
+    def post(self, path: str, body: dict) -> dict:
+        self.conn.request("POST", path, json.dumps(body), {"Content-Type": "application/json"})
+        r = self.conn.getresponse()
+        out = json.loads(r.read())
+        assert r.status == 200, (r.status, out)
+        return out
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def run_threads(fn, n: int, timeout: float = 120.0) -> list:
+    """`fn(i)` on `n` threads; their results (a raised exception re-raised)."""
+    import threading
+
+    out: list = [None] * n
+
+    def target(i):
+        try:
+            out[i] = ("ok", fn(i))
+        except BaseException as e:  # noqa: BLE001 — re-raised on the caller's thread
+            out[i] = ("error", e)
+
+    threads = [threading.Thread(target=target, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+    assert not any(t.is_alive() for t in threads), "a client thread hung"
+    for kind, value in out:
+        if kind == "error":
+            raise value
+    return [value for _, value in out]
+
+
+def run_serve_cli() -> None:
+    """`python -m actor_critic_tpu_torch.serve --preset ppo_cartpole
+    --random-init --port 0` (full width, the default buckets 1..64) in a
+    subprocess with `--max-inflight` 1 and 2, driven by this process's
+    client threads: /healthz 200; mixed sizes from 16 clients at once, every
+    row equal to the in-process engine's batch-1 action; batch-1 p50 / p99
+    through HTTP on a kept-alive connection; rows/s of 16 clients sending
+    mixed sizes for SERVE_LOAD_S; /metrics with the SLO histograms; a
+    /v1/swap from an exported checkpoint, then SERVE_SWAPS more under load,
+    every response's (version, actions) equal to that version's own act."""
+    import os
+
+    import numpy as np
+
+    from actor_critic_tpu_torch import serving
+
+    spec, preset = serve_spec("ppo_cartpole")
+    engine = serving.PolicyEngine(spec, preset.config, device="cuda")
+    versions = {v: serving.init_params(spec, preset.config, seed=v)
+                for v in range(SERVE_SWAPS + 2)}
+    ckpts = {}
+    for v in range(1, SERVE_SWAPS + 2):
+        ckpts[v] = os.path.abspath(f"{SCRATCH}/serve_ck/v{v}")
+        serving.export_policy_params(ckpts[v], versions[v])
+    prepared = {v: engine.prepare_params(p) for v, p in versions.items()}
+    rng = np.random.default_rng(0)
+    payloads = [rng.normal(size=(n, 4)).astype(np.float32) for n in SERVE_MIXED_SIZES]
+    batch16 = rng.normal(size=(16, 4)).astype(np.float32)
+    expect = {v: engine.act(p, batch16) for v, p in prepared.items()}
+    for inflight in (1, 2):
+        server = ServeProcess(["--preset", "ppo_cartpole", "--random-init", "--port", "0",
+                               "--max-inflight", str(inflight), "--slo-ms", "50"])
+        try:
+            assert http_json(server.url + "/healthz")[0] == 200
+
+            def mixed(i):
+                status, body = http_json(server.url + "/v1/act", {"obs": payloads[i].tolist()})
+                assert status == 200 and body["version"] == 0, body
+                return np.asarray(body["actions"])
+
+            answers = run_threads(mixed, len(payloads))
+            rows = 0
+            for i, got in enumerate(answers):
+                for j in range(len(got)):
+                    solo = engine.act(prepared[0], payloads[i][j:j + 1])
+                    assert got[j] == solo[0], (i, j)
+                    rows += 1
+            conn = KeepAlive(server.url)
+            obs1 = payloads[0][:1].tolist()
+            lat = timed_calls(lambda: conn.post("/v1/act", {"obs": obs1}), SERVE_HTTP_CALLS)
+            conn.close()
+            stop_at = time.perf_counter() + SERVE_LOAD_S
+
+            def load(i):
+                c = KeepAlive(server.url)
+                n = k = 0
+                while time.perf_counter() < stop_at:
+                    body = c.post("/v1/act", {"obs": payloads[(i + k) % len(payloads)].tolist()})
+                    n += len(body["actions"])
+                    k += 1
+                c.close()
+                return n
+
+            t0 = time.perf_counter()
+            load_rows = sum(run_threads(load, SERVE_CLIENTS))
+            load_s = time.perf_counter() - t0
+            status, text = http_json(server.url + "/metrics")
+            assert status == 200 and 'actor_critic_serving_latency_ms_bucket{policy="default",' \
+                'le="+Inf"}' in text and "actor_critic_serving_slo_burn_default" in text, text
+            gauges = dict(line.rsplit(" ", 1) for line in text.splitlines()
+                          if line.startswith("actor_critic_serving_") and "{" not in line)
+            status, body = http_json(server.url + "/v1/swap",
+                                     {"policy": "default", "checkpoint": ckpts[1]})
+            assert status == 200 and body["version"] == 1, body
+            status, body = http_json(server.url + "/v1/act", {"obs": batch16.tolist()})
+            assert body["version"] == 1 and np.array_equal(body["actions"], expect[1]), body
+            import threading
+
+            stop = threading.Event()
+
+            def swapped_load(i):
+                c = KeepAlive(server.url)
+                pairs = []
+                while not stop.is_set():
+                    body = c.post("/v1/act", {"obs": batch16.tolist()})
+                    pairs.append((body["version"], body["actions"]))
+                c.close()
+                return pairs
+
+            clients = threading.Thread(target=lambda: pairs_out.extend(
+                run_threads(swapped_load, 4)))
+            pairs_out: list = []
+            clients.start()
+            for v in range(2, SERVE_SWAPS + 2):
+                time.sleep(0.2)
+                status, body = http_json(server.url + "/v1/swap",
+                                         {"policy": "default", "checkpoint": ckpts[v]})
+                assert status == 200 and body["version"] == v, body
+            time.sleep(0.2)
+            stop.set()
+            clients.join(60)
+            assert not clients.is_alive() and len(pairs_out) == 4
+            seen = set()
+            for pairs in pairs_out:
+                got = [v for v, _ in pairs]
+                assert got == sorted(got), got
+                for v, actions in pairs:
+                    assert np.array_equal(actions, expect[v]), ("torn", v)
+                    seen.add(v)
+            assert max(seen) == SERVE_SWAPS + 1 and len(seen) >= 3, seen
+            n_pairs = sum(len(p) for p in pairs_out)
+            server.stop()
+        finally:
+            server.kill()
+        print(f"serve CLI ppo_cartpole --max-inflight {inflight}: {rows} rows of "
+              f"{len(payloads)} concurrent mixed-size requests = the in-process batch-1 "
+              f"actions; batch-1 through HTTP {percentiles_ms(lat)} over {SERVE_HTTP_CALLS} "
+              f"(kept-alive, client clock, the default 2000 us window); {SERVE_CLIENTS} clients of mixed sizes 1-8: "
+              f"{load_rows / load_s:.0f} rows/s over {load_s:.2f} s (gateway: occupancy "
+              f"{gauges.get('actor_critic_serving_batch_occupancy')}, flushes "
+              f"{gauges.get('actor_critic_serving_flushes_total')}, requests "
+              f"{gauges.get('actor_critic_serving_requests_total')}, p99 "
+              f"{gauges.get('actor_critic_serving_latency_p99_ms')} ms); /v1/swap to v1 and "
+              f"{SERVE_SWAPS} swaps under 4 clients' load: {n_pairs} responses, versions "
+              f"{sorted(seen)}, none torn", flush=True)
+
+
+# The sidecar's clients, in a process of their own as real clients are: N
+# threads post one request each back to back on kept-alive connections until
+# their stdin closes (or the gateway does), then print every (version,
+# actions, seconds) as JSON.
+POLL_CLIENT = r"""
+import http.client, json, socket, sys, threading, time
+url, body, n = sys.argv[1], sys.argv[2], int(sys.argv[3])
+host, port = url.removeprefix("http://").split(":")
+stop = threading.Event()
+out = [[] for _ in range(n)]
+failed = []
+def poll(i):
+    try:
+        c = http.client.HTTPConnection(host, int(port), timeout=60)
+        c.connect()
+        c.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            c.request("POST", "/v1/act", body, {"Content-Type": "application/json"})
+            r = c.getresponse()
+            b = json.loads(r.read())
+            if r.status != 200:
+                failed.append([r.status, str(b)[:300]])
+                continue
+            out[i].append([b["version"], b["actions"], time.perf_counter() - t0])
+    except (OSError, http.client.HTTPException, ValueError) as e:
+        if not stop.is_set():
+            failed.append([None, repr(e)[:300]])
+threads = [threading.Thread(target=poll, args=(i,)) for i in range(n)]
+for t in threads:
+    t.start()
+sys.stdin.read()
+stop.set()
+for t in threads:
+    t.join(90)
+print(json.dumps({"polls": out, "failed": failed}))
+"""
+
+
+class SidecarProbe:
+    """Wraps `train.start_serving_sidecar`: records the store, times
+    SERVE_HTTP_CALLS requests against the idle gateway, then starts a client
+    process (POLL_CLIENT) of SERVE_POLL_CLIENTS threads that request back to
+    back until `finish`, which collects their (version, actions, seconds)."""
+
+    def __init__(self, obs):
+        self.obs = obs
+        self.store = None
+        self.idle: list[float] = []
+        self.polls: list[list] = []
+        self.failed: list = []
+        self.gateway = None
+        self.proc = None
+
+    def wrap(self, start):
+        def start_serving_sidecar(*a, **k):
+            gateway, learner_kwargs = start(*a, **k)
+            self.store, self.gateway = gateway.store, gateway
+            conn = KeepAlive(gateway.url)
+            self.idle = timed_calls(lambda: conn.post("/v1/act", {"obs": self.obs.tolist()}),
+                                    SERVE_HTTP_CALLS)
+            conn.close()
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", POLL_CLIENT, gateway.url,
+                 json.dumps({"obs": self.obs.tolist()}), str(SERVE_POLL_CLIENTS)],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+            close = gateway.close
+
+            def close_after_clients():
+                # The clients stop before the gateway closes (training
+                # over), so every failure they saw is a real one.
+                self.finish()
+                close()
+
+            gateway.close = close_after_clients
+            return gateway, learner_kwargs
+
+        return start_serving_sidecar
+
+    def finish(self) -> None:
+        if self.proc is None or self.proc.returncode is not None:
+            return
+        try:
+            out, _ = self.proc.communicate(timeout=60)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+        assert self.proc.returncode == 0, self.proc.returncode
+        got = json.loads(out)
+        self.polls = [[tuple(x) for x in polls] for polls in got["polls"]]
+        self.failed = got["failed"]
+
+
+def serve_drive(argv: list[str], mod, module_of) -> tuple:
+    """`drive(argv + --serve-port 0)` with a `SidecarProbe` on the sidecar and
+    the learner's final module captured from `mod.train_host_async`'s return
+    (`module_of(returned)`): (logged, summary, launches, probe, module)."""
+    import numpy as np
+
+    from actor_critic_tpu_torch import train
+
+    probe = SidecarProbe(np.random.default_rng(0).normal(size=(16, 3)).astype(np.float32))
+    learned = {}
+    start, run = train.start_serving_sidecar, mod.train_host_async
+
+    def capture(*a, **k):
+        out = run(*a, **k)
+        learned["module"] = module_of(out)
+        return out
+
+    train.start_serving_sidecar, mod.train_host_async = probe.wrap(start), capture
+    try:
+        logged, summary, launches = drive(argv + ["--serve-port", "0"],
+                                          show_every=ASYNC_LOG_EVERY)
+    finally:
+        train.start_serving_sidecar, mod.train_host_async = start, run
+        probe.finish()
+    return logged, summary, launches, probe, learned["module"]
+
+
+def consumed_rate(logged: list[dict], summary: dict) -> float:
+    """Consumed env-steps/s of an async run over its logged blocks from
+    ASYNC_LOG_EVERY on (the replays)."""
+    per_block, _ = per_iteration(logged, summary, after=ASYNC_LOG_EVERY)
+    return logged[-1]["consumed_env_steps"] / logged[-1]["iter"] / per_block
+
+
+def run_serve_while_training(env: str, without: float | None = None) -> int:
+    """Serve-while-training on the card through `train.main`:
+    `ppo_halfcheetah --async-actors 2 --data-plane device --async-correction
+    vtrace --serve-port 0` for SERVE_TRAIN_BLOCKS consumed blocks, the
+    sidecar polled by a client process of SERVE_POLL_CLIENTS threads back
+    to back: V-trace's launches counted on the card equal to the consumed
+    blocks, versions monotone, the store at blocks + 1, the served action
+    then equal to the learner's own greedy act on its final parameters at
+    0.0, p50 / p99 during training against the idle gateway, consumed
+    env-steps/s against `without` (the same run without `--serve-port`:
+    the async PPO phase's device-plane fp32 run, else run here); then
+    `sac_humanoid` with one actor likewise. Returns V-trace's launches on
+    the serving PPO run."""
+    from actor_critic_tpu_torch.algos import ppo, sac
+
+    base = ["--env", env, "--iterations", str(SERVE_TRAIN_BLOCKS), "--log-every",
+            str(ASYNC_LOG_EVERY), "--seed", "0", "--data-plane", "device"]
+    ppo_argv = ["--preset", "ppo_halfcheetah", "--async-actors", str(ASYNC_ACTORS),
+                "--async-correction", "vtrace", *base]
+    if without is None:
+        without = consumed_rate(*drive(ppo_argv, show_every=ASYNC_LOG_EVERY)[:2])
+    logged, summary, launches, probe, net = serve_drive(ppo_argv, ppo, lambda out: out[0])
+    check_async_kernel_launches(logged, launches, SERVE_TRAIN_BLOCKS, 1)
+    busy = check_sidecar(probe, net, "ppo_halfcheetah", SERVE_TRAIN_BLOCKS,
+                         lambda net, o: net(o)[0].mode())
+    print(f"serve-while-training ppo_halfcheetah on {env} (device plane, V-trace): "
+          f"V-trace launches {launches['vtrace']} in {SERVE_TRAIN_BLOCKS} blocks; consumed "
+          f"env-steps/s over blocks {ASYNC_LOG_EVERY}-{SERVE_TRAIN_BLOCKS} "
+          f"{consumed_rate(logged, summary):.0f} with the sidecar ({SERVE_POLL_CLIENTS} clients "
+          f"back to back), {without:.0f} without; eager block 1 {logged[0]['wall_s']:.2f} s; "
+          f"{busy}", flush=True)
+    logged, summary, sac_launches, probe, actor = serve_drive(
+        ["--preset", "sac_humanoid", "--async-actors", "1", "--set",
+         f"warmup_steps={SERVE_SAC_WARMUP}", *base], sac, lambda out: out[0].actor)
+    assert sac_launches == {"gae": 0, "vtrace": 0}, sac_launches
+    busy = check_sidecar(probe, actor, "sac_humanoid", SERVE_TRAIN_BLOCKS,
+                         lambda actor, o: actor(o).mode())
+    print(f"serve-while-training sac_humanoid on {env} (device plane, one actor, warm-up "
+          f"{SERVE_SAC_WARMUP} env steps): eager block 1 {logged[0]['wall_s']:.2f} s; {busy}",
+          flush=True)
+    return launches["vtrace"]
+
+
+def check_sidecar(probe: SidecarProbe, module, label: str, blocks: int, greedy) -> str:
+    """The sidecar's contract after a run: each client's versions monotone,
+    the store at blocks + 1, its handle's served action (the bucket's graph)
+    equal to `greedy(module, obs)` on the card at 0.0; returns the latency
+    line."""
+    import numpy as np
+    import torch
+
+    walls = [s for polls in probe.polls for _, _, s in polls]
+    metrics = probe.gateway.batcher.metrics.snapshot()
+    assert not probe.failed and metrics["errors_total"] == metrics["shed_total"] == 0, \
+        (label, probe.failed[:3], len(probe.failed), metrics)
+    assert walls, "no request was served during training"
+    seen = sorted({v for polls in probe.polls for v, _, _ in polls})
+    for polls in probe.polls:
+        got = [v for v, _, _ in polls]
+        assert got == sorted(got), got
+    assert probe.store.ids() == {"learner": blocks + 1}, probe.store.ids()
+    handle = probe.store.get("learner")
+    served = handle.engine.act(handle.params, probe.obs)
+    with torch.no_grad():
+        own = greedy(module, torch.from_numpy(probe.obs).cuda()).cpu().numpy()
+    diff = float(np.abs(served - own).max())
+    assert diff == 0.0, (label, diff)
+    return (f"{len(walls)} requests during training over versions {seen[0]}..{seen[-1]} "
+            f"({len(seen)} distinct), monotone; store at {blocks + 1}; final served action = "
+            f"the learner's greedy act (max diff {diff}); {len(probe.obs)}-row requests "
+            f"during training {percentiles_ms(walls)}, max {max(walls) * 1e3:.1f} ms (flushes "
+            f"wait while the learner's update is eager or captured), idle gateway "
+            f"{percentiles_ms(probe.idle)}")
+
+
 def phase(label: str, fn, *args, **kwargs):
     """`fn(*args, **kwargs)`, its host seconds printed after it as `phase
     <label>: <s> s` (the script's time budget is read off these lines)."""
@@ -2416,6 +3008,10 @@ def main() -> int:
     for preset_name in OFFPOLICY_PRESETS:
         phase(f"async {preset_name}", run_async_offpolicy, preset_name, host_envs[preset_name])
     phase("async resume", run_async_resume, host_envs["ppo_halfcheetah"])
+    phase("serving graphs", check_serving_graphs)
+    phase("serve CLI", run_serve_cli)
+    serve_vtrace = phase("serve while training", run_serve_while_training,
+                         host_envs["ppo_halfcheetah"], ASYNC_RATES[("device", "fp32")])
     phase("IMPALA learns", check_impala_learns)
     phase("profile a2c_cartpole", profile_step, "a2c_cartpole")
     # One step each way for the steps of ~21,000–24,000 launches: the
@@ -2426,7 +3022,8 @@ def main() -> int:
     phase("profile sac_humanoid", profile_step, "sac_humanoid", n=1, env_spec=OFFPOLICY_ENV)
     by_path = {"gae": {"a2c_cartpole": launches["gae"], "host ppo_halfcheetah": host_gae},
                "vtrace": {"impala_pong": launches["vtrace"],
-                          "async ppo_halfcheetah (host plane)": async_vtrace}}
+                          "async ppo_halfcheetah (host plane)": async_vtrace,
+                          "serve-while-training ppo_halfcheetah (device plane)": serve_vtrace}}
     for e in entries:
         e["launches"] = launches[e["name"]]
         e["launches_by_path"] = by_path[e["name"]]

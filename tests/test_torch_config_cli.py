@@ -23,7 +23,9 @@ JAX package's `config.py` and `train.py`:
 - the async actor-learner's seven flags (`--async-actors`,
   `--updates-per-block`, `--max-staleness`, `--queue-depth`,
   `--async-correction`, `--data-plane`, `--data-plane-codec`) each run
-  their path, and the JAX CLI's refusals around them exit as JAX's do.
+  their path, and the JAX CLI's refusals around them exit as JAX's do;
+  `--serve-port` without `--async-actors` exits as JAX's does (its runs:
+  tests/test_torch_serve_cli.py).
 """
 
 import dataclasses
@@ -441,7 +443,6 @@ def test_async_selections_that_exit_as_jax(argv, match):
 
 
 @pytest.mark.parametrize("flag,path", [("--workers", "the sharded host pool"),
-                                       ("--serve-port", "serving"),
                                        ("--distributed", "multi-GPU")])
 def test_later_paths_stay_refused_beside_async(flag, path, capsys):
     with pytest.raises(SystemExit):
@@ -449,6 +450,14 @@ def test_later_paths_stay_refused_beside_async(flag, path, capsys):
                     "--async-actors", "2", flag, "2", "--device", "cpu"])
     err = capsys.readouterr().err
     assert f"{flag} is not ported yet" in err and path in err
+
+
+def test_serve_port_without_async_actors_exits_as_jax():
+    """`--serve-port` (ported with serving) hooks the async learner's
+    publish: JAX's refusal without `--async-actors`, before any env work."""
+    with pytest.raises(SystemExit, match="--serve-port hooks the async learner"):
+        train.main(["--preset", "ppo_halfcheetah", "--env", "native:Pendulum-v1",
+                    "--serve-port", "0", "--serve-buckets", "1,4", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("value,algo,want", [(None, "ppo", 8), (None, "sac", None),

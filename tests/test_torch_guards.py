@@ -62,7 +62,14 @@ def test_import_scan_covers_every_module_of_the_port():
                  "actor_critic_tpu_torch/envs/sleep_pad.py",
                  "actor_critic_tpu_torch/data_plane/codecs.py",
                  "actor_critic_tpu_torch/data_plane/ring.py",
-                 "actor_critic_tpu_torch/data_plane/device_replay.py"):
+                 "actor_critic_tpu_torch/data_plane/device_replay.py",
+                 "actor_critic_tpu_torch/serve.py",
+                 "actor_critic_tpu_torch/serving/engine.py",
+                 "actor_critic_tpu_torch/serving/policy_store.py",
+                 "actor_critic_tpu_torch/serving/batcher.py",
+                 "actor_critic_tpu_torch/serving/gateway.py",
+                 "actor_critic_tpu_torch/telemetry/histo.py",
+                 "actor_critic_tpu_torch/utils/numguard.py"):
         assert name in scanned, name
 
 
