@@ -67,7 +67,8 @@ class A2CConfig:
     normalize_adv: bool = False
     # Huber value loss with this delta (<=0 keeps plain MSE).
     value_huber_delta: float = 0.0
-    # bfloat16 activations: not ported yet (make_network raises).
+    # bfloat16 activations and matmuls (--update-dtype bf16); parameters,
+    # optimizer state and every loss reduction stay float32.
     bf16_compute: bool = False
     # Linear annealing of lr → lr_final and entropy_coef →
     # entropy_coef_final over the first `anneal_iters` train steps (0 = off).

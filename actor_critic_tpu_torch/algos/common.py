@@ -33,7 +33,11 @@ import torch
 from torch import nn
 
 from actor_critic_tpu_torch.envs.env import EnvSpec, TorchEnv
-from actor_critic_tpu_torch.models.networks import ActorCriticDiscrete, ActorCriticGaussian
+from actor_critic_tpu_torch.models.networks import (
+    ActorCriticDiscrete,
+    ActorCriticGaussian,
+    shared_casts,
+)
 from actor_critic_tpu_torch.ops import gae_cuda, vtrace_cuda
 from actor_critic_tpu_torch.optim import AdamState, ClippedAdam, RMSPropState
 from actor_critic_tpu_torch.tree import named_leaves, tree_leaves, tree_map
@@ -229,6 +233,12 @@ def carried_tensors(state: Any) -> dict[str, torch.Tensor]:
     return out
 
 
+def compute_dtype(bf16_compute: bool) -> torch.dtype:
+    """The networks' compute dtype of a config's `bf16_compute` (the JAX
+    trainers' `dtype = jnp.bfloat16 if cfg.bf16_compute else jnp.float32`)."""
+    return torch.bfloat16 if bf16_compute else torch.float32
+
+
 def make_actor_critic(
     spec: EnvSpec, hidden: Sequence[int], bf16_compute: bool,
     generator: Optional[torch.Generator] = None,
@@ -236,13 +246,13 @@ def make_actor_critic(
     """The trainers' network, as the JAX trainers' `make_network` picks it:
     a shared-torso categorical net for discrete actions (the Nature CNN
     torso on pixel obs), separate actor and critic torsos with a Gaussian
-    head for continuous ones."""
-    if bf16_compute:
-        raise NotImplementedError("bf16_compute is not ported yet")
+    head for continuous ones; computing in bf16 with `bf16_compute`."""
+    dtype = compute_dtype(bf16_compute)
     if spec.discrete:
         return ActorCriticDiscrete(spec.obs_shape, spec.action_dim, hidden, generator,
-                                   pixel_obs=spec.pixel_obs)
-    return ActorCriticGaussian(spec.obs_shape[-1], spec.action_dim, hidden, generator)
+                                   pixel_obs=spec.pixel_obs, compute_dtype=dtype)
+    return ActorCriticGaussian(spec.obs_shape[-1], spec.action_dim, hidden, generator,
+                               compute_dtype=dtype)
 
 
 def init_rollout(env: TorchEnv, generator: torch.Generator, num_envs: int) -> RolloutState:
@@ -294,25 +304,27 @@ def rollout_loop(
     counterpart of `rollout_scan`). `net(obs) -> (dist, value)`; actions
     are sampled from `generator`. Returns time-major [T, E, ...] arrays and
     advances `rstate` in place: its obs and every leaf of its env state
-    take the values after the last step."""
+    take the values after the last step. A bf16 net's forwards share one
+    set of bf16 weight copies (`shared_casts`)."""
     env_state, obs = rstate.env_state, rstate.obs
     steps = []
-    for _ in range(num_steps):
-        dist, value = net(obs)
-        action = dist.sample(generator)
-        log_prob = dist.log_prob(action)
-        out = env.step(env_state, action, generator)
-        steps.append(Transition(
-            obs=obs,
-            action=action,
-            log_prob=log_prob,
-            value=value,
-            reward=out.reward,
-            done=out.done,
-            terminated=out.info["terminated"],
-            final_obs=out.info["final_obs"],
-        ))
-        env_state, obs = out.state, out.obs
+    with shared_casts(net):
+        for _ in range(num_steps):
+            dist, value = net(obs)
+            action = dist.sample(generator)
+            log_prob = dist.log_prob(action)
+            out = env.step(env_state, action, generator)
+            steps.append(Transition(
+                obs=obs,
+                action=action,
+                log_prob=log_prob,
+                value=value,
+                reward=out.reward,
+                done=out.done,
+                terminated=out.info["terminated"],
+                final_obs=out.info["final_obs"],
+            ))
+            env_state, obs = out.state, out.obs
     # Stacked before the copy: the first step's obs is `rstate.obs` itself.
     traj = Transition(*(torch.stack(field) for field in zip(*steps)))
     for buf, new in zip(tree_leaves(rstate), tree_leaves(RolloutState(env_state, obs)),
@@ -341,23 +353,25 @@ def offpolicy_rollout(
     generator, env_steps) -> action` owns the exploration policy (noise,
     the warm-up's uniform actions), given the env-step count before the
     step. Returns time-major [K, E, ...] transitions and advances `rstate`
-    and `env_steps` (0-dim, saturating at `ENV_STEPS_SATURATE`) in place."""
+    and `env_steps` (0-dim, saturating at `ENV_STEPS_SATURATE`) in place.
+    A bf16 actor's forwards share one set of bf16 weight copies."""
     env_state, obs = rstate.env_state, rstate.obs
     steps_now = env_steps
     steps = []
-    for _ in range(num_steps):
-        action = act_fn(actor, obs, generator, steps_now)
-        out = env.step(env_state, action, generator)
-        steps.append(OffPolicyTransition(
-            obs=obs,
-            action=action,
-            reward=out.reward,
-            next_obs=out.info["final_obs"],
-            terminated=out.info["terminated"],
-            done=out.done,
-        ))
-        steps_now = torch.clamp(steps_now + obs.shape[0], max=ENV_STEPS_SATURATE)
-        env_state, obs = out.state, out.obs
+    with shared_casts(actor):
+        for _ in range(num_steps):
+            action = act_fn(actor, obs, generator, steps_now)
+            out = env.step(env_state, action, generator)
+            steps.append(OffPolicyTransition(
+                obs=obs,
+                action=action,
+                reward=out.reward,
+                next_obs=out.info["final_obs"],
+                terminated=out.info["terminated"],
+                done=out.done,
+            ))
+            steps_now = torch.clamp(steps_now + obs.shape[0], max=ENV_STEPS_SATURATE)
+            env_state, obs = out.state, out.obs
     # Stacked before the copies: the first step's obs is `rstate.obs` itself.
     traj = OffPolicyTransition(*(torch.stack(field) for field in zip(*steps)))
     for buf, new in zip(tree_leaves(rstate), tree_leaves(RolloutState(env_state, obs)),

@@ -47,6 +47,7 @@ from actor_critic_tpu_torch.algos.common import (
     OffPolicyState,
     OffPolicyTransition,
     advance,
+    compute_dtype,
     fold_episodes,
     init_rollout,
     make_greedy_eval,
@@ -84,7 +85,8 @@ class DDPGConfig:
     policy_delay: int = 1
     target_noise: float = 0.0       # target-policy smoothing std
     target_noise_clip: float = 0.5
-    # bfloat16 activations: not ported yet (make_networks raises).
+    # bfloat16 activations and matmuls (--update-dtype bf16); parameters,
+    # targets and Adam state stay float32.
     bf16_compute: bool = False
     # n-step TD targets over windows of consecutive inserts (needs E == 1).
     nstep: int = 1
@@ -128,12 +130,11 @@ def make_networks(
     obs_dim: int, action_dim: int, cfg: DDPGConfig, generator: Optional[torch.Generator] = None
 ) -> tuple[DeterministicActor, Union[QFunction, TwinQ]]:
     """The actor and the critic (twin with `twin_q`), weights drawn from
-    `generator` in that order."""
-    if cfg.bf16_compute:
-        raise NotImplementedError("bf16_compute is not ported yet")
-    actor = DeterministicActor(obs_dim, action_dim, cfg.hidden, generator)
+    `generator` in that order, both computing in bf16 with `bf16_compute`."""
+    dtype = compute_dtype(cfg.bf16_compute)
+    actor = DeterministicActor(obs_dim, action_dim, cfg.hidden, generator, dtype)
     critic_cls = TwinQ if cfg.twin_q else QFunction
-    return actor, critic_cls(obs_dim, action_dim, cfg.hidden, generator)
+    return actor, critic_cls(obs_dim, action_dim, cfg.hidden, generator, dtype)
 
 
 def example_transition(obs_shape: tuple[int, ...], action_dim: int,

@@ -78,7 +78,8 @@ class ImpalaConfig:
     # RMSProp decay/epsilon: the IMPALA paper's published settings.
     rms_decay: float = 0.99
     rms_eps: float = 0.1
-    # bfloat16 activations: not ported yet (make_network raises).
+    # bfloat16 activations and matmuls (--update-dtype bf16); parameters,
+    # optimizer state and every loss reduction stay float32.
     bf16_compute: bool = False
 
     def __post_init__(self):

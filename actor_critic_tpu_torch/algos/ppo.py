@@ -82,7 +82,8 @@ class PPOConfig:
     max_grad_norm: float = 0.5
     hidden: tuple[int, ...] = (64, 64)
     normalize_adv: bool = True
-    # bfloat16 activations: not ported yet (make_network raises).
+    # bfloat16 activations and matmuls (--update-dtype bf16); parameters,
+    # optimizer state and every loss reduction stay float32.
     bf16_compute: bool = False
     # Linear annealing over the first `anneal_iters` iterations (0 = off):
     # lr → lr_final (per optimizer step, scaled by epochs×minibatches),

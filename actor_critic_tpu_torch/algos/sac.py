@@ -33,7 +33,7 @@ import torch
 from torch import nn
 
 from actor_critic_tpu_torch import replay, resolve_device
-from actor_critic_tpu_torch.algos.common import OffPolicyState, make_greedy_eval
+from actor_critic_tpu_torch.algos.common import OffPolicyState, compute_dtype, make_greedy_eval
 from actor_critic_tpu_torch.algos.ddpg import (
     collect_and_insert,
     example_transition,
@@ -78,7 +78,8 @@ class SACConfig:
     # freezes α at that value (no temperature step).
     fixed_alpha: Optional[float] = None
     target_entropy: Optional[float] = None
-    # bfloat16 activations: not ported yet (make_networks raises).
+    # bfloat16 activations and matmuls (--update-dtype bf16); parameters,
+    # targets and Adam state stay float32.
     bf16_compute: bool = False
     # Replay storage codecs: "fp32" | "mixed" | "int8" (replay/quantize.py).
     replay_dtype: str = "fp32"
@@ -125,11 +126,10 @@ def make_networks(
     obs_dim: int, action_dim: int, cfg: SACConfig, generator: Optional[torch.Generator] = None
 ) -> tuple[SquashedGaussianActor, TwinQ]:
     """The tanh-Gaussian actor and the twin critic, weights drawn from
-    `generator` in that order."""
-    if cfg.bf16_compute:
-        raise NotImplementedError("bf16_compute is not ported yet")
-    return (SquashedGaussianActor(obs_dim, action_dim, cfg.hidden, generator),
-            TwinQ(obs_dim, action_dim, cfg.hidden, generator))
+    `generator` in that order, both computing in bf16 with `bf16_compute`."""
+    dtype = compute_dtype(cfg.bf16_compute)
+    return (SquashedGaussianActor(obs_dim, action_dim, cfg.hidden, generator, dtype),
+            TwinQ(obs_dim, action_dim, cfg.hidden, generator, dtype))
 
 
 def init_learner(

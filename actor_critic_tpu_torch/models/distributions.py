@@ -53,6 +53,11 @@ class Categorical:
     def mode(self) -> torch.Tensor:
         return torch.argmax(self.logits, dim=-1)
 
+    def kl(self, other: "Categorical") -> torch.Tensor:
+        """KL(self ‖ other), summed over the event axis."""
+        lp, lq = self.log_probs, other.log_probs
+        return torch.sum(torch.exp(lp) * (lp - lq), dim=-1)
+
 
 class DiagGaussian:
     """Diagonal Gaussian over continuous actions; `mean` and `log_std` are

@@ -16,7 +16,9 @@ are run once and captured as CUDA graphs (`PolicyEngine.warm`, one set
 per `--max-inflight` lane) BEFORE the gateway binds. `--port 0` binds an
 OS-assigned port and prints the actual one. `--device cpu` serves from
 the CPU (eager acts); by default the card serves, and a run without one
-raises.
+raises. `--backend xla`, the JAX CLI's name for it, is `--backend device`.
+`--set bf16_compute=true` serves a bf16 policy: its act graphs run the
+trainer's bf16 network (the `mirror` backend stays float32, as JAX's).
 
 Not ported yet, refused with the ROADMAP item each belongs to: the
 telemetry and compile-cache flags (`--telemetry-dir`, `--telemetry-bind`,
@@ -47,6 +49,8 @@ UNPORTED_FLAGS = {
     "--sync-rank": "item 8, multi-GPU",
     "--sync-poll-s": "item 8, multi-GPU",
 }
+# The JAX CLI's backend names that the engine calls otherwise.
+BACKEND_ALIASES = {"xla": "device"}
 
 
 def spec_for(env: str, env_kwargs: dict):
@@ -141,10 +145,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--sample", action="store_true",
                    help="serve sampled (stochastic) actions instead of greedy (PPO only)")
     p.add_argument(
-        "--backend", choices=("device", "mirror", "auto"), default="device",
-        help="acting backend: 'device' (CUDA graphs on the card, eager on the CPU), 'mirror' "
-        "(MLP policies through the numpy host mirror, no device), 'auto' (measure batch-1 "
-        "walls of both at startup and keep the faster)")
+        "--backend", choices=("device", "xla", "mirror", "auto"), default="device",
+        help="acting backend: 'device' (CUDA graphs on the card, eager on the CPU; 'xla', the "
+        "JAX CLI's name and default, is the same), 'mirror' (MLP policies through the numpy "
+        "host mirror, no device), 'auto' (measure batch-1 walls of both at startup and keep "
+        "the faster)")
     p.add_argument(
         "--slo-ms", action="append", default=[], metavar="[ID=]MS",
         help="per-policy latency SLO class in ms (repeatable; plain MS applies to every policy "
@@ -153,7 +158,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     for flag in UNPORTED_FLAGS:
         p.add_argument(flag, nargs="?", action=_NotPorted, help=argparse.SUPPRESS)
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    # A JAX command line that spells out its default backend serves here too.
+    args.backend = BACKEND_ALIASES.get(args.backend, args.backend)
+    return args
 
 
 def build(args: argparse.Namespace):

@@ -9,6 +9,7 @@ its fused path):
     python -m actor_critic_tpu_torch.train --algo sac --env jax:pendulum
     python -m actor_critic_tpu_torch.train --preset td3_walker2d --env jax:pendulum \
         --replay-dtype mixed
+    python -m actor_critic_tpu_torch.train --preset impala_pong --update-dtype bf16
     python -m actor_critic_tpu_torch.train --list-presets
 
 The flags keep the JAX CLI's spelling and meaning: `--preset`, or `--algo`
@@ -29,7 +30,12 @@ thresholds, grammar `envs/mixture.py::parse_curriculum`; turns on
 `redraw_types` unless `--env-set` says otherwise; the stage rides the
 checkpoint); `--replay-dtype fp32|mixed|int8` (the off-policy trainers'
 ring codecs, `replay/quantize.py`; the same as `--set replay_dtype=...`,
-refused for an algorithm with no ring). `--device cpu` runs on the CPU;
+refused for an algorithm with no ring); `--update-dtype fp32|bf16` (the
+networks' compute precision, the same as `--set bf16_compute=...`: bf16
+matmuls, convolutions and activations with float32 master parameters,
+optimizer state and loss reductions, on every path, the served policy
+of `--serve-port` included; the host path's numpy mirrors act in
+float32, as JAX's do). `--device cpu` runs on the CPU;
 by default the run is on the card, where each iteration after the first
 two is a CUDA-graph replay
 (`algos/loop.py`) and each eval a replay of captured blocks
@@ -79,8 +85,8 @@ with the final parameters; `python -m actor_critic_tpu_torch.serve`
 serves checkpoints on their own.
 
 Not ported yet, and refused with a message that says so: `--workers` (the
-sharded host pool), bf16 compute, and the flags of the other paths that
-come later (`UNPORTED_FLAGS`).
+sharded host pool) and the flags of the other paths that come later
+(`UNPORTED_FLAGS`).
 """
 
 from __future__ import annotations
@@ -136,7 +142,6 @@ ALGOS = {"a2c": a2c, "ppo": ppo, "ddpg": ddpg, "td3": ddpg, "sac": sac,
 # belongs to (ROADMAP.md Queue 1). Each is refused with that message.
 UNPORTED_FLAGS = {
     "--workers": "the sharded host pool",
-    "--update-dtype": "bf16 compute",
     "--distributed": "multi-GPU",
     "--coordinator": "multi-GPU",
     "--num-processes": "multi-GPU",
@@ -330,6 +335,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--no-save-replay", action="store_true",
                    help="host off-policy trainers: checkpoints leave the replay ring out (a "
                    "resumed run refills an empty ring); the codecs' stats are kept")
+    p.add_argument(
+        "--update-dtype", choices=("fp32", "bf16"), default=None,
+        help="the networks' compute precision: 'bf16' runs the torso and head matmuls, "
+        "convolutions and activations in bfloat16, with parameters, optimizer state and "
+        "every loss reduction kept float32 (the heads cast their outputs up before the "
+        "loss); default fp32. The same as --set bf16_compute=true")
     p.add_argument("--quiet", action="store_true", help="no stdout metric echo")
     p.add_argument(
         "--scale-actions", action=argparse.BooleanOptionalAction, default=None,
@@ -733,6 +744,13 @@ def main(argv=None) -> int:
                 f"replay ring on the device; {preset.algo} has no replay storage")
         preset = dataclasses.replace(
             preset, config=dataclasses.replace(preset.config, replay_dtype=args.replay_dtype))
+    if args.update_dtype is not None:
+        if not hasattr(preset.config, "bf16_compute"):
+            raise SystemExit(
+                f"--update-dtype has no effect on {preset.algo}: its config carries no "
+                "bf16_compute switch")
+        preset = dataclasses.replace(preset, config=dataclasses.replace(
+            preset.config, bf16_compute=args.update_dtype == "bf16"))
     if args.iterations is None:
         args.iterations = preset.iterations
     if args.chunk < 1:

@@ -16,9 +16,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    paths' shapes (async PPO's [256, 4] and [256, 8] among them) and at
    boundary shapes (ragged strips, chunk boundaries
    in T, bases off 16 bytes), with its tolerance, and its time beside the
-   plain version's, the card's bound and the launch floor; then one A2C
-   update and one IMPALA update on the card against the same update on
-   the CPU;
+   plain version's, the card's bound and the launch floor; the precision
+   the card computes at (the port pins it where an entry point picks the
+   card: full float32 convolutions and products, bf16 products reduced
+   in float32): one IMPALA update at `impala_pong`'s full width on the
+   card against the CPU's under torch's default precision (TF32
+   convolutions) and under the pinned flags, and `impala_pong`'s ms a
+   graph replay under each; then one A2C update and one IMPALA update on
+   the card against the same update on the CPU, in float32 and in bf16
+   (`--update-dtype bf16`, at bf16's tolerances);
 4. graph equals eager: for `a2c_cartpole`, `ppo_cartpole`, `a2c_mixture`,
    `impala_pong` and `a3c_pong` at full width, a few iterations through
    the loop's CUDA-graph path against the same iterations run eagerly from
@@ -27,12 +33,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    the actors' copy and RMSProp's moments) and the generator's state; the
    same for the off-policy learners of `ddpg_walker2d`, `td3_walker2d` and
    `sac_humanoid` on `jax:pendulum` with the warm-up cut to 128 env steps
-   (8 iterations: the 1M ring, its stats, targets, every Adam state, log α;
+   (6 iterations: the 1M ring, its stats, targets, every Adam state, log α;
    the update gate must first open on a replayed iteration); then
    each eval as replays of captured blocks against the eager loop from one
    generator state (`a2c_cartpole`'s and `impala_pong`'s greedy evals,
    `a2c_mixture`'s greedy eval and its four typed evals through one set of
-   graphs), returns and generator states equal, times printed;
+   graphs), returns and generator states equal, times printed; in bf16,
+   graph against eager at 0.0 for `a2c_cartpole`, `ppo_cartpole`,
+   `impala_pong`, `a2c_mixture` and the `sac_humanoid` learner, the
+   advantage kernels launched once an iteration as in float32;
 5. main paths, each through `actor_critic_tpu_torch.train.main` with every
    launch count reset just before and read just after:
    - `a2c_cartpole` at full width (E=4096, T=64), GAE on its path, the
@@ -67,11 +76,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      updates at Humanoid-v5's shapes (obs 348, action 17) over a full 1M
      ring in fp32 and mixed as one captured graph (ms an update, launches,
      peak memory);
+   - `--update-dtype bf16` through `train.main`: the six fused presets
+     (the CUDA graph from iteration 3), host and async `ppo_halfcheetah`
+     and host and async `sac_humanoid` (the warm-up cut), GAE's and
+     V-trace's launches counted as in float32; the host PPO update's graph
+     against eager at 0.0 in bf16 (`HostContract`, the mirror acting in
+     float32); a bf16 served policy (`ppo_cartpole`, `ppo_halfcheetah`'s
+     shapes), every bucket's graph = its eager act at 0.0;
    then IMPALA's learning check on the two-state MDP, and where a train
    step's time goes for `a2c_cartpole`, `ppo_cartpole`, `a2c_mixture`,
    `impala_pong` and `sac_humanoid` on `jax:pendulum` (eager and as graph
    replays, in the same call; host clock and torch.profiler, V-trace's own
-   time inside the graph);
+   time inside the graph), each in float32 and then in bf16, with ms and
+   launches a step compared;
    - the host env path, on each preset's MuJoCo env or the engine's
      Pendulum (as the probe found): `ppo_halfcheetah` at full width (E=8,
      T=256, 10 × 32 minibatches) through `train.main`, the update one
@@ -146,6 +163,7 @@ import json
 import subprocess
 import sys
 import time
+from typing import Optional
 
 MAIN_PATH_ITERATIONS = 50
 PPO_ITERATIONS = 30      # tests/test_ppo.py's bar: best eval at 20/25/30 >= 400
@@ -438,27 +456,33 @@ def check_vtrace() -> dict:
 
 
 @contextlib.contextmanager
-def full_float32():
-    """Float32 matrix products and cuDNN convolutions in full float32 (no
-    TF32) inside the block; the flags as they were afterwards."""
+def precision_flags(tf32: bool, deterministic: bool):
+    """cuDNN's TF32 and deterministic-algorithm flags as given inside the
+    block (torch's defaults: True, False; with TF32, cuBLAS's bf16 products
+    are also let reduce in bf16, torch's default), the port's pinned flags
+    (`pin_precision`) again afterwards. Only for measuring what the pin
+    changes: single-threaded, outside the phases that capture beside
+    threads."""
     import torch
 
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    from actor_critic_tpu_torch import pin_precision
+
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cudnn.deterministic = deterministic
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = tf32
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+        pin_precision()
 
 
-def update_on_card_vs_cpu(mod, env, cfg, cpu, traj, param_atol: float, metric_keys,
-                          metric_atol: float, metric_rtol: float) -> tuple[float, dict, dict]:
-    """One `mod.update` on the card against the same update on the CPU
-    (the kernels' plain versions there), from a copy of the CPU train state
-    `cpu` and the rollout `traj`, with float32 products and convolutions in
-    full float32. Holds the parameters at `param_atol` + rtol 1e-6 and the
-    metrics `metric_keys` at their tolerances; returns (largest parameter
-    difference, CPU metrics, card metrics)."""
+def update_on_card_vs_cpu(mod, env, cfg, cpu, traj, default_precision: bool = False):
+    """One `mod.update` on the card against the same update on the CPU (the
+    kernels' plain versions there), from a copy of the CPU train state `cpu`
+    and the rollout `traj`; `cpu` itself takes the CPU's update. The card
+    runs with the port's pinned precision, or with torch's defaults
+    (`default_precision`). Returns ({name: (before, CPU after, card
+    after)}, CPU metrics, card metrics)."""
     import copy
 
     import torch
@@ -480,59 +504,119 @@ def update_on_card_vs_cpu(mod, env, cfg, cpu, traj, param_atol: float, metric_ke
             setattr(gpu.opt_state, f.name, v.cuda())
     # The update reads the next obs of the rollout state, not the env state.
     gpu.rollout = RolloutState(env_state=None, obs=gpu.rollout.obs.cuda())
-    with full_float32():
-        m_cpu = mod.update(env, cfg, mod.make_optimizer(cfg), cpu, traj)
+    before = {k: p.detach().clone() for k, p in cpu.net.named_parameters()}
+    m_cpu = mod.update(env, cfg, mod.make_optimizer(cfg), cpu, traj)
+    flags = precision_flags(tf32=True, deterministic=False) if default_precision else None
+    with flags or contextlib.nullcontext():
         m_gpu = mod.update(env, cfg, mod.make_optimizer(cfg), gpu,
                            Transition(*(x.cuda() for x in traj)))
         torch.cuda.synchronize()
-    worst = 0.0
-    for (k, pc), (_, pg) in zip(cpu.net.named_parameters(), gpu.net.named_parameters()):
-        torch.testing.assert_close(pg.detach().cpu(), pc.detach(), atol=param_atol, rtol=1e-6,
-                                   msg=lambda m, k=k: f"update on card, {k}: {m}")
-        worst = max(worst, float((pg.detach().cpu() - pc.detach()).abs().max()))
+    params = {k: (before[k], pc.detach(), pg.detach().cpu())
+              for (k, pc), (_, pg) in zip(cpu.net.named_parameters(), gpu.net.named_parameters(),
+                                          strict=True)}
+    return params, m_cpu, {k: v.cpu() for k, v in m_gpu.items()}
+
+
+def fp32_gaps(params: dict, m_cpu: dict, m_gpu: dict, metric_keys) -> tuple[float, float]:
+    """(largest parameter difference, largest relative metric difference)
+    of a card-against-CPU update."""
+    worst = max(float((pg - pc).abs().max()) for _, pc, pg in params.values())
+    rel = max(float((m_gpu[k] - m_cpu[k]).abs() / max(float(m_cpu[k].abs()), 1e-12))
+              for k in metric_keys)
+    return worst, rel
+
+
+def assert_fp32_update(label: str, params: dict, m_cpu: dict, m_gpu: dict, param_atol: float,
+                       metric_keys, metric_atol: float, metric_rtol: float) -> None:
+    import torch
+
+    for k, (_, pc, pg) in params.items():
+        torch.testing.assert_close(pg, pc, atol=param_atol, rtol=1e-6,
+                                   msg=lambda m, k=k: f"{label}, {k}: {m}")
     for k in metric_keys:
-        torch.testing.assert_close(m_gpu[k].cpu(), m_cpu[k], atol=metric_atol, rtol=metric_rtol,
-                                   msg=lambda m, k=k: f"update on card, metric {k}: {m}")
-    return worst, m_cpu, m_gpu
+        torch.testing.assert_close(m_gpu[k], m_cpu[k], atol=metric_atol, rtol=metric_rtol,
+                                   msg=lambda m, k=k: f"{label}, metric {k}: {m}")
 
 
-def check_update_on_card() -> None:
+# A bf16 update against the same update elsewhere (tests/test_torch_bf16.py
+# holds the port against JAX at these tolerances): the products round to
+# bf16 where the two sums differ in order, so gradients differ at bf16's
+# 8 bits and Adam's first steps (about lr·g/|g| each) by up to 2·lr where a
+# gradient element lies within that error of 0.
+BF16_STEP_MAX = 0.5        # of lr, any parameter after the update
+BF16_STEP_REL_L2 = 2e-2    # the whole update's (new − old) relative L2 difference
+BF16_METRIC_RTOL, BF16_METRIC_ATOL = 2e-2, 1e-3
+
+
+def assert_bf16_update(label: str, params: dict, m_cpu: dict, m_gpu: dict, lr: float,
+                       metric_keys) -> str:
+    """A bf16 update on the card against the CPU's at the bf16 tolerances;
+    returns the printed summary."""
+    import torch
+
+    before = torch.cat([b.double().ravel() for b, _, _ in params.values()])
+    cpu = torch.cat([c.double().ravel() for _, c, _ in params.values()])
+    gpu = torch.cat([g.double().ravel() for _, _, g in params.values()])
+    worst = float((gpu - cpu).abs().max()) / lr
+    rel = float(torch.linalg.norm(gpu - cpu) / torch.linalg.norm(cpu - before))
+    differ = int((gpu != cpu).sum())
+    for k in metric_keys:
+        torch.testing.assert_close(m_gpu[k], m_cpu[k], atol=BF16_METRIC_ATOL,
+                                   rtol=BF16_METRIC_RTOL,
+                                   msg=lambda m, k=k: f"{label}, metric {k}: {m}")
+    assert worst <= BF16_STEP_MAX and rel <= BF16_STEP_REL_L2, (label, worst, rel)
+    return (f"{differ} of {gpu.numel()} parameters differ, worst {worst:.4f}·lr (bound "
+            f"{BF16_STEP_MAX}), the update's relative L2 difference {rel:.5f} (bound "
+            f"{BF16_STEP_REL_L2})")
+
+
+A2C_METRICS = ("loss", "pg_loss", "v_loss", "entropy", "mean_finished_return")
+IMPALA_METRICS = ("loss", "pg_loss", "v_loss", "entropy", "mean_rho")
+
+
+def check_update_on_card(bf16: bool = False) -> None:
     """One A2C update on the card against the same update on the CPU (plain
-    GAE there), from the same state and rollout at a small size: the slice
-    as a whole, kernel included, gives the CPU's answer. Tolerance on the
-    parameters atol 1e-5·lr + rtol 1e-6 (see tests/test_torch_a2c.py), on
-    the loss metrics rtol 1e-5 (sums taken in another order)."""
+    GAE there), from the same state and rollout at a small size, with the
+    port's pinned precision: the slice as a whole, kernel included, gives
+    the CPU's answer. float32: parameters atol 1e-5·lr + rtol 1e-6 (see
+    tests/test_torch_a2c.py), loss metrics rtol 1e-5 (sums taken in another
+    order); bf16: the bf16 tolerances above."""
     from actor_critic_tpu_torch.algos import a2c
     from actor_critic_tpu_torch.envs import make_cartpole
 
     cfg = a2c.A2CConfig(num_envs=64, rollout_steps=16, lr=1e-3, anneal_iters=10,
-                        lr_final=0.0, entropy_coef_final=0.0)
+                        lr_final=0.0, entropy_coef_final=0.0, bf16_compute=bf16)
     env = make_cartpole()
     cpu = a2c.init_state(env, cfg, seed=3, device="cpu")
     traj = a2c.rollout(env, cfg, cpu)
-    worst, _, _ = update_on_card_vs_cpu(
-        a2c, env, cfg, cpu, traj, param_atol=1e-5 * cfg.lr,
-        metric_keys=("loss", "pg_loss", "v_loss", "entropy", "mean_finished_return"),
-        metric_atol=0.0, metric_rtol=1e-5)
-    print(f"update on card vs CPU (E=64, T=16): max abs parameter difference {worst:.3e}",
-          flush=True)
+    params, m_cpu, m_gpu = update_on_card_vs_cpu(a2c, env, cfg, cpu, traj)
+    if bf16:
+        summary = assert_bf16_update("bf16 A2C update on card", params, m_cpu, m_gpu, cfg.lr,
+                                     A2C_METRICS)
+    else:
+        assert_fp32_update("update on card", params, m_cpu, m_gpu, 1e-5 * cfg.lr, A2C_METRICS,
+                           0.0, 1e-5)
+        summary = f"max abs parameter difference {fp32_gaps(params, m_cpu, m_gpu, A2C_METRICS)[0]:.3e}"
+    print(f"{'bf16 ' if bf16 else ''}update on card vs CPU (E=64, T=16): {summary}", flush=True)
 
 
-def check_impala_update_on_card() -> None:
+def check_impala_update_on_card(bf16: bool = False) -> None:
     """One IMPALA update on the card against the same update on the CPU
     (plain V-trace there), from the same state and a stale-actor rollout at
-    a small pixel size (42 px, E=8, T=4), TF32 off. Tolerances: loss
-    metrics rtol 1e-4, parameters atol 1e-4·lr + rtol 1e-6. cuDNN sums
-    the convolutions in another order than the CPU (and may transform
-    them, Winograd or FFT), so grads agree to ~1e-5 relative, not to the
-    bit; RMSProp moves a parameter by at most ~3.2·lr·|g|, which bounds
-    the parameter difference by ~3.2·lr·|Δg|."""
+    a small pixel size (42 px, E=8, T=4), with the port's pinned precision
+    (full float32 convolutions). float32 tolerances: loss metrics rtol
+    1e-4, parameters atol 1e-4·lr + rtol 1e-6. cuDNN sums the convolutions
+    in another order than the CPU (and may transform them, Winograd or
+    FFT), so grads agree to ~1e-5 relative, not to the bit; RMSProp moves a
+    parameter by at most ~3.2·lr·|g|, which bounds the parameter difference
+    by ~3.2·lr·|Δg|. bf16: the bf16 tolerances above."""
     import torch
 
     from actor_critic_tpu_torch.algos import impala
     from actor_critic_tpu_torch.envs import make_pong
 
-    cfg = impala.ImpalaConfig(num_envs=8, rollout_steps=4, lr=1e-3, actor_refresh_every=2)
+    cfg = impala.ImpalaConfig(num_envs=8, rollout_steps=4, lr=1e-3, actor_refresh_every=2,
+                              bf16_compute=bf16)
     env = make_pong(size=42)
     cpu = impala.init_state(env, cfg, seed=3, device="cpu")
     # The learner's policy head sharpened after the actors' copy was taken,
@@ -540,17 +624,22 @@ def check_impala_update_on_card() -> None:
     with torch.no_grad():
         cpu.net.policy.weight.mul_(1000.0)
     traj = impala.rollout(env, cfg, cpu)
-    worst, m_cpu, m_gpu = update_on_card_vs_cpu(
-        impala, env, cfg, cpu, traj, param_atol=1e-4 * cfg.lr,
-        metric_keys=("loss", "pg_loss", "v_loss", "entropy", "mean_rho"),
-        metric_atol=1e-6, metric_rtol=1e-4)
+    params, m_cpu, m_gpu = update_on_card_vs_cpu(impala, env, cfg, cpu, traj)
     assert 0.0 < float(m_cpu["mean_rho"]) < 0.99, m_cpu["mean_rho"]
-    print(f"impala update on card vs CPU (42 px, E=8, T=4, TF32 off): max abs parameter "
-          f"difference {worst:.3e}, mean_rho {float(m_gpu['mean_rho']):.6f} "
-          f"(CPU {float(m_cpu['mean_rho']):.6f})", flush=True)
+    if bf16:
+        summary = assert_bf16_update("bf16 IMPALA update on card", params, m_cpu, m_gpu, cfg.lr,
+                                     IMPALA_METRICS)
+    else:
+        assert_fp32_update("impala update on card", params, m_cpu, m_gpu, 1e-4 * cfg.lr,
+                           IMPALA_METRICS, 1e-6, 1e-4)
+        summary = (f"max abs parameter difference "
+                   f"{fp32_gaps(params, m_cpu, m_gpu, IMPALA_METRICS)[0]:.3e}")
+    print(f"{'bf16 ' if bf16 else ''}impala update on card vs CPU (42 px, E=8, T=4, the pinned "
+          f"precision): {summary}, mean_rho {float(m_gpu['mean_rho']):.6f} (CPU "
+          f"{float(m_cpu['mean_rho']):.6f})", flush=True)
 
 
-def check_graph_equals_eager(preset_name: str) -> None:
+def check_graph_equals_eager(preset_name: str, bf16: bool = False) -> int:
     """The loop's CUDA-graph path against eager execution, at a preset's
     full width: two states from one seed, each taken through
     `fused_train_loop` for GRAPH_CHECK_ITERATIONS iterations, one eagerly and
@@ -565,7 +654,9 @@ def check_graph_equals_eager(preset_name: str) -> None:
     the same inputs, the same random numbers), the advantage kernel's
     launches (counted on the card: V-trace for IMPALA, GAE otherwise) equal
     to the iterations on both sides, and the actions of consecutive replays
-    different. Both sides run with the same TF32 flags (the defaults)."""
+    different. Both sides run with the port's pinned precision; with
+    `bf16` the preset's networks compute in bf16 (`--update-dtype bf16`).
+    Returns the advantage kernel's launches in the graph run."""
     import torch
 
     from actor_critic_tpu_torch import train
@@ -575,7 +666,7 @@ def check_graph_equals_eager(preset_name: str) -> None:
     from actor_critic_tpu_torch.ops import gae_cuda, vtrace_cuda
 
     preset = PRESETS[preset_name]
-    mod, cfg = train.ALGOS[preset.algo], preset.config
+    mod, cfg = train.ALGOS[preset.algo], dataclasses.replace(preset.config, bf16_compute=bf16)
     kernel = vtrace_cuda if getattr(cfg, "correction", "") == "vtrace" else gae_cuda
     env = train.make_env(preset.env, preset.env_kwargs)
     n = GRAPH_CHECK_ITERATIONS
@@ -615,7 +706,8 @@ def check_graph_equals_eager(preset_name: str) -> None:
                for i in range(loop.WARMUP_ITERATIONS, n - 1)]
     name = kernel.__name__.rsplit(".", 1)[-1].removesuffix("_cuda")
     print(
-        f"graph vs eager, {preset_name} (E={cfg.num_envs}, T={cfg.rollout_steps}), {n} iterations "
+        f"graph vs eager, {preset_name}{' bf16' if bf16 else ''} (E={cfg.num_envs}, "
+        f"T={cfg.rollout_steps}), {n} iterations "
         f"({loop.WARMUP_ITERATIONS} eager warm-up, then replays): max abs difference {worst:.3e} "
         f"over {len(diffs)} tensors (worst: {max(diffs, key=diffs.get)}), the generator's state "
         f"{'equal' if diffs['generator'] == 0 else 'DIFFERENT'}; update_step {graph_steps} (eager "
@@ -628,6 +720,8 @@ def check_graph_equals_eager(preset_name: str) -> None:
     assert graph_steps == eager_steps == n, (graph_steps, eager_steps)
     assert graph_launches == eager_launches == n, (graph_launches, eager_launches)
     assert all(c > 0 for c in changed), changed
+    assert state.net.compute_dtype == (torch.bfloat16 if bf16 else torch.float32)
+    return graph_launches
 
 
 def check_eval_graphs() -> None:
@@ -1045,7 +1139,7 @@ def check_impala_learns() -> None:
 # width (E=1, K=J=64, batch 256, hidden (256, 256), a 1M-transition ring).
 OFFPOLICY_PRESETS = ("ddpg_walker2d", "td3_walker2d", "sac_humanoid")
 OFFPOLICY_ENV = "jax:pendulum"
-OFFPOLICY_GRAPH_ITERATIONS = 8   # 2 eager, a capture, replays; the gate opens at 4
+OFFPOLICY_GRAPH_ITERATIONS = 6   # 2 eager, a capture, replays; the gate opens at 4
 OFFPOLICY_GRAPH_WARMUP = 128     # env steps: iterations 1-2; the 256-row batch is in at 4
 OFFPOLICY_MAIN_ITERATIONS = 200  # the presets' own 10,000-step warm-up ends at 157
 SAC_LEARN_ITERATIONS, SAC_LEARN_EVAL_EVERY = 2000, 500
@@ -1063,7 +1157,7 @@ def offpolicy_setup(preset_name: str, **overrides):
     return train.ALGOS[preset.algo], cfg, train.make_env(OFFPOLICY_ENV, {})
 
 
-def check_offpolicy_graph_equals_eager(preset_name: str) -> None:
+def check_offpolicy_graph_equals_eager(preset_name: str, bf16: bool = False) -> None:
     """The loop's CUDA-graph path against eager execution for an off-policy
     preset's learner on Pendulum at full width, with the warm-up cut to 128
     env steps: OFFPOLICY_GRAPH_ITERATIONS iterations each way from one seed.
@@ -1072,13 +1166,15 @@ def check_offpolicy_graph_equals_eager(preset_name: str) -> None:
     metrics and the generator's state agree at 1e-6 (expected 0.0). The
     update count is read after every iteration: its first rise must fall on
     a replayed iteration (the gate opens on the device, not at capture);
-    for TD3 the actor's Adam count is half the critic's."""
+    for TD3 the actor's Adam count is half the critic's. With `bf16` the
+    actor and critic compute in bf16."""
     import torch
 
     from actor_critic_tpu_torch.algos import loop
     from actor_critic_tpu_torch.algos.common import carried_tensors
 
-    mod, cfg, env = offpolicy_setup(preset_name, warmup_steps=OFFPOLICY_GRAPH_WARMUP)
+    mod, cfg, env = offpolicy_setup(preset_name, warmup_steps=OFFPOLICY_GRAPH_WARMUP,
+                                    bf16_compute=bf16)
     n = OFFPOLICY_GRAPH_ITERATIONS
     runs = {}
     for capturable in (False, True):
@@ -1106,7 +1202,8 @@ def check_offpolicy_graph_equals_eager(preset_name: str) -> None:
     learner = state.learner
     actor_count, critic_count = int(learner.actor_opt.count), int(learner.critic_opt.count)
     print(
-        f"graph vs eager, {preset_name} on {OFFPOLICY_ENV} (E={cfg.num_envs}, K=J="
+        f"graph vs eager, {preset_name}{' bf16' if bf16 else ''} on {OFFPOLICY_ENV} "
+        f"(E={cfg.num_envs}, K=J="
         f"{cfg.steps_per_iter}, batch {cfg.batch_size}, ring {cfg.buffer_capacity}, warm-up "
         f"{cfg.warmup_steps}), {n} iterations ({loop.WARMUP_ITERATIONS} eager, then replays): "
         f"max abs difference {worst:.3e} over {len(diffs)} tensors (worst: "
@@ -1121,6 +1218,7 @@ def check_offpolicy_graph_equals_eager(preset_name: str) -> None:
     assert counts[-1] == (n - first_rise + 1) * cfg.updates_per_iter, counts
     if getattr(cfg, "policy_delay", 1) == 2:
         assert 2 * actor_count == critic_count, (actor_count, critic_count)
+    assert learner.actor.compute_dtype == (torch.bfloat16 if bf16 else torch.float32)
 
 
 def run_offpolicy_main(preset_name: str) -> None:
@@ -1375,7 +1473,8 @@ def check_humanoid_update_loop() -> None:
         del learner, graph, metrics
 
 
-def profile_step(preset_name: str, n: int = 3, env_spec: str = "") -> None:
+def profile_step(preset_name: str, n: int = 3, env_spec: str = "",
+                 bf16: bool = False) -> tuple[dict, Optional[tuple]]:
     """Where a full-width train step of a preset goes, in one call (on
     `env_spec` instead of the preset's env where one is given): for an
     on-policy trainer, host-clock rollout and update times of `n` eager
@@ -1384,7 +1483,12 @@ def profile_step(preset_name: str, n: int = 3, env_spec: str = "") -> None:
     step over `n` steps (synchronised) and its device busy time, busy share
     and kernel launches per step from torch.profiler over `n` more (top
     kernels for the eager step). The busy share is the busy time over the
-    unprofiled host-clock time."""
+    unprofiled host-clock time. With `bf16` the networks compute in bf16,
+    and for a capturable trainer only the graph is profiled. Returns
+    ({mode: (host-clock ms a step, kernel launches a step, device busy ms a
+    step)}, (state, step, its `CapturedStep`) or None): a graph reads its
+    state's tensors and generator and the env's tables (which the step
+    holds), so all three are kept together."""
     import torch
 
     from actor_critic_tpu_torch import train
@@ -1392,15 +1496,17 @@ def profile_step(preset_name: str, n: int = 3, env_spec: str = "") -> None:
     from actor_critic_tpu_torch.config import PRESETS
 
     preset = PRESETS[preset_name]
-    mod, cfg = train.ALGOS[preset.algo], preset.config
+    mod, cfg = train.ALGOS[preset.algo], dataclasses.replace(preset.config, bf16_compute=bf16)
     env = train.make_env(env_spec or preset.env, {} if env_spec else preset.env_kwargs)
     state = mod.init_state(env, cfg, seed=1, device="cuda")
     step = mod.make_train_step(env, cfg)
+    name = f"{preset_name} bf16" if bf16 else preset_name
     side = torch.cuda.Stream()
     for _ in range(loop.WARMUP_ITERATIONS):
         loop.eager_step(step, state, side)
     torch.cuda.synchronize()
-    if hasattr(mod, "rollout"):
+    graph_only = bf16 and mod.CAPTURABLE
+    if hasattr(mod, "rollout") and not graph_only:
         opt = mod.make_optimizer(cfg)
         t_roll = t_upd = 0.0
         for _ in range(n):
@@ -1413,15 +1519,17 @@ def profile_step(preset_name: str, n: int = 3, env_spec: str = "") -> None:
             t_roll += t1 - t0
             t_upd += time.perf_counter() - t1
         print(
-            f"{preset_name} train step at E={cfg.num_envs}, T={cfg.rollout_steps} "
+            f"{name} train step at E={cfg.num_envs}, T={cfg.rollout_steps} "
             f"(host clock, synchronised, eager): rollout {t_roll / n * 1e3:.3f} ms, "
             f"update {t_upd / n * 1e3:.3f} ms",
             flush=True,
         )
-    modes = [("eager", lambda: step(state))]
+    modes = [] if graph_only else [("eager", lambda: step(state))]
+    captured = None
     if mod.CAPTURABLE:
         captured = loop.CapturedStep(step, state)
         modes.append(("graph", captured.replay))
+    out = {}
     for label, fn in modes:
         fn()
         torch.cuda.synchronize()
@@ -1433,9 +1541,10 @@ def profile_step(preset_name: str, n: int = 3, env_spec: str = "") -> None:
         kernels, wall = profile_kernels(fn, iters=n)
         busy_us = sum(us for _, us in kernels.values())
         launches = sum(c for c, _ in kernels.values())
+        out[label] = (host_ms, launches / n, busy_us / n / 1e3)
         if busy_us > 0:
             print(
-                f"{preset_name} {label}: {host_ms:.3f} ms/step (host clock, synchronised); "
+                f"{name} {label}: {host_ms:.3f} ms/step (host clock, synchronised); "
                 f"profiled {n} steps: wall {wall / n * 1e3:.3f} ms/step under the profiler, "
                 f"device busy {busy_us / n / 1e3:.3f} ms/step "
                 f"({busy_us / n / 1e3 / host_ms:.1%} of the unprofiled step), "
@@ -1443,17 +1552,18 @@ def profile_step(preset_name: str, n: int = 3, env_spec: str = "") -> None:
                 flush=True,
             )
         else:
-            print(f"{preset_name} {label}: {host_ms:.3f} ms/step (host clock, synchronised); "
+            print(f"{name} {label}: {host_ms:.3f} ms/step (host clock, synchronised); "
                   f"device time not measured (the profiler recorded none)", flush=True)
-        for name, (count, us) in kernels.items():
+        for key, (count, us) in kernels.items():
             for kernel in ("gae_kernel", "vtrace_kernel"):
-                if kernel in name:
-                    print(f"{preset_name} {label}: {kernel} {us / count:.3f} us a launch on the "
+                if kernel in key:
+                    print(f"{name} {label}: {kernel} {us / count:.3f} us a launch on the "
                           f"device (torch.profiler, {count} launches)", flush=True)
         if label == "eager":
-            for name, (count, us) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]:
-                print(f"  {us / n:10.1f} us/step {count // n:6d} launches/step  {name[:100]}",
+            for key, (count, us) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]:
+                print(f"  {us / n:10.1f} us/step {count // n:6d} launches/step  {key[:100]}",
                       flush=True)
+    return out, (state, step, captured) if captured is not None else None
 
 
 # -- the host env path ----------------------------------------------------
@@ -1682,10 +1792,6 @@ def run_host_ppo(env: str) -> int:
     GAE's launches on the main path (one an iteration)."""
     import math
 
-    import torch
-
-    from actor_critic_tpu_torch.algos import ppo
-
     n = HOST_PPO_ITERATIONS
     logged, summary, launches = drive(
         ["--preset", "ppo_halfcheetah", "--env", env, "--iterations", str(n), "--log-every",
@@ -1703,7 +1809,21 @@ def run_host_ppo(env: str) -> int:
           f"({steps / per_iter_s:.0f} env-steps/s); split of iterations {after}, ..., {n} "
           f"{host_split(logged, after)}; greedy eval {logged[-1]['eval_return']:.2f}", flush=True)
 
+    check_host_ppo_contract(env)
+    return launches["gae"]
+
+
+def check_host_ppo_contract(env: str, bf16: bool = False) -> None:
+    """`ppo_halfcheetah`'s host trainer on `env` under a `HostContract`
+    (graph vs eager on one block at 0.0, the uploads and the mirror
+    snapshots bitwise); with `bf16` the update computes in bf16 while the
+    numpy mirror acts in float32 from the float32 master parameters."""
+    import torch
+
+    from actor_critic_tpu_torch.algos import ppo
+
     pool, cfg = host_pool("ppo_halfcheetah", env)
+    cfg = dataclasses.replace(cfg, bf16_compute=bf16)
     contract = HostContract(lambda run: run.device_state["params"], HOST_CHECK_AT)
     try:
         ppo.train_host(pool, cfg, HOST_CHECK_ITERATIONS, seed=1, log_every=0, device="cuda",
@@ -1711,8 +1831,7 @@ def run_host_ppo(env: str) -> int:
     finally:
         pool.close()
     torch.cuda.synchronize()
-    contract.check(f"ppo_halfcheetah on {env}")
-    return launches["gae"]
+    contract.check(f"ppo_halfcheetah{' bf16' if bf16 else ''} on {env}")
 
 
 def run_host_offpolicy(preset_name: str, env: str) -> None:
@@ -1860,7 +1979,7 @@ def run_host_resume(preset_name: str, env: str) -> None:
 # -- the async actor-learner and the device data plane ----------------------
 
 ASYNC_ACTORS = 2                 # ppo_halfcheetah's E=8 as 2 actors of 4 envs
-ASYNC_PPO_BLOCKS = 12            # two eager blocks, a capture, then replays
+ASYNC_PPO_BLOCKS = 8             # two eager blocks, a capture, then replays
 ASYNC_LOG_EVERY = 4
 ASYNC_CHECK_BLOCKS = 5           # the graph-vs-eager runs: blocks 1-5, checked at 4
 ASYNC_LOCKSTEP_ITERATIONS = 5    # two eager, a capture, replays
@@ -1868,7 +1987,7 @@ ASYNC_LOCKSTEP_ITERATIONS = 5    # two eager, a capture, replays
 # fleet's 10,000 collected env steps open the gate by block ~3-20 on the
 # host plane (its actor outruns the learner by 8-100 blocks to one, with
 # the GIL deciding) and by block ~25-28 on the device plane.
-ASYNC_OFFPOLICY_BLOCKS = {"host": 32, "device": 48}
+ASYNC_OFFPOLICY_BLOCKS = {"host": 28, "device": 40}  # gates open by ~20 and ~28
 ASYNC_RESUME_BLOCKS = 4
 # Consumed env-steps/s of the async PPO phase's runs, by (plane, codec): the
 # serve-while-training phase's run without --serve-port.
@@ -2413,7 +2532,7 @@ def timed_calls(fn, n: int) -> list[float]:
     return walls
 
 
-def check_serving_graphs() -> None:
+def check_serving_graphs(presets=tuple(SERVE_SHAPES), bf16: bool = False) -> None:
     """Each preset's policy at full width on the card through `PolicyEngine`
     (the default buckets 1..64, one CUDA graph each, captured by `warm`):
     every bucket's replay equals the eager act on the same lane buffers at
@@ -2422,17 +2541,20 @@ def check_serving_graphs() -> None:
     (equal bytes counted, the largest difference); batch-1 p50 / p99
     through `engine.act`; the choice of `backend="auto"` and the two walls
     it compared; for `ppo_cartpole` the sampled stream against the
-    policy's softmax."""
+    policy's softmax. With `bf16` each policy's config has `bf16_compute`
+    (the act graphs run the trainer's bf16 network) and a discrete
+    policy's rows equal its batch-1 actions."""
     import numpy as np
     import torch
 
     from actor_critic_tpu_torch import serving, weights
     from actor_critic_tpu_torch.serving import engine as engine_mod
 
-    for preset_name in SERVE_SHAPES:
+    for preset_name in presets:
         spec, preset = serve_spec(preset_name)
-        cfg, algo = preset.config, preset.algo
+        cfg, algo = dataclasses.replace(preset.config, bf16_compute=bf16), preset.algo
         engine = serving.PolicyEngine(spec, cfg, algo=algo, device="cuda")
+        assert engine._network().compute_dtype == (torch.bfloat16 if bf16 else torch.float32)
         params = engine.prepare_params(serving.init_params(spec, cfg, algo, seed=0))
         t0 = time.perf_counter()
         assert engine.warm(params) == len(engine.buckets)
@@ -2459,6 +2581,7 @@ def check_serving_graphs() -> None:
             e_ms = np.median(timed_calls(lambda: engine.eager_act(params, obs), SERVE_CALLS)) * 1e3
             same = int(sum(graph[j].tobytes() == solo[j].tobytes() for j in range(b)))
             cross = float(np.abs(graph.astype(np.float64) - solo[:b]).max())
+            assert same == b or not spec.discrete, (preset_name, b, same)
             lines.append(f"b={b}: graph = eager (max diff {diff}), graph {g_ms:.4f} ms / eager "
                          f"{e_ms:.4f} ms a call (median, host clock, copies included); rows "
                          f"equal to batch-1 {same}/{b} (max diff {cross:.3g})")
@@ -2471,7 +2594,7 @@ def check_serving_graphs() -> None:
         assert own.tobytes() == engine.act(params, obs64).tobytes(), preset_name
         auto = serving.PolicyEngine(spec, cfg, algo=algo, backend="auto", device="cuda")
         choice = auto.resolve_backend(serving.init_params(spec, cfg, algo, seed=0))
-        print(f"serving {preset_name} ({algo}, obs {spec.obs_shape}, "
+        print(f"serving {preset_name}{' bf16' if bf16 else ''} ({algo}, obs {spec.obs_shape}, "
               f"{'discrete' if spec.discrete else 'continuous'} {spec.action_dim}): "
               f"warm captured {engine.graphs_captured} graphs in {capture_s:.2f} s on a "
               f"high-priority stream (64 normal-priority streams made: {len(pool)} distinct); "
@@ -2481,7 +2604,9 @@ def check_serving_graphs() -> None:
               f"min of 7: device {auto.auto_choice['device_ms']:.4f} ms, mirror "
               f"{auto.auto_choice['mirror_ms']:.4f} ms)", flush=True)
         for line in lines:
-            print(f"  {preset_name} {line}", flush=True)
+            print(f"  {preset_name}{' bf16' if bf16 else ''} {line}", flush=True)
+    if bf16:
+        return
     spec, preset = serve_spec("ppo_cartpole")
     engine = serving.PolicyEngine(spec, preset.config, sample=True, buckets=(64,),
                                   device="cuda")
@@ -2934,6 +3059,201 @@ def check_sidecar(probe: SidecarProbe, module, label: str, blocks: int, greedy) 
             f"{percentiles_ms(probe.idle)}")
 
 
+# -- precision: the TF32 pin and bf16 compute ------------------------------
+
+TF32_REPLAYS = 20            # impala_pong graph replays a turn
+BF16_FUSED_PRESETS = ("a2c_cartpole", "ppo_cartpole", "impala_pong", "impala_pong_learn",
+                      "a3c_pong", "a2c_mixture")
+BF16_GRAPH_PRESETS = ("a2c_cartpole", "ppo_cartpole", "impala_pong", "a2c_mixture")
+BF16_ITERATIONS = 5          # two eager, a capture, two replays
+BF16_HOST_PPO_ITERATIONS = 3  # two eager updates, then the graph
+BF16_ASYNC_BLOCKS = 5
+BF16_SAC_WARMUP = 256        # env steps: the SAC learner's gate opens at iteration 5
+BF16_SAC_ITERATIONS = 6
+BF16_SERVE_PRESETS = ("ppo_cartpole", "ppo_halfcheetah")
+PROFILE_REPLAYS = 10         # graph replays a turn, float32 against bf16
+PROFILE_PRESETS = (("a2c_cartpole", 3, ""), ("ppo_cartpole", 1, ""), ("a2c_mixture", 1, ""),
+                   ("impala_pong", 3, ""), ("sac_humanoid", 1, OFFPOLICY_ENV))
+
+
+def check_tf32() -> None:
+    """Queue 3's TF32 fault, measured, then pinned: one IMPALA update at
+    `impala_pong`'s full width (84×84×2 frames, E=64, T=20, the Nature CNN)
+    on the card against the same update on the CPU, once under torch's
+    default precision (cuDNN's float32 convolutions in TF32) and once with
+    the port's pinned flags (full float32, deterministic algorithms), the
+    largest parameter and relative metric differences of each; the pinned
+    one within `check_impala_update_on_card`'s float32 tolerances. Then
+    `impala_pong`'s ms a graph replay under torch's defaults, under full
+    float32 with cuDNN's free choice of algorithm and under the pin (a
+    capture each, replayed in turns there and back; host clock,
+    synchronised) and the TF32 kernels each replay runs (torch.profiler)."""
+    import copy
+
+    import torch
+
+    from actor_critic_tpu_torch import train
+    from actor_critic_tpu_torch.algos import impala, loop
+    from actor_critic_tpu_torch.config import PRESETS
+
+    preset = PRESETS["impala_pong"]
+    cfg = preset.config
+    env = train.make_env(preset.env, preset.env_kwargs)
+    cpu = impala.init_state(env, cfg, seed=3, device="cpu")
+    traj = impala.rollout(env, cfg, cpu)
+    gaps = {}
+    for default in (True, False):
+        params, m_cpu, m_gpu = update_on_card_vs_cpu(impala, env, cfg, copy.deepcopy(cpu), traj,
+                                                     default_precision=default)
+        gaps[default] = fp32_gaps(params, m_cpu, m_gpu, IMPALA_METRICS)
+        print(f"impala_pong update on card vs CPU (84 px, E=64, T=20), "
+              f"{'torch default precision (TF32 convolutions)' if default else 'pinned precision'}: "
+              f"max abs parameter difference {gaps[default][0]:.3e} ({gaps[default][0] / cfg.lr:.3e}·lr), "
+              f"largest relative metric difference {gaps[default][1]:.3e}; metrics on the card "
+              f"{ {k: round(float(m_gpu[k]), 6) for k in IMPALA_METRICS} }", flush=True)
+        if not default:
+            assert_fp32_update("impala_pong update on card, pinned", params, m_cpu, m_gpu,
+                               1e-4 * cfg.lr, IMPALA_METRICS, 1e-6, 1e-4)
+    assert gaps[False][0] <= gaps[True][0], gaps
+
+    # torch's defaults; full float32 with cuDNN's free choice of algorithm;
+    # the pin (full float32, deterministic algorithms).
+    settings = {"TF32": (True, False), "float32": (False, False), "pinned": (False, True)}
+    state = impala.init_state(env, cfg, seed=1, device="cuda")
+    step = impala.make_train_step(env, cfg)
+    side = torch.cuda.Stream()
+    graphs = {}
+    for label, flags in settings.items():
+        with precision_flags(*flags):
+            for _ in range(loop.WARMUP_ITERATIONS):
+                loop.eager_step(step, state, side)
+            torch.cuda.synchronize()
+            graphs[label] = loop.CapturedStep(step, state)
+    ms: dict[str, list[float]] = {label: [] for label in settings}
+    for label in (*settings, *reversed(settings)):
+        graphs[label].replay()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TF32_REPLAYS):
+            graphs[label].replay()
+        torch.cuda.synchronize()
+        ms[label].append((time.perf_counter() - t0) / TF32_REPLAYS * 1e3)
+    tf32_kernels = {}
+    for label in settings:
+        kernels, _ = profile_kernels(graphs[label].replay, iters=1)
+        tf32_kernels[label] = sum(c for k, (c, _) in kernels.items() if "tf32" in k.lower())
+    mean = {label: sum(v) / len(v) for label, v in ms.items()}
+    print(f"impala_pong graph replay (E=64, T=20, 84 px; {TF32_REPLAYS} replays a turn, in "
+          f"turns {', '.join(settings)} and back): "
+          + "; ".join(f"{label} {v[0]:.3f} / {v[1]:.3f} ms" for label, v in ms.items())
+          + f" a replay (host clock, synchronised); against TF32, float32 costs "
+          f"{mean['float32'] / mean['TF32'] - 1:+.1%} and the pin "
+          f"{mean['pinned'] / mean['TF32'] - 1:+.1%}; kernels with 'tf32' in their name a "
+          f"replay: {tf32_kernels}", flush=True)
+    assert tf32_kernels["pinned"] == 0 and tf32_kernels["float32"] == 0, tf32_kernels
+
+
+def run_bf16_main_paths(env: str) -> dict[str, dict[str, int]]:
+    """`--update-dtype bf16` through `train.main` on every path that reaches
+    it, each kernel's launch count reset just before each run and read just
+    after: the six fused presets for BF16_ITERATIONS iterations (the CUDA
+    graph from iteration 3), host `ppo_halfcheetah`, async `ppo_halfcheetah`
+    (2 actors, device plane) and host and async `sac_humanoid` (1 actor,
+    device plane, the warm-up cut to BF16_SAC_WARMUP env steps) on `env`.
+    GAE and V-trace launch once an iteration (or consumed block), as in
+    float32. Returns {kernel: {path: launches}}."""
+    import math
+
+    from actor_critic_tpu_torch.config import PRESETS
+
+    by_path: dict[str, dict[str, int]] = {"gae": {}, "vtrace": {}}
+    n = BF16_ITERATIONS
+    for preset_name in BF16_FUSED_PRESETS:
+        logged, summary, launches = drive(
+            ["--preset", preset_name, "--update-dtype", "bf16", "--iterations", str(n),
+             "--log-every", "1", "--seed", "0"], show_every=n)
+        check_rows(logged, n)
+        kernel = "vtrace" if getattr(PRESETS[preset_name].config, "correction", "") == "vtrace" \
+            else "gae"
+        assert launches == {**{"gae": 0, "vtrace": 0}, kernel: n}, (preset_name, launches)
+        by_path[kernel][f"{preset_name} bf16"] = launches[kernel]
+        print(f"main path {preset_name} --update-dtype bf16 (CUDA graph): {n} iterations, "
+              f"{graph_timing(logged, summary)}; launches {launches}", flush=True)
+    m = BF16_HOST_PPO_ITERATIONS
+    logged, summary, launches = drive(
+        ["--preset", "ppo_halfcheetah", "--env", env, "--update-dtype", "bf16", "--iterations",
+         str(m), "--log-every", "1", "--seed", "0"], show_every=m)
+    check_rows(logged, m)
+    assert launches == {"gae": m, "vtrace": 0}, launches
+    by_path["gae"]["host ppo_halfcheetah bf16"] = launches["gae"]
+    print(f"main path host ppo_halfcheetah --update-dtype bf16 on {env}: {m} iterations, "
+          f"launches {launches}; {host_split(logged, 3)}", flush=True)
+    b = BF16_ASYNC_BLOCKS
+    logged, summary, launches = drive(
+        ["--preset", "ppo_halfcheetah", "--env", env, "--update-dtype", "bf16",
+         "--async-actors", str(ASYNC_ACTORS), "--iterations", str(b), "--log-every", "1",
+         "--seed", "0", "--data-plane", "device"], show_every=b)
+    check_rows(logged, b)
+    check_async_kernel_launches(logged, launches, b, 1)
+    by_path["vtrace"]["async ppo_halfcheetah bf16 (device plane)"] = launches["vtrace"]
+    print(f"main path async ppo_halfcheetah --update-dtype bf16 on {env} (device plane): {b} "
+          f"consumed blocks, launches {launches}, mean_rho {logged[-1]['mean_rho']:.4f}",
+          flush=True)
+    k = BF16_SAC_ITERATIONS
+    for extra in ([], ["--async-actors", "1", "--data-plane", "device"]):
+        logged, summary, launches = drive(
+            ["--preset", "sac_humanoid", "--env", env, "--update-dtype", "bf16", "--set",
+             f"warmup_steps={BF16_SAC_WARMUP}", "--iterations", str(k), "--log-every", "1",
+             "--seed", "0", *extra], show_every=k)
+        check_rows(logged, k, keys=("critic_loss", "actor_loss", "q_mean"))
+        assert launches == {"gae": 0, "vtrace": 0}, launches
+        assert logged[-1]["env_steps"] > BF16_SAC_WARMUP and math.isfinite(summary["critic_loss"])
+        print(f"main path {'async ' if extra else 'host '}sac_humanoid --update-dtype bf16 on "
+              f"{env}: {k} iterations, warm-up {BF16_SAC_WARMUP}, final critic_loss "
+              f"{summary['critic_loss']:.4f}, alpha {summary['alpha']:.4f}", flush=True)
+    return by_path
+
+
+def replays_in_turns(graphs: dict) -> dict[bool, list[float]]:
+    """ms a graph replay of a preset's train step in float32 and in bf16
+    (`graphs[bf16]`: `profile_step`'s (state, step, `CapturedStep`)), replayed in
+    turns: float32, bf16, bf16, float32, PROFILE_REPLAYS replays a turn
+    (host clock, synchronised). Returns {bf16: [ms of each turn]}."""
+    import torch
+
+    ms: dict[bool, list[float]] = {False: [], True: []}
+    for bf16 in (False, True, True, False):
+        _, _, captured = graphs[bf16]
+        captured.replay()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_REPLAYS):
+            captured.replay()
+        torch.cuda.synchronize()
+        ms[bf16].append((time.perf_counter() - t0) / PROFILE_REPLAYS * 1e3)
+    return ms
+
+
+def compare_profiles(profiles: dict, replays: dict) -> None:
+    """float32 against bf16 for each profiled preset, from one call on one
+    card: ms a graph replay in turns (`replays_in_turns`), and launches and
+    device busy ms a step (`profile_step`, torch.profiler)."""
+    for preset_name, _, _ in PROFILE_PRESETS:
+        fp32, bf16 = profiles[(preset_name, False)], profiles[(preset_name, True)]
+        ms = replays[preset_name]
+        a, b = sum(ms[False]) / 2, sum(ms[True]) / 2
+        print(f"fp32 vs bf16, {preset_name} graph replays in turns (fp32, bf16, bf16, fp32; "
+              f"{PROFILE_REPLAYS} a turn): {ms[False][0]:.3f} / {ms[True][0]:.3f} / "
+              f"{ms[True][1]:.3f} / {ms[False][1]:.3f} ms, fp32 {a:.3f} vs bf16 {b:.3f} ms a "
+              f"replay ({b / a - 1:+.1%})", flush=True)
+        for mode in bf16:
+            (ms32, n32, busy32), (ms16, n16, busy16) = fp32[mode], bf16[mode]
+            print(f"fp32 vs bf16, {preset_name} {mode}: {n32:.0f} vs {n16:.0f} kernel launches "
+                  f"a step ({n16 / n32 - 1:+.1%}), device busy {busy32:.3f} vs {busy16:.3f} ms a "
+                  f"step, {ms32:.3f} vs {ms16:.3f} ms a step (host clock, one profile run each)",
+                  flush=True)
+
+
 def phase(label: str, fn, *args, **kwargs):
     """`fn(*args, **kwargs)`, its host seconds printed after it as `phase
     <label>: <s> s` (the script's time budget is read off these lines)."""
@@ -2951,8 +3271,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    from actor_critic_tpu_torch import _build
+    from actor_critic_tpu_torch import _build, resolve_device
 
+    resolve_device("cuda")  # the port's entry point: pins the precision
     smi = nvidia_smi_line()
     print(f"device: {smi}", flush=True)
 
@@ -2971,13 +3292,20 @@ def main() -> int:
         e["launch_floor_ms"] = floor_ms
         print(f"{e['name']}: kernel {e['ms'] / floor_ms:.2f}x the launch floor, "
               f"{e['ms'] / e['bound_ms']:.2f}x its bound", flush=True)
+    phase("TF32", check_tf32)
     phase("update on the card", check_update_on_card)
     phase("IMPALA update on the card", check_impala_update_on_card)
+    phase("bf16 update on the card", check_update_on_card, True)
+    phase("bf16 IMPALA update on the card", check_impala_update_on_card, True)
     for preset_name in ("a2c_cartpole", "ppo_cartpole", "a2c_mixture", "impala_pong", "a3c_pong"):
         phase(f"graph vs eager {preset_name}", check_graph_equals_eager, preset_name)
     for preset_name in OFFPOLICY_PRESETS:
         phase(f"graph vs eager {preset_name}", check_offpolicy_graph_equals_eager, preset_name)
     phase("eval graphs", check_eval_graphs)
+    for preset_name in BF16_GRAPH_PRESETS:
+        phase(f"graph vs eager {preset_name} bf16", check_graph_equals_eager, preset_name, True)
+    phase("graph vs eager sac_humanoid bf16", check_offpolicy_graph_equals_eager, "sac_humanoid",
+          True)
     # Each kernel's launches on its own main path.
     launches = {"gae": phase("a2c_cartpole", run_a2c_cartpole)["gae"],
                 "vtrace": phase("impala_pong", run_impala_pong)["vtrace"]}
@@ -3001,6 +3329,9 @@ def main() -> int:
     phase("host resume", run_host_resume, "td3_walker2d", host_envs["td3_walker2d"])
     print(f"host envs the presets ran on: {host_envs}; GAE launches on the host PPO path "
           f"{host_gae}", flush=True)
+    phase("host ppo_halfcheetah bf16 contract", check_host_ppo_contract,
+          host_envs["ppo_halfcheetah"], True)
+    bf16_by_path = phase("bf16 main paths", run_bf16_main_paths, host_envs["ppo_halfcheetah"])
     phase("capture beside enqueues", check_capture_beside_enqueues)
     phase("async strict lockstep", check_async_strict_lockstep, host_envs["ppo_halfcheetah"])
     async_vtrace = phase("async ppo_halfcheetah", run_async_ppo, host_envs["ppo_halfcheetah"])
@@ -3009,21 +3340,29 @@ def main() -> int:
         phase(f"async {preset_name}", run_async_offpolicy, preset_name, host_envs[preset_name])
     phase("async resume", run_async_resume, host_envs["ppo_halfcheetah"])
     phase("serving graphs", check_serving_graphs)
+    phase("serving graphs bf16", check_serving_graphs, BF16_SERVE_PRESETS, True)
     phase("serve CLI", run_serve_cli)
     serve_vtrace = phase("serve while training", run_serve_while_training,
                          host_envs["ppo_halfcheetah"], ASYNC_RATES[("device", "fp32")])
     phase("IMPALA learns", check_impala_learns)
-    phase("profile a2c_cartpole", profile_step, "a2c_cartpole")
-    # One step each way for the steps of ~21,000–24,000 launches: the
-    # profiler's bookkeeping of them takes longer than the steps.
-    phase("profile ppo_cartpole", profile_step, "ppo_cartpole", n=1)
-    phase("profile a2c_mixture", profile_step, "a2c_mixture", n=1)
-    phase("profile impala_pong", profile_step, "impala_pong")
-    phase("profile sac_humanoid", profile_step, "sac_humanoid", n=1, env_spec=OFFPOLICY_ENV)
-    by_path = {"gae": {"a2c_cartpole": launches["gae"], "host ppo_halfcheetah": host_gae},
+    # One step each way for the steps of ~21,000–24,000 launches
+    # (PROFILE_PRESETS): the profiler's bookkeeping of them takes longer than
+    # the steps. Each preset in float32, then in bf16.
+    profiles, replays = {}, {}
+    for preset_name, n, env_spec in PROFILE_PRESETS:
+        graphs = {}
+        for bf16 in (False, True):
+            profiles[(preset_name, bf16)], graphs[bf16] = phase(
+                f"profile {preset_name}{' bf16' if bf16 else ''}", profile_step, preset_name,
+                n=n, env_spec=env_spec, bf16=bf16)
+        replays[preset_name] = replays_in_turns(graphs)
+    compare_profiles(profiles, replays)
+    by_path = {"gae": {"a2c_cartpole": launches["gae"], "host ppo_halfcheetah": host_gae,
+                       **bf16_by_path["gae"]},
                "vtrace": {"impala_pong": launches["vtrace"],
                           "async ppo_halfcheetah (host plane)": async_vtrace,
-                          "serve-while-training ppo_halfcheetah (device plane)": serve_vtrace}}
+                          "serve-while-training ppo_halfcheetah (device plane)": serve_vtrace,
+                          **bf16_by_path["vtrace"]}}
     for e in entries:
         e["launches"] = launches[e["name"]]
         e["launches_by_path"] = by_path[e["name"]]

@@ -17,9 +17,10 @@ JAX package's `config.py` and `train.py`:
 - `--list-presets` names JAX's ten presets, in JAX's order;
 - `--replay-dtype` sets the ring's codecs, and exits on an algorithm with
   no ring, as JAX's;
-- what is not ported yet (bf16 compute, also on the host path's
-  `host:`/`native:` envs and the MuJoCo presets, `--workers` and the
-  flags of later paths) exits with a message saying so;
+- `--update-dtype fp32|bf16` is `--set bf16_compute=...`, and bf16 runs
+  on the host path's `host:`/`native:` envs and the MuJoCo presets'
+  learners; what is not ported yet (`--workers` and the flags of later
+  paths) exits with a message saying so;
 - the async actor-learner's seven flags (`--async-actors`,
   `--updates-per-block`, `--max-staleness`, `--queue-depth`,
   `--async-correction`, `--data-plane`, `--data-plane-codec`) each run
@@ -266,15 +267,42 @@ def test_algo_env_runs(algo, env, capsys, tmp_path):
     assert summary["env"] == env and summary["loss"] is not None
 
 
+BF16_HOST_PATHS = [
+    ["--preset", "sac_humanoid", "--env", "native:Pendulum-v1", "--set", "bf16_compute=true"],
+    ["--preset", "ddpg_walker2d", "--replay-dtype", "mixed", "--env", "native:Pendulum-v1",
+     "--set", "bf16_compute=true"],
+    ["--preset", "ppo_cartpole", "--env", "host:CartPole-v1", "--set", "bf16_compute=true"],
+    ["--algo", "ppo", "--env", "native:Acrobot-v1", "--set", "bf16_compute=true"],
+]
+
+
+@pytest.mark.parametrize("argv", BF16_HOST_PATHS)
+def test_bf16_runs_on_the_host_paths(argv, capsys, tmp_path):
+    """bf16 compute on the host path's `host:`/`native:` envs and the MuJoCo
+    presets' learners (refused as not ported before it was): an iteration
+    runs, with `bf16_compute` in the run's config and a finite loss."""
+    _, summary, notes = _cli(argv + ["--iterations", "1", "--quiet"], capsys, tmp_path)
+    assert "'bf16_compute': True" in notes[0]
+    assert summary["loss" if "loss" in summary else "critic_loss"] is not None
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_update_dtype_is_set_bf16_compute(dtype, capsys, tmp_path):
+    """`--update-dtype` as JAX's: the same as `--set bf16_compute=...`
+    (bf16 reaches True, fp32 False, and it wins over a `--set`), the same
+    rows; bf16 and fp32 runs log different losses."""
+    want = dtype == "bf16"
+    argv = SMALL + ["--iterations", "2", "--log-every", "1"]
+    rows, _, notes = _cli(argv + ["--set", f"bf16_compute={not want}", "--update-dtype", dtype],
+                          capsys, tmp_path)
+    assert f"'bf16_compute': {want}" in notes[0]
+    same, _, _ = _cli(argv + ["--set", f"bf16_compute={want}"], capsys, tmp_path, "s.jsonl")
+    other, _, _ = _cli(argv + ["--set", f"bf16_compute={not want}"], capsys, tmp_path, "o.jsonl")
+    assert [r["loss"] for r in rows] == [r["loss"] for r in same]
+    assert [r["loss"] for r in rows] != [r["loss"] for r in other]
+
+
 @pytest.mark.parametrize("argv,match", [
-    (["--preset", "sac_humanoid", "--env", "native:Pendulum-v1", "--set", "bf16_compute=true"],
-     "not ported"),
-    (["--preset", "ddpg_walker2d", "--replay-dtype", "mixed", "--env", "native:Pendulum-v1",
-      "--set", "bf16_compute=true"], "not ported"),
-    (["--preset", "ppo_cartpole", "--env", "host:CartPole-v1", "--set", "bf16_compute=true"],
-     "not ported"),
-    (["--algo", "ppo", "--env", "native:Acrobot-v1", "--set", "bf16_compute=true"],
-     "not ported"),
     (["--algo", "ppo", "--env", "gym:CartPole-v1"], "env must be"),
     (["--preset", "a2c_cartpole", "--set", "bogus=1"], "no field"),
     (["--algo", "a2c"], "need --preset"),

@@ -297,6 +297,7 @@ def test_config_validation_and_unported_options():
         timpala.ImpalaConfig(correction="bogus")
     with pytest.raises(ValueError):
         timpala.ImpalaConfig(actor_refresh_every=0)
-    with pytest.raises(NotImplementedError):
-        timpala.make_network(make_pong(size=36), dataclasses.replace(
-            timpala.ImpalaConfig(), bf16_compute=True))
+    # bf16 compute is ported: the flag builds the bf16 network.
+    net = timpala.make_network(make_pong(size=36), dataclasses.replace(
+        timpala.ImpalaConfig(), bf16_compute=True))
+    assert net.compute_dtype == net.torso.compute_dtype == torch.bfloat16

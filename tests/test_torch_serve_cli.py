@@ -5,7 +5,8 @@ the async learners) on the CPU:
 - the CLI's flags build JAX's stores (random init, checkpoints, the default
   route, per-policy SLO classes and windows) and refuse what JAX refuses;
   the flags of later paths exit "not ported yet" with their ROADMAP item;
-  `--backend auto` reports its choice; without `--device cpu` it needs the
+  `--backend xla` (JAX's name) is `device`; `--set bf16_compute=true`
+  serves the bf16 network; `--backend auto` reports its choice; without `--device cpu` it needs the
   card; a subprocess binds port 0, prints it, serves and shuts down on
   SIGINT;
 - `train.main` with `ppo_halfcheetah --env native:Pendulum-v1
@@ -63,6 +64,27 @@ def test_later_paths_are_refused(flag, capsys):
         serve.parse_args(["--preset", "ppo_cartpole", flag, "1"])
     err = capsys.readouterr().err
     assert f"{flag} is not ported yet" in err and serve.UNPORTED_FLAGS[flag] in err
+
+
+def test_backend_xla_is_device():
+    """`--backend xla`, the JAX CLI's name (and default), parses to the
+    engine's `device` backend, as `device` does; the engine itself keeps
+    refusing the name "xla" (tests/test_torch_serving.py)."""
+    assert _args("--backend", "xla").backend == _args("--backend", "device").backend == "device"
+    assert _args().backend == "device"
+    engine, _, _ = serve.build(_args("--backend", "xla", "--random-init"))
+    assert engine.backend == "device"
+
+
+def test_bf16_policy_serves_the_bf16_network(capsys):
+    """`--set bf16_compute=true` builds its act buckets from the bf16
+    network (the trainer's), whose acts are its eager greedy act's."""
+    engine, store, _ = serve.build(_args("--random-init", "--set", "bf16_compute=true"))
+    assert engine.cfg.bf16_compute and engine._network().compute_dtype == torch.bfloat16
+    obs = np.random.default_rng(0).normal(size=(3, 4)).astype(np.float32)
+    handle = store.get()
+    np.testing.assert_array_equal(engine.act(handle.params, obs),
+                                  engine.eager_act(handle.params, obs))
 
 
 def test_random_init_builds_a_warm_default(capsys):
