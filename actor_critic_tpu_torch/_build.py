@@ -29,8 +29,9 @@ from typing import Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 
+ARCH = "sm_90a"
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-gencode", f"arch=compute_90a,code={ARCH}",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
@@ -60,13 +61,18 @@ def library_path(name: str) -> Path:
 
 def build(*names: str) -> dict[str, Path]:
     """Compile every named source that has no up-to-date library, in
-    parallel; raise with the compiler's output if any build fails."""
+    parallel; raise with the compiler's output if any build fails. Each
+    source is recorded as one `compile` event (`telemetry/profiler.py`:
+    its nvcc seconds and arch; a library already built is a cache hit)."""
+    from actor_critic_tpu_torch.telemetry import profiler
+
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     procs = {}
     for name in names:
         out = library_path(name)
         if out.exists():
+            profiler.record_build(f"{name}.cu", 0.0, ARCH, cache_hit=True)
             continue
         nvcc = nvcc or _nvcc()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -83,6 +89,7 @@ def build(*names: str) -> dict[str, Path]:
             failed.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{text}")
             continue
         os.replace(tmp, out)  # atomic: a reader never sees a half-written library
+        profiler.record_build(f"{name}.cu", build_log[name][0], ARCH)
     if failed:
         raise RuntimeError("\n".join(failed))
     return {name: library_path(name) for name in names}

@@ -571,8 +571,13 @@ class BlockedEval:
         current.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(generator)
-        with torch.cuda.graph(graph):
-            self._run_block(self.buffers, generator, n)
+        from actor_critic_tpu_torch.algos import loop
+        from actor_critic_tpu_torch.telemetry import profiler
+
+        signature = profiler.signature_of(named_leaves(self.buffers))
+        with profiler.record_compile(f"eval_block[x{n}]", signature):
+            with loop.capture(graph):
+                self._run_block(self.buffers, generator, n)
         torch.cuda.synchronize(device)
         self.capture_s[n] = time.perf_counter() - t0
         return graph

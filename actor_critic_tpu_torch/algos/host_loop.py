@@ -40,8 +40,16 @@ threads (`traj_queue.ActorService`) collect through the mirrors and push
 blocks into a queue, and the learner's thread takes them (`AsyncFeed`:
 through pinned staging from the host `TrajQueue`, or by slot from the
 device ring), replays its update, and publishes the update's input
-parameters (`publish_snapshot`). The telemetry spans and the stall
-watchdog of the JAX module are not ported yet (Queue 1 item 10).
+parameters (`publish_snapshot`).
+
+Telemetry, at the JAX module's sites: an `env_step` span per collected
+block and a watchdog `beat()` per env step (`host_collect`) and per eval
+step (`host_evaluate`); per iteration a profiler `tick()` and an
+`iteration` span around `host_to_device` (the staging and upload),
+`update` (the host's launch of the graph replay: it returns once queued),
+`queue_wait` (async), `eval`, `log` (`maybe_log`, which syncs the row)
+and `checkpoint` (a save); and the off-policy loops' `replay` gauge (the
+ring's capacity facts, static).
 """
 
 from __future__ import annotations
@@ -54,10 +62,13 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from actor_critic_tpu_torch import telemetry
 from actor_critic_tpu_torch.algos import loop
 from actor_critic_tpu_torch.algos.common import OffPolicyTransition, named_carried
 from actor_critic_tpu_torch.models import host_actor
+from actor_critic_tpu_torch.telemetry import profiler, sampler
 from actor_critic_tpu_torch.tree import tree_map
+from actor_critic_tpu_torch.utils import watchdog
 from actor_critic_tpu_torch.utils.cadence import should_log, should_save
 
 
@@ -199,19 +210,23 @@ def host_collect(
             f"buffers hold {buffers.num_steps}-step blocks, collect asked for {num_steps}")
     buffers.begin_block()
     record = buffers.record
-    for t in range(num_steps):
-        action, extras = act_fn(obs)
-        out = pool.step(action)
-        record(t, "obs", obs)
-        record(t, "action", action)
-        for k, v in extras.items():
-            record(t, k, v)
-        record(t, "reward", out.reward)
-        record(t, "done", out.done)
-        record(t, "terminated", out.terminated)
-        record(t, "final_obs", out.final_obs)
-        tracker.update(out.raw_reward, out.done)
-        obs = out.obs
+    # One span per block, not per pool step: the breakdown needs the
+    # block's total, not millions of micro-events.
+    with telemetry.span("env_step", steps=num_steps):
+        for t in range(num_steps):
+            watchdog.beat()
+            action, extras = act_fn(obs)
+            out = pool.step(action)
+            record(t, "obs", obs)
+            record(t, "action", action)
+            for k, v in extras.items():
+                record(t, k, v)
+            record(t, "reward", out.reward)
+            record(t, "done", out.done)
+            record(t, "terminated", out.terminated)
+            record(t, "final_obs", out.final_obs)
+            tracker.update(out.raw_reward, out.done)
+            obs = out.obs
     return obs, buffers.block()
 
 
@@ -224,6 +239,7 @@ def host_evaluate(pool, act_fn: Callable[[np.ndarray], np.ndarray], max_steps: i
     returns = np.zeros(E)
     alive = np.ones(E)
     for _ in range(max_steps):
+        watchdog.beat()  # an eval sweep is progress, not a stall
         out = pool.step(act_fn(obs))
         returns += out.raw_reward * alive
         alive *= 1.0 - out.done
@@ -234,10 +250,12 @@ def host_evaluate(pool, act_fn: Callable[[np.ndarray], np.ndarray], max_steps: i
 
 
 def timed_eval(pool, act_fn: Callable[[np.ndarray], np.ndarray], max_steps: int) -> dict:
-    """`host_evaluate` as log-row entries: `eval_return`, and `eval_s`, its
-    seconds on the host clock (the CLI leaves them out of `wall_s`)."""
+    """`host_evaluate` as log-row entries, in an `eval` span:
+    `eval_return`, and `eval_s`, its seconds on the host clock (the CLI
+    leaves them out of `wall_s`)."""
     t0 = time.perf_counter()
-    ret = host_evaluate(pool, act_fn, max_steps=max_steps)
+    with telemetry.span("eval"):
+        ret = host_evaluate(pool, act_fn, max_steps=max_steps)
     return {"eval_return": ret, "eval_s": time.perf_counter() - t0}
 
 
@@ -280,13 +298,19 @@ class HostUpdate:
     (`loop.CapturedStep`, the trainer's generator registered with it, in
     `capture_error_mode`) and every call from then on replays it. On the
     CPU every call runs eagerly. The metrics of a replay are the graph's
-    output tensors, overwritten by the next replay."""
+    output tensors, overwritten by the next replay. The capture is one
+    `compile` event named `name`, its signature the shapes of what
+    `carried()` returns at the capture (the tensors the update reads and
+    writes, by name)."""
 
     def __init__(self, body: Callable[[], dict[str, torch.Tensor]], generator: torch.Generator,
-                 capture_error_mode: str = "global"):
+                 capture_error_mode: str = "global", name: str = "host_update",
+                 carried: Callable[[], dict[str, torch.Tensor]] = dict):
         self.body = body
         self.generator = generator
         self.capture_error_mode = capture_error_mode
+        self.name = name
+        self.carried = carried
         cuda = generator.device.type == "cuda"
         self.stream = torch.cuda.Stream(generator.device) if cuda else None
         self.eager_left = loop.WARMUP_ITERATIONS if cuda else 0
@@ -307,8 +331,9 @@ class HostUpdate:
             self.eager_left -= 1
             return loop.eager_step(self._step, self, self.stream)[1]
         if self.captured is None:
-            self.captured = loop.CapturedStep(self._step, self,
-                                              capture_error_mode=self.capture_error_mode)
+            with profiler.record_compile(self.name, profiler.signature_of(self.carried())):
+                self.captured = loop.CapturedStep(self._step, self,
+                                                  capture_error_mode=self.capture_error_mode)
         return self.captured.replay()
 
 
@@ -448,7 +473,8 @@ def host_maybe_save(ckpt, it: int, save_every: int, num_iterations: int, pool, m
     state to the host waits for the device."""
     if ckpt is None or not should_save(it, save_every, num_iterations):
         return
-    _host_save(ckpt, it, pool, metrics, save_replay, generator, device_state)
+    with telemetry.span("checkpoint", step=it):
+        _host_save(ckpt, it, pool, metrics, save_replay, generator, device_state)
 
 
 def _host_save(ckpt, it, pool, metrics, save_replay, generator, device_state) -> None:
@@ -525,15 +551,18 @@ def maybe_log(it: int, log_every: int, metrics: dict, tracker, history: list,
     update."""
     if not (force or should_log(it + 1, log_every, num_iterations)):
         return
-    m = {k: float(v) for k, v in metrics.items()}
-    m.update(tracker.report())
-    if extra:
-        m.update(extra)
-    if clock is not None:
-        m.update(clock.row())
-    history.append((it + 1, m))
-    if log_fn is not None:
-        log_fn(it + 1, m)
+    # The float() reads are the loop's first wait on the dispatched
+    # update: the log span absorbs whatever device time is left.
+    with telemetry.span("log", it=it + 1):
+        m = {k: float(v) for k, v in metrics.items()}
+        m.update(tracker.report())
+        if extra:
+            m.update(extra)
+        if clock is not None:
+            m.update(clock.row())
+        history.append((it + 1, m))
+        if log_fn is not None:
+            log_fn(it + 1, m)
 
 
 def off_policy_train_host(
@@ -649,60 +678,89 @@ def off_policy_train_host(
                                    done=b["done"])
         return ingest_update(learner, traj, b["env_steps"], generator)
 
-    update = HostUpdate(body, generator)
+    update = HostUpdate(body, generator, name=f"{offpolicy_name(cfg)}.host_update",
+                        carried=lambda: named_carried(
+                            {"learner": learner, "block": buffers.static}, ""))
     run = HostRun(buffers, snapshot, update, {"learner": learner}, clock)
-    for it in range(start_it, num_iterations):
-        clock.start()
-        if host_act is not None:
-            t0 = time.perf_counter()
-            host_params = snapshot.params()
-            clock.add("wait_s", time.perf_counter() - t0)
+    gauge = register_replay_gauge(learner, cfg)
+    try:
+        for it in range(start_it, num_iterations):
+            telemetry.profiler_tick()
+            with telemetry.span("iteration", it=it + 1):
+                clock.start()
+                if host_act is not None:
+                    t0 = time.perf_counter()
+                    host_params = snapshot.params()
+                    clock.add("wait_s", time.perf_counter() - t0)
 
-            def explore_act(o):
-                nonlocal env_steps
-                action = host_act(host_params, o, rng, env_steps)
-                env_steps += E
-                return action, {}
-        else:
+                    def explore_act(o):
+                        nonlocal env_steps
+                        action = host_act(host_params, o, rng, env_steps)
+                        env_steps += E
+                        return action, {}
+                else:
 
-            @torch.no_grad()
-            def explore_act(o):
-                nonlocal env_steps
-                action = act(learner.actor, torch.as_tensor(o, device=device), generator,
-                             torch.tensor(env_steps, dtype=torch.int64, device=device))
-                env_steps += E
-                return action.cpu().numpy(), {}
+                    @torch.no_grad()
+                    def explore_act(o):
+                        nonlocal env_steps
+                        action = act(learner.actor, torch.as_tensor(o, device=device), generator,
+                                     torch.tensor(env_steps, dtype=torch.int64, device=device))
+                        env_steps += E
+                        return action.cpu().numpy(), {}
 
-        t0 = time.perf_counter()
-        wait0 = buffers.wait_s
-        obs, _ = host_collect(pool, obs, cfg.steps_per_iter, explore_act, tracker,
-                              buffers=buffers)
-        buffers.put("env_steps", np.asarray(env_steps, np.int64))
-        t1 = time.perf_counter()
-        clock.add("wait_s", buffers.wait_s - wait0)
-        clock.add("collect_s", t1 - t0 - (buffers.wait_s - wait0))
-        clock.mark()
-        buffers.upload()
-        clock.mark()
-        if snapshot is not None:
-            # The next block's acting parameters: this update's input,
-            # copied in stream order before its replay.
-            snapshot.enqueue()
-        metrics = update()
-        clock.mark()
-        clock.add("dispatch_s", time.perf_counter() - t1)
-        extra = {"env_steps": env_steps}
-        if eval_pool is not None and (it + 1) % eval_every == 0:
-            extra.update(timed_eval(eval_pool, eval_act(), eval_steps))
-        maybe_log(it, log_every, metrics, tracker, history, log_fn, extra=extra,
-                  num_iterations=num_iterations,
-                  force="eval_return" in extra or it == start_it, clock=clock)
-        host_maybe_save(ckpt, it + 1, save_every, num_iterations, pool, metrics, generator,
-                        save_replay=save_replay, learner=learner,
-                        env_steps=torch.tensor(env_steps, dtype=torch.int64))
-        if iteration_hook is not None:
-            iteration_hook(it + 1, run)
+                t0 = time.perf_counter()
+                wait0 = buffers.wait_s
+                obs, _ = host_collect(pool, obs, cfg.steps_per_iter, explore_act, tracker,
+                                      buffers=buffers)
+                buffers.put("env_steps", np.asarray(env_steps, np.int64))
+                t1 = time.perf_counter()
+                clock.add("wait_s", buffers.wait_s - wait0)
+                clock.add("collect_s", t1 - t0 - (buffers.wait_s - wait0))
+                clock.mark()
+                with telemetry.span("host_to_device"):
+                    buffers.upload()
+                clock.mark()
+                if snapshot is not None:
+                    # The next block's acting parameters: this update's input,
+                    # copied in stream order before its replay.
+                    snapshot.enqueue()
+                with telemetry.span("update", dispatch="async"):
+                    metrics = update()
+                clock.mark()
+                clock.add("dispatch_s", time.perf_counter() - t1)
+                extra = {"env_steps": env_steps}
+                if eval_pool is not None and (it + 1) % eval_every == 0:
+                    extra.update(timed_eval(eval_pool, eval_act(), eval_steps))
+                maybe_log(it, log_every, metrics, tracker, history, log_fn, extra=extra,
+                          num_iterations=num_iterations,
+                          force="eval_return" in extra or it == start_it, clock=clock)
+                host_maybe_save(ckpt, it + 1, save_every, num_iterations, pool, metrics,
+                                generator, save_replay=save_replay, learner=learner,
+                                env_steps=torch.tensor(env_steps, dtype=torch.int64))
+                if iteration_hook is not None:
+                    iteration_hook(it + 1, run)
+    finally:
+        sampler.unregister_gauge(gauge)
     return learner, history
+
+
+def offpolicy_name(cfg) -> str:
+    """The off-policy trainer's name for its capture's `compile` event."""
+    return type(cfg).__name__.removesuffix("Config").lower()
+
+
+def register_replay_gauge(learner, cfg) -> str:
+    """Register the `replay` sampler gauge of an off-policy learner's ring:
+    its static capacity facts (capacity, bytes per transition against
+    fp32, the codec mix) and the codec mode. Static on purpose: a live
+    `size` read from the sampler thread would read a device tensor.
+    Returns the gauge's key."""
+    from actor_critic_tpu_torch.replay import quantize
+
+    mode = getattr(cfg, "replay_dtype", "fp32")
+    info = dict(quantize.capacity_report(learner.replay, quantize.offpolicy_codecs(mode)),
+                mode=mode)
+    return sampler.register_gauge("replay", lambda: info)
 
 
 
@@ -791,6 +849,19 @@ class AsyncFeed:
     def done(self, block) -> None:
         if self.device_plane:
             self.queue.release(block)
+
+
+def stage_block(feed: AsyncFeed, block, **scalars: int) -> None:
+    """`feed.stage` as the JAX learners' trace has it: a `host_to_device`
+    span around the host plane's staging and upload, a `host_to_device`
+    instant (`device_plane=True`) on the device plane, where no block
+    bytes move."""
+    if feed.device_plane:
+        telemetry.instant("host_to_device", device_plane=True)
+        feed.stage(block, **scalars)
+        return
+    with telemetry.span("host_to_device"):
+        feed.stage(block, **scalars)
 
 
 def publish_snapshot(snapshot: host_actor.MirrorSnapshot, publisher, version: int) -> float:
@@ -900,13 +971,14 @@ def async_host_maybe_save(ckpt, it: int, save_every: int, num_iterations: int, p
     and the data plane, which a resume checks before the restore."""
     if ckpt is None or not should_save(it, save_every, num_iterations):
         return
-    metrics = {
-        **{k: float(v) for k, v in (metrics or {}).items()},
-        "_pool_scale_actions": float(getattr(pools[0], "scales_actions", False)),
-        "_async_actors": float(len(pools)),
-        "_data_plane_device": float(data_plane == "device"),
-    }
-    ckpt.save(it, async_host_ckpt_state(pools, generator, **device_state), metrics)
+    with telemetry.span("checkpoint", step=it):
+        metrics = {
+            **{k: float(v) for k, v in (metrics or {}).items()},
+            "_pool_scale_actions": float(getattr(pools[0], "scales_actions", False)),
+            "_async_actors": float(len(pools)),
+            "_data_plane_device": float(data_plane == "device"),
+        }
+        ckpt.save(it, async_host_ckpt_state(pools, generator, **device_state), metrics)
 
 
 def async_host_resume(ckpt, template: AsyncHostCheckpoint, pools,
@@ -1070,47 +1142,57 @@ def off_policy_train_host_async(
         eval_act = greedy_eval_act(learner.actor, None, make_host_greedy(spec, cfg), device)
 
     snapshot = host_actor.MirrorSnapshot(learner.actor, pin=device.type == "cuda")
-    update = HostUpdate(body, generator, capture_error_mode="thread_local")
+    update = HostUpdate(body, generator, capture_error_mode="thread_local",
+                        name=f"{offpolicy_name(cfg)}.async_update",
+                        carried=lambda: named_carried({"learner": learner, "block": (
+                            feed.buffers.static if feed.buffers is not None else queue.state)},
+                            ""))
     clock = IterationClock(device)
     run = HostRun(feed.buffers, snapshot, update, {"learner": learner}, clock, queue, gate)
     history: list = []
     metrics: dict = {}
     trackers = MergedEpisodeTracker([a.tracker for a in actors])
+    gauge = register_replay_gauge(learner, cfg)
     try:
         for a in actors:
             a.start()
         for it in range(num_iterations):
+            telemetry.profiler_tick()
             check_actors(actors)
-            queue.set_consumer_version(it)
-            block = consume_block(queue, actors)
-            clock.start(("wait_s", "dispatch_s"))
-            t0 = time.perf_counter()
-            wait0 = feed.wait_s
-            clock.mark()
-            feed.stage(block, env_steps=sum(a.steps_collected for a in actors))
-            clock.mark()
-            # The actors' next parameters: this update's input, copied in
-            # stream order before its replay.
-            snapshot.enqueue()
-            metrics = run_updates(update, 1, gate)
-            clock.mark()
-            if iteration_hook is not None:
-                iteration_hook(it + 1, run)
-            feed.done(block)
-            waited = feed.wait_s - wait0
-            clock.add("dispatch_s", time.perf_counter() - t0 - waited)
-            clock.add("wait_s", waited + publish_snapshot(snapshot, publisher, it))
-            if publish_hook is not None:
-                publish_hook(it, publisher.get()[1])
-            extra = async_row(it, block, queue, actors, cfg.steps_per_iter * E_a)
-            if eval_pool is not None and (it + 1) % eval_every == 0:
-                extra.update(timed_eval(eval_pool, eval_act(), eval_steps))
-            maybe_log(it, log_every, metrics, trackers, history, log_fn, extra=extra,
-                      num_iterations=num_iterations,
-                      force="eval_return" in extra or it == 0, clock=clock)
+            with telemetry.span("iteration", it=it + 1):
+                queue.set_consumer_version(it)
+                with telemetry.span("queue_wait", it=it + 1):
+                    block = consume_block(queue, actors)
+                clock.start(("wait_s", "dispatch_s"))
+                t0 = time.perf_counter()
+                wait0 = feed.wait_s
+                clock.mark()
+                stage_block(feed, block, env_steps=sum(a.steps_collected for a in actors))
+                clock.mark()
+                # The actors' next parameters: this update's input, copied in
+                # stream order before its replay.
+                snapshot.enqueue()
+                with telemetry.span("update", dispatch="async"):
+                    metrics = run_updates(update, 1, gate)
+                clock.mark()
+                if iteration_hook is not None:
+                    iteration_hook(it + 1, run)
+                feed.done(block)
+                waited = feed.wait_s - wait0
+                clock.add("dispatch_s", time.perf_counter() - t0 - waited)
+                clock.add("wait_s", waited + publish_snapshot(snapshot, publisher, it))
+                if publish_hook is not None:
+                    publish_hook(it, publisher.get()[1])
+                extra = async_row(it, block, queue, actors, cfg.steps_per_iter * E_a)
+                if eval_pool is not None and (it + 1) % eval_every == 0:
+                    extra.update(timed_eval(eval_pool, eval_act(), eval_steps))
+                maybe_log(it, log_every, metrics, trackers, history, log_fn, extra=extra,
+                          num_iterations=num_iterations,
+                          force="eval_return" in extra or it == 0, clock=clock)
         if publish_hook is not None:
             publish_hook(num_iterations, host_actor.mirror_params(learner.actor))
     finally:
+        sampler.unregister_gauge(gauge)
         stop_actors(stop, actors, queue)
         if eval_pool is not None:
             eval_pool.close()

@@ -54,18 +54,78 @@ iterations that log: every `log_every`, and always the first and the
 last, and every `eval_every` (an eval iteration always logs, as in the JAX
 CLI), at dispatch boundaries. A replay overwrites the metrics of the one
 before, so they are read before the next replay.
+
+Telemetry (`telemetry/`, JAX's `checkpointed_train` sites): each dispatch
+beats the stall watchdog, ticks the on-demand profiler, and runs in an
+`update` span (`it`, `dispatch`) holding an `env_step` instant (the
+rollout is fused into the step); a `checkpoint` span (`step`, `saved`)
+marks every save boundary, also without `ckpt`, and a `log` span wraps
+each dispatch's log decision (and the sync of a logged row). A replay
+returns once it is queued, so the `update` span is the host's launch
+time, as JAX's is its dispatch time. The save comes before the log, as in
+JAX, unless a `state_hook` is given: then the log's eval runs first, the
+hook installs what it decided, and the save holds it.
+
+The chunk-wall ratchet (JAX's): with `chunk` > 1 and a stall watchdog
+armed, each dispatch waits for its replay (an event sync; the unwatched
+loop adds no sync) and times itself. A dispatch that ran eagerly in the
+warm-up (on the CPU: the process's first), captured a graph or built a
+kernel (`profiler.compile_event_count` moved) only extends the watchdog's
+grace by 3 x its wall; any other raises the watchdog's timeout to at least
+3 x its wall and, with `ckpt`, persists the wall to `<ckpt
+dir>/chunk_wall.json`, which a resumed run reads before its first
+dispatch.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
+import os
+import threading
+import time
 from typing import Any, Callable, Optional
 
 import torch
 
+from actor_critic_tpu_torch import telemetry
+from actor_critic_tpu_torch.telemetry import profiler
+from actor_critic_tpu_torch.utils import watchdog
 from actor_critic_tpu_torch.utils.cadence import should_log, should_save
 
 # Eager iterations before the capture; iteration 1 is always one of them.
 WARMUP_ITERATIONS = 2
+
+
+_collector_lock = threading.Lock()
+_collector_holds = 0
+_collector_was_enabled = True
+
+
+@contextlib.contextmanager
+def capture(graph: torch.cuda.CUDAGraph, **kwargs):
+    """`torch.cuda.graph(graph, **kwargs)` with Python's cyclic collector
+    held off from the first of any overlapping captures until the last
+    ends. A CUDAGraph that the collector frees mid-capture (one of an
+    earlier run, kept in a reference cycle) resets itself, a CUDA call that
+    invalidates a "global"-mode capture from any thread and a
+    "thread_local" one from its own. Garbage waits for the next collection
+    (collecting before each capture, as torch once did, is slow in a large
+    process). Every capture of the port goes through here."""
+    global _collector_holds, _collector_was_enabled
+    with _collector_lock:
+        if _collector_holds == 0:
+            _collector_was_enabled = gc.isenabled()
+            gc.disable()
+        _collector_holds += 1
+    try:
+        with torch.cuda.graph(graph, **kwargs):
+            yield
+    finally:
+        with _collector_lock:
+            _collector_holds -= 1
+            if _collector_holds == 0 and _collector_was_enabled:
+                gc.enable()
 
 
 class CapturedStep:
@@ -75,13 +135,15 @@ class CapturedStep:
     returns the last one's metrics, valid until the next replay.
     `capture_error_mode` is `torch.cuda.graph`'s: the async learners
     capture in "thread_local" mode, so that actor threads may go on
-    enqueueing their copies while the learner's thread captures."""
+    enqueueing their copies while the learner's thread captures. Its
+    callers record the capture as one `compile` event
+    (`telemetry/profiler.record_compile`)."""
 
     def __init__(self, step: Callable, state, iterations: int = 1,
                  capture_error_mode: str = "global"):
         self.graph = torch.cuda.CUDAGraph()
         self.graph.register_generator_state(state.generator)
-        with torch.cuda.graph(self.graph, capture_error_mode=capture_error_mode):
+        with capture(self.graph, capture_error_mode=capture_error_mode):
             for _ in range(iterations):
                 _, self.metrics = step(state)
 
@@ -133,6 +195,9 @@ def fused_train_loop(
         raise ValueError("num_iterations must be >= 1")
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
+    from actor_critic_tpu_torch.algos.common import carried_tensors
+    from actor_critic_tpu_torch.utils import checkpoint
+
     if state is None:
         state = init_state(env, cfg, seed, device)
     done, metrics = 0, {}
@@ -145,32 +210,85 @@ def fused_train_loop(
     warmup_stream = torch.cuda.Stream(state.ep_return.device) if graph else None
     eager_left = WARMUP_ITERATIONS if graph else 0
     captured: dict[int, CapturedStep] = {}  # by steps per replay: 1 and `chunk`
+    chunk_wall_path = None
+    if chunk > 1 and ckpt is not None:
+        chunk_wall_path = os.path.join(ckpt.directory, checkpoint.CHUNK_WALL_FILE)
+        learned = checkpoint._read_chunk_wall(chunk_wall_path)
+        if learned is not None:
+            # This process's first dispatches warm up and capture, and are
+            # never ratcheted from: start from what an earlier leg proved.
+            watchdog.ensure_timeout_at_least(3.0 * learned)
+    name = getattr(make_train_step, "__module__", "step").rpartition(".")[2]
+
+    def save(it: int) -> None:
+        if should_save(it, save_every, num_iterations):
+            with telemetry.span("checkpoint", step=it, saved=ckpt is not None):
+                if ckpt is not None:
+                    ckpt.save(it, state, {n: float(v) for n, v in metrics.items()})
+
+    def log(it: int) -> None:
+        if log_fn is not None:
+            with telemetry.span("log", it=it):
+                if (should_log(it, log_every, num_iterations)
+                        or (eval_every > 0 and it % eval_every == 0)):
+                    log_fn(it, {n: float(v) for n, v in metrics.items()})
+
     it = done
     if state_hook is not None:
         state_hook(it, state)
     while it < num_iterations:
         # A chunk cut short realigns the next one to a multiple of `chunk`.
         k = min(chunk - it % chunk, num_iterations - it)
-        if not graph:
-            for _ in range(k):
-                state, metrics = step(state)
-        elif eager_left > 0:
+        # An eager warm-up iteration on the card; without a graph, the
+        # process's first dispatch (its first-call costs).
+        warm = eager_left > 0 if graph else it == done
+        if graph and warm:
             k, eager_left = 1, eager_left - 1
-            state, metrics = eager_step(step, state, warmup_stream)
-        else:
-            n = chunk if k == chunk else 1
-            if n not in captured:
-                captured[n] = CapturedStep(step, state, n)
-            for _ in range(k // n):
-                metrics = captured[n].replay()
+        watchdog.beat()
+        telemetry.profiler_tick()
+        timed = chunk > 1 and watchdog.armed()
+        compiles_before = profiler.compile_event_count() if timed else 0
+        t_dispatch = time.monotonic()
+        with telemetry.span("update", it=it + k, dispatch="async"):
+            telemetry.instant("env_step", fused=True)
+            if not graph:
+                for _ in range(k):
+                    state, metrics = step(state)
+            elif warm:
+                state, metrics = eager_step(step, state, warmup_stream)
+            else:
+                n = chunk if k == chunk else 1
+                if n not in captured:
+                    with profiler.record_compile(
+                            f"{name}.train_step[x{n}]",
+                            profiler.signature_of(carried_tensors(state))):
+                        captured[n] = CapturedStep(step, state, n)
+                for _ in range(k // n):
+                    metrics = captured[n].replay()
+        if timed:
+            # The replay returned when it was queued: its wall is only seen
+            # behind a wait, taken only while a watchdog is armed.
+            if graph:
+                done_event = torch.cuda.Event()
+                done_event.record()
+                done_event.synchronize()
+            wall = time.monotonic() - t_dispatch
+            if warm or profiler.compile_event_count() > compiles_before:
+                # A warm-up or capture wall would bake that one-off cost into
+                # 3x the stall timeout for good: shield the next chunk only.
+                watchdog.extend_grace(3.0 * wall)
+            else:
+                watchdog.ensure_timeout_at_least(3.0 * wall)
+                if chunk_wall_path is not None:
+                    checkpoint._persist_chunk_wall(chunk_wall_path, wall)
         it += k
-        if log_fn is not None and (
-            should_log(it, log_every, num_iterations)
-            or (eval_every > 0 and it % eval_every == 0)
-        ):
-            log_fn(it, {name: float(v) for name, v in metrics.items()})
-        if state_hook is not None:
+        if state_hook is None:
+            save(it)
+            log(it)
+        else:
+            # The hook installs what this iteration's eval decided, and the
+            # save holds it: a resume then goes on from the same state.
+            log(it)
             state_hook(it, state)
-        if ckpt is not None and should_save(it, save_every, num_iterations):
-            ckpt.save(it, state, {name: float(v) for name, v in metrics.items()})
+            save(it)
     return state, metrics

@@ -34,7 +34,7 @@ from typing import Any, Callable, NamedTuple, Optional, Union
 import numpy as np
 import torch
 
-from actor_critic_tpu_torch import resolve_device
+from actor_critic_tpu_torch import resolve_device, telemetry
 from actor_critic_tpu_torch.algos.common import (
     ScheduleTable,
     TrainState,
@@ -48,6 +48,7 @@ from actor_critic_tpu_torch.algos.common import (
     linear_anneal,
     make_actor_critic,
     make_mode_eval,
+    named_carried,
     rollout_loop,
     rollout_targets,
     schedule_table,
@@ -530,64 +531,73 @@ def train_host(
     def body() -> dict[str, torch.Tensor]:
         return update_step(net, opt_state, schedule, generator, buffers.static, iteration)
 
-    update = host_loop.HostUpdate(body, generator)
+    update = host_loop.HostUpdate(body, generator, name="ppo.host_update",
+                                  carried=lambda: named_carried(
+                                      {"params": net, "opt_state": opt_state,
+                                       "block": buffers.static}, ""))
     run = host_loop.HostRun(buffers, snapshot, update,
                             {"params": net, "opt_state": opt_state}, clock)
     steps_per_iter = cfg.rollout_steps * pool.num_envs
     for it in range(start_it, num_iterations):
-        clock.start()
-        if snapshot is not None:
+        telemetry.profiler_tick()
+        with telemetry.span("iteration", it=it + 1):
+            clock.start()
+            if snapshot is not None:
+                t0 = time.perf_counter()
+                host_params = snapshot.params()
+                clock.add("wait_s", time.perf_counter() - t0)
+
+                def policy_act(o):
+                    action, logp, value = host_policy(host_params, o, rng)
+                    return action, {"log_prob": logp, "value": value}
+            else:
+
+                def policy_act(o):
+                    action, logp, value = device_policy(o)
+                    return action, {"log_prob": logp, "value": value}
+
             t0 = time.perf_counter()
-            host_params = snapshot.params()
-            clock.add("wait_s", time.perf_counter() - t0)
-
-            def policy_act(o):
-                action, logp, value = host_policy(host_params, o, rng)
-                return action, {"log_prob": logp, "value": value}
-        else:
-
-            def policy_act(o):
-                action, logp, value = device_policy(o)
-                return action, {"log_prob": logp, "value": value}
-
-        t0 = time.perf_counter()
-        wait0 = buffers.wait_s
-        obs, block = host_loop.host_collect(pool, obs, cfg.rollout_steps, policy_act, tracker,
-                                            buffers=buffers)
-        if snapshot is not None:
-            # Every GAE baseline from the behaviour parameters that gave the
-            # recorded values.
-            T, E = block["reward"].shape
-            final_obs = block["final_obs"]
-            fv = host_value(host_params, final_obs.reshape(T * E, *final_obs.shape[2:]))
-            buffers.put("final_values", fv.reshape(T, E))
-            buffers.put("bootstrap_value", host_value(host_params, obs))
-        else:
-            buffers.put("last_obs", obs)
-        t1 = time.perf_counter()
-        clock.add("wait_s", buffers.wait_s - wait0)
-        clock.add("collect_s", t1 - t0 - (buffers.wait_s - wait0))
-        clock.mark()
-        buffers.upload()
-        iteration.fill_(it)
-        clock.mark()
-        if snapshot is not None:
-            # The next block's acting parameters: this update's input,
-            # copied in stream order before its replay.
-            snapshot.enqueue()
-        metrics = update()
-        clock.mark()
-        clock.add("dispatch_s", time.perf_counter() - t1)
-        extra = {"env_steps": (it + 1) * steps_per_iter}
-        if eval_pool is not None and (it + 1) % eval_every == 0:
-            extra.update(host_loop.timed_eval(eval_pool, eval_act(), eval_steps))
-        host_loop.maybe_log(it, log_every, metrics, tracker, history, log_fn, extra=extra,
-                            num_iterations=num_iterations,
-                            force="eval_return" in extra or it == start_it, clock=clock)
-        host_loop.host_maybe_save(ckpt, it + 1, save_every, num_iterations, pool, metrics,
-                                  generator, params=net, opt_state=opt_state)
-        if iteration_hook is not None:
-            iteration_hook(it + 1, run)
+            wait0 = buffers.wait_s
+            obs, block = host_loop.host_collect(pool, obs, cfg.rollout_steps, policy_act,
+                                                tracker, buffers=buffers)
+            if snapshot is not None:
+                # Every GAE baseline from the behaviour parameters that gave
+                # the recorded values.
+                T, E = block["reward"].shape
+                final_obs = block["final_obs"]
+                fv = host_value(host_params, final_obs.reshape(T * E, *final_obs.shape[2:]))
+                buffers.put("final_values", fv.reshape(T, E))
+                buffers.put("bootstrap_value", host_value(host_params, obs))
+            else:
+                buffers.put("last_obs", obs)
+            t1 = time.perf_counter()
+            clock.add("wait_s", buffers.wait_s - wait0)
+            clock.add("collect_s", t1 - t0 - (buffers.wait_s - wait0))
+            clock.mark()
+            with telemetry.span("host_to_device"):
+                buffers.upload()
+                iteration.fill_(it)
+            clock.mark()
+            if snapshot is not None:
+                # The next block's acting parameters: this update's input,
+                # copied in stream order before its replay.
+                snapshot.enqueue()
+            # The replay returns once it is queued: the span is the host's
+            # launch time, not the update's device time.
+            with telemetry.span("update", dispatch="async"):
+                metrics = update()
+            clock.mark()
+            clock.add("dispatch_s", time.perf_counter() - t1)
+            extra = {"env_steps": (it + 1) * steps_per_iter}
+            if eval_pool is not None and (it + 1) % eval_every == 0:
+                extra.update(host_loop.timed_eval(eval_pool, eval_act(), eval_steps))
+            host_loop.maybe_log(it, log_every, metrics, tracker, history, log_fn, extra=extra,
+                                num_iterations=num_iterations,
+                                force="eval_return" in extra or it == start_it, clock=clock)
+            host_loop.host_maybe_save(ckpt, it + 1, save_every, num_iterations, pool, metrics,
+                                      generator, params=net, opt_state=opt_state)
+            if iteration_hook is not None:
+                iteration_hook(it + 1, run)
     return net, opt_state, history
 
 
@@ -908,7 +918,10 @@ def train_host_async(
                                              host_actor.make_ppo_host_greedy(spec, cfg), device)
 
     snapshot = host_actor.MirrorSnapshot(net, pin=device.type == "cuda")
-    update = host_loop.HostUpdate(body, generator, capture_error_mode="thread_local")
+    update = host_loop.HostUpdate(
+        body, generator, capture_error_mode="thread_local", name="ppo.async_update",
+        carried=lambda: named_carried({"params": net, "opt_state": opt_state, "block": (
+            feed.buffers.static if feed.buffers is not None else queue.state)}, ""))
     clock = host_loop.IterationClock(device)
     run = host_loop.HostRun(feed.buffers, snapshot, update,
                             {"params": net, "opt_state": opt_state}, clock, queue, gate)
@@ -922,38 +935,43 @@ def train_host_async(
             for a in actors:
                 a.start()
         for it in range(start_it, num_iterations):
+            telemetry.profiler_tick()
             host_loop.check_actors(actors)
-            queue.set_consumer_version(it)
-            block = consume_block(queue, actors)
-            clock.start(("wait_s", "dispatch_s"))
-            t0 = time.perf_counter()
-            wait0 = feed.wait_s
-            clock.mark()
-            feed.stage(block)
-            iteration.fill_(it)
-            clock.mark()
-            # The actors' next parameters: this update's input, copied in
-            # stream order before its replay.
-            snapshot.enqueue()
-            metrics = host_loop.run_updates(update, updates_per_block, gate)
-            clock.mark()
-            if iteration_hook is not None:
-                iteration_hook(it + 1, run)
-            feed.done(block)
-            waited = feed.wait_s - wait0
-            clock.add("dispatch_s", time.perf_counter() - t0 - waited)
-            clock.add("wait_s", waited + host_loop.publish_snapshot(snapshot, publisher, it))
-            if publish_hook is not None:
-                publish_hook(it, publisher.get()[1])
-            extra = host_loop.async_row(it, block, queue, actors, cfg.rollout_steps * E_a)
-            if eval_pool is not None and (it + 1) % eval_every == 0:
-                extra.update(host_loop.timed_eval(eval_pool, eval_act(), eval_steps))
-            host_loop.maybe_log(it, log_every, metrics, trackers, history, log_fn, extra=extra,
-                                num_iterations=num_iterations,
-                                force="eval_return" in extra or it == start_it, clock=clock)
-            if ckpt is not None:
-                host_loop.async_host_maybe_save(ckpt, it + 1, save_every, num_iterations, pools,
-                                                metrics, generator, data_plane, **device_state())
+            with telemetry.span("iteration", it=it + 1):
+                queue.set_consumer_version(it)
+                with telemetry.span("queue_wait", it=it + 1):
+                    block = consume_block(queue, actors)
+                clock.start(("wait_s", "dispatch_s"))
+                t0 = time.perf_counter()
+                wait0 = feed.wait_s
+                clock.mark()
+                host_loop.stage_block(feed, block)
+                iteration.fill_(it)
+                clock.mark()
+                # The actors' next parameters: this update's input, copied in
+                # stream order before its replay.
+                snapshot.enqueue()
+                with telemetry.span("update", dispatch="async"):
+                    metrics = host_loop.run_updates(update, updates_per_block, gate)
+                clock.mark()
+                if iteration_hook is not None:
+                    iteration_hook(it + 1, run)
+                feed.done(block)
+                waited = feed.wait_s - wait0
+                clock.add("dispatch_s", time.perf_counter() - t0 - waited)
+                clock.add("wait_s", waited + host_loop.publish_snapshot(snapshot, publisher, it))
+                if publish_hook is not None:
+                    publish_hook(it, publisher.get()[1])
+                extra = host_loop.async_row(it, block, queue, actors, cfg.rollout_steps * E_a)
+                if eval_pool is not None and (it + 1) % eval_every == 0:
+                    extra.update(host_loop.timed_eval(eval_pool, eval_act(), eval_steps))
+                host_loop.maybe_log(it, log_every, metrics, trackers, history, log_fn,
+                                    extra=extra, num_iterations=num_iterations,
+                                    force="eval_return" in extra or it == start_it, clock=clock)
+                if ckpt is not None:
+                    host_loop.async_host_maybe_save(ckpt, it + 1, save_every, num_iterations,
+                                                    pools, metrics, generator, data_plane,
+                                                    **device_state())
         if publish_hook is not None:
             publish_hook(num_iterations, host_actor.mirror_params(net))
     finally:

@@ -25,8 +25,10 @@ The learners live with their algorithms (`ppo.train_host_async`,
 `host_loop.off_policy_train_host_async`). The device data plane
 (`data_plane/ring.py`) speaks the same producer/consumer protocol.
 
-The JAX module's sampler gauge is telemetry, which is not ported yet
-(ROADMAP Queue 1 item 10); `stats()` returns the same row.
+Telemetry: every queue registers its `stats()` row as a sampler gauge
+(`telemetry/sampler.py register_gauge`, key `traj_queue` by default) so
+depth, staleness, drops and learner idle time ride `resources.jsonl` and
+`/metrics`; `close()` unregisters it.
 """
 
 from __future__ import annotations
@@ -68,7 +70,8 @@ class TrajQueue:
     the bound."""
 
     def __init__(self, depth: int, max_staleness: Optional[int] = None,
-                 policy: str = "drop_oldest"):
+                 policy: str = "drop_oldest", gauge_name: str = "traj_queue",
+                 register_gauge: bool = True):
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         if policy not in ("drop_oldest", "block"):
@@ -91,6 +94,12 @@ class TrajQueue:
         self._last_staleness = 0
         self._max_staleness_seen = 0
         self._idle_s = 0.0
+        self._closed = False
+        self._gauge_key: Optional[str] = None
+        if register_gauge:
+            from actor_critic_tpu_torch.telemetry import sampler
+
+            self._gauge_key = sampler.register_gauge(gauge_name, self.stats)
 
     # -- producer ----------------------------------------------------------
     def put(self, arrays: dict[str, np.ndarray], version: int, actor_id: int = 0,
@@ -193,7 +202,17 @@ class TrajQueue:
             }
 
     def close(self) -> None:
-        """Nothing to free (the JAX queue unregisters its gauge here)."""
+        """Unregister the queue's gauge (idempotent: a second close, from a
+        teardown racing an error path, is a no-op)."""
+        with self._cv:
+            if self._closed:
+                return
+            self._closed = True
+            gauge_key, self._gauge_key = self._gauge_key, None
+        if gauge_key is not None:
+            from actor_critic_tpu_torch.telemetry import sampler
+
+            sampler.unregister_gauge(gauge_key)
 
 
 def validate_pools(pools) -> tuple:

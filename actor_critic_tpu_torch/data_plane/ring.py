@@ -186,7 +186,8 @@ class DeviceTrajRing:
 
     def __init__(self, depth: int, block_spec: dict, codec: Any = "fp32",
                  max_staleness: Optional[int] = None, policy: str = "drop_oldest",
-                 transfer_pad_s: float = 0.0, device: torch.device | str = "cpu"):
+                 transfer_pad_s: float = 0.0, device: torch.device | str = "cpu",
+                 gauge_name: str = "device_ring", register_gauge: bool = True):
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         if policy not in ("drop_oldest", "block"):
@@ -261,6 +262,11 @@ class DeviceTrajRing:
         self._idle_s = 0.0
         self._enqueue_bytes = 0
         self._closed = False
+        self._gauge_key: Optional[str] = None
+        if register_gauge:
+            from actor_critic_tpu_torch.telemetry import sampler
+
+            self._gauge_key = sampler.register_gauge(gauge_name, self.stats)
 
     @property
     def state(self) -> RingState:
@@ -511,4 +517,9 @@ class DeviceTrajRing:
     def close(self) -> None:
         with self._cv:
             self._closed = True
+            gauge_key, self._gauge_key = self._gauge_key, None
             self._cv.notify_all()
+        if gauge_key is not None:
+            from actor_critic_tpu_torch.telemetry import sampler
+
+            sampler.unregister_gauge(gauge_key)

@@ -43,12 +43,16 @@ _f64p = ctypes.POINTER(ctypes.c_double)
 
 def build() -> Path:
     """Compile `vecenv.cpp` into `LIB`; raises ImportError with the
-    compiler's output when g++ is missing or fails."""
+    compiler's output when g++ is missing or fails. The build is recorded
+    as one `compile` event (`telemetry/profiler.py`)."""
+    from actor_critic_tpu_torch.telemetry import profiler
+
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = LIB.with_suffix(f".{os.getpid()}.tmp")
     try:
-        subprocess.run(["g++", *CXX_FLAGS, str(SRC), "-o", str(tmp)],
-                       check=True, capture_output=True, text=True)
+        with profiler.record_compile("vecenv.cpp", " ".join(CXX_FLAGS), capture=False):
+            subprocess.run(["g++", *CXX_FLAGS, str(SRC), "-o", str(tmp)],
+                           check=True, capture_output=True, text=True)
         os.replace(tmp, LIB)
     except FileNotFoundError as e:
         raise ImportError(f"the native env engine needs g++ to build: {e}") from e

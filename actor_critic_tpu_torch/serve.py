@@ -19,11 +19,18 @@ the CPU (eager acts); by default the card serves, and a run without one
 raises. `--backend xla`, the JAX CLI's name for it, is `--backend device`.
 `--set bf16_compute=true` serves a bf16 policy: its act graphs run the
 trainer's bf16 network (the `mirror` backend stays float32, as JAX's).
+`--telemetry-dir DIR` attaches a telemetry session (started before the
+engine, so each bucket's capture is a `compile` event): `/metrics` serves
+the session's full exposition (the card's memory, the recompile count,
+the serving gauge), every request's hops are spans in `DIR/spans.jsonl`
+(`serve_parse`, `serve_queue_wait`, `serve_dispatch`, `serve_respond`,
+`serve_request`, linked by flows), and the session's own exporter binds
+an OS-assigned port on `--telemetry-bind` (loopback only: the port has no
+`--distributed`).
 
 Not ported yet, refused with the ROADMAP item each belongs to: the
-telemetry and compile-cache flags (`--telemetry-dir`, `--telemetry-bind`,
-`--compile-cache-dir`, `--no-warmup`) and the fleet's (`--distributed`,
-`--rank`, `--world`, the mailbox flags).
+compile-cache flags (`--compile-cache-dir`, `--no-warmup`) and the
+fleet's (`--distributed`, `--rank`, `--world`, the mailbox flags).
 """
 
 from __future__ import annotations
@@ -35,8 +42,6 @@ import time
 # The JAX CLI's flags whose paths are not ported yet, with the ROADMAP
 # Queue 1 item each belongs to.
 UNPORTED_FLAGS = {
-    "--telemetry-dir": "item 10, telemetry",
-    "--telemetry-bind": "item 10, telemetry",
     "--compile-cache-dir": "item 10, the compile cache",
     "--no-warmup": "item 10, the compile cache's warm-up",
     "--distributed": "item 8, multi-GPU",
@@ -155,10 +160,22 @@ def parse_args(argv=None) -> argparse.Namespace:
         help="per-policy latency SLO class in ms (repeatable; plain MS applies to every policy "
         "without its own); /metrics exports slo_burn per policy")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--telemetry-dir", default=None,
+                   help="attach a TelemetrySession: /metrics serves the full exporter exposition "
+                   "and the serving gauge is sampled to disk")
+    p.add_argument("--telemetry-bind", default="127.0.0.1", metavar="HOST",
+                   help="bind address for the session's telemetry exporter (default 127.0.0.1; "
+                   "non-loopback refused: /metrics has no auth)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     for flag in UNPORTED_FLAGS:
         p.add_argument(flag, nargs="?", action=_NotPorted, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
+    from actor_critic_tpu_torch.telemetry.exporter import validate_bind
+
+    try:
+        validate_bind(args.telemetry_bind)
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
     # A JAX command line that spells out its default backend serves here too.
     args.backend = BACKEND_ALIASES.get(args.backend, args.backend)
     return args
@@ -228,25 +245,49 @@ def build(args: argparse.Namespace):
     return engine, store, wait_default
 
 
+def start_session(args: argparse.Namespace):
+    """The `--telemetry-dir` session (installed as the current one), or
+    None."""
+    if not args.telemetry_dir:
+        return None
+    from actor_critic_tpu_torch import telemetry
+
+    session = telemetry.TelemetrySession(
+        args.telemetry_dir,
+        run_info={"mode": "serve", "algo": args.algo or args.preset, "preset": args.preset,
+                  "buckets": args.buckets},
+        serve_port=0, serve_host=args.telemetry_bind)
+    telemetry.set_current(session)
+    return session
+
+
 def main(argv=None) -> int:
     from actor_critic_tpu_torch import serving
 
     args = parse_args(argv)
-    engine, store, wait_default = build(args)
-    gateway = serving.ServeGateway(
-        store, port=args.port, host=args.host, max_wait_us=wait_default,
-        queue_limit=args.queue_limit, max_inflight=args.max_inflight,
-        shed_burn_threshold=args.shed_burn_threshold)
-    # The ACTUAL bound port: with --port 0 the OS-assigned one.
-    print(f"serving gateway: {gateway.url}/v1/act (policies: {sorted(store.ids())}, default "
-          f"{store.default_id!r}; also /v1/swap /v1/policies /metrics /healthz)", flush=True)
+    session = start_session(args)
+    gateway = None
     try:
+        engine, store, wait_default = build(args)
+        gateway = serving.ServeGateway(
+            store, port=args.port, host=args.host, session=session, max_wait_us=wait_default,
+            queue_limit=args.queue_limit, max_inflight=args.max_inflight,
+            shed_burn_threshold=args.shed_burn_threshold)
+        # The ACTUAL bound port: with --port 0 the OS-assigned one.
+        print(f"serving gateway: {gateway.url}/v1/act (policies: {sorted(store.ids())}, "
+              f"default {store.default_id!r}; also /v1/swap /v1/policies /metrics /healthz)",
+              flush=True)
+        if session is not None:
+            print(f"telemetry exporter: {session.exporter.url}/metrics /healthz", flush=True)
         while True:
             time.sleep(3600)
     except KeyboardInterrupt:
         print("shutting down", flush=True)
     finally:
-        gateway.close()
+        if gateway is not None:
+            gateway.close()
+        if session is not None:
+            session.close()
     return 0
 
 

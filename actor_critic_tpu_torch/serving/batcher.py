@@ -34,13 +34,17 @@ Requests are COPIED at submit (`np.array`) so the batcher owns every
 payload: a client reusing its obs buffer after submit() cannot tear a
 flush.
 
-The JAX batcher's span and flow emission (`_emit_flush_trace`,
-`session_resolver`) needs a telemetry session, which is not ported yet
-(ROADMAP Queue 1 item 10); without a session JAX's emits nothing either.
+Tracing: with a telemetry session (the gateway's, through
+`session_resolver`, else the process's current one) every flush emits a
+`serve_dispatch` span and, per traced request, a `serve_queue_wait` span
+and a flow step that links it to the request's gateway-thread track
+(`_emit_flush_trace`). Host-side JSON only: nothing here touches the
+card. Without a session nothing is emitted.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 import queue as _queue
 import threading
@@ -52,6 +56,8 @@ import numpy as np
 
 from actor_critic_tpu_torch.serving.policy_store import PolicyStore
 from actor_critic_tpu_torch.telemetry import histo
+from actor_critic_tpu_torch.telemetry.session import current as _telemetry_current
+from actor_critic_tpu_torch.telemetry.spans import flow_id_of
 
 
 class QueueFull(RuntimeError):
@@ -269,7 +275,7 @@ class _PendingRequest:
     """One enqueued act request; completed by the dispatcher."""
 
     __slots__ = ("policy_id", "obs", "rows", "result", "error", "done",
-                 "t_enq", "trace_id")
+                 "t_enq", "trace_id", "t_enq_pc")
 
     def __init__(
         self, policy_id: str, obs: np.ndarray,
@@ -282,8 +288,12 @@ class _PendingRequest:
         self.error: Optional[BaseException] = None
         self.done = threading.Event()
         self.t_enq = time.monotonic()
-        # The gateway's request id (echoed in its response).
+        # The gateway's request id (echoed in its response), and the
+        # perf_counter enqueue stamp its queue-wait span starts from (t_enq
+        # is monotonic, the latency metric's clock; spans live on the
+        # tracer's perf_counter axis).
         self.trace_id = trace_id
+        self.t_enq_pc = time.perf_counter()
 
 
 class MicroBatcher:
@@ -340,6 +350,13 @@ class MicroBatcher:
         self._handoff: Optional[_queue.Queue] = None
         self._flights: list[threading.Thread] = []
         self._flight_error: Optional[BaseException] = None
+        self._flush_counter = itertools.count(1)
+        self._flush_seq = 0  # latest drawn seq, for introspection only
+        # Span-emission target: the owning gateway points this at its
+        # _trace_session, so the dispatcher's hops land in the same session
+        # as the gateway thread's even when that session is attached rather
+        # than installed as the current one. None: the current session.
+        self.session_resolver = None
         self._thread: Optional[threading.Thread] = None
         if start:
             self.start()
@@ -550,6 +567,7 @@ class MicroBatcher:
         lock-guarded (metrics), or GIL-atomic (the last-flush stamp), and
         engine.act is safe to run concurrently across flights (each
         checks out a lane of its own)."""
+        t_disp_pc = time.perf_counter()
         try:
             # Re-resolve the handle at flush time: a hot-swap that
             # landed while this flush waited serves the NEW version;
@@ -585,7 +603,36 @@ class MicroBatcher:
                 occupancy=occupancy,
                 slo_ms=getattr(handle, "slo_ms", None),
             )
+            seq = next(self._flush_counter)
+            self._flush_seq = seq
+            self._emit_flush_trace(batch, handle, rows, occupancy, t_disp_pc,
+                                   time.perf_counter(), seq)
         self._last_flush_t = time.monotonic()
+
+    def _emit_flush_trace(self, batch, handle, rows: int, occupancy: float,
+                          t_disp_pc: float, t_done_pc: float, seq: int) -> None:
+        """The dispatcher-side hops of one flush: a `serve_dispatch` span over
+        the engine's act, one `serve_queue_wait` span per traced request
+        (enqueue stamp to the flush's start), and a flow STEP per trace id
+        binding both to the request's gateway-thread track. No-op without a
+        session."""
+        resolver = self.session_resolver
+        session = resolver() if resolver is not None else _telemetry_current()
+        if session is None:
+            return
+        tracer = session.tracer
+        tracer.complete("serve_dispatch", t_disp_pc, t_done_pc - t_disp_pc, {
+            "policy": handle.policy_id, "version": handle.version, "rows": rows,
+            "requests": len(batch), "occupancy": round(occupancy, 4), "flush": seq,
+        })
+        for r in batch:
+            if r.trace_id is None:
+                continue
+            tracer.complete("serve_queue_wait", r.t_enq_pc, max(t_disp_pc - r.t_enq_pc, 0.0),
+                            {"trace": r.trace_id, "flush": seq, "policy": r.policy_id})
+            # Stamped INSIDE the dispatch span, so the arrow lands on the
+            # flush that served this request.
+            tracer.flow(flow_id_of(r.trace_id), "t", ts_us=tracer.pc_to_us(t_disp_pc))
 
     # -- introspection / lifecycle ------------------------------------------
 

@@ -57,8 +57,10 @@ import torch
 from torch import nn
 
 from actor_critic_tpu_torch import resolve_device, weights
+from actor_critic_tpu_torch.algos import loop
 from actor_critic_tpu_torch.algos.traj_queue import snapshot_frozen
 from actor_critic_tpu_torch.models import host_actor
+from actor_critic_tpu_torch.telemetry import profiler
 
 # Serving act programs are tiny (one policy forward); a fine-grained ladder
 # keeps padding waste low at small occupancy while the top end bounds the
@@ -183,6 +185,7 @@ class _Lane:
     def __init__(self, engine: "PolicyEngine", index: int):
         dev = engine.device
         self.engine = engine
+        self.index = index
         self.cuda = dev.type == "cuda"
         self.net = engine._network().to(dev)
         self.net.requires_grad_(False)
@@ -229,8 +232,10 @@ class _Lane:
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
             graph.register_generator_state(self.generator)
-        with torch.cuda.graph(graph, stream=self.stream, capture_error_mode="thread_local"):
-            out = self._forward(b)
+        signature = profiler.signature_of({"obs": self.inputs[b]})
+        with profiler.record_compile(f"serving.act[b={b},lane={self.index}]", signature):
+            with loop.capture(graph, stream=self.stream, capture_error_mode="thread_local"):
+                out = self._forward(b)
         self.outputs[b] = out
         self.stage_out[b] = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         self.graphs[b] = graph

@@ -15,7 +15,10 @@
                         non-finite checkpoint.
     GET  /v1/policies   {"policies": {id: version}, "default": id}
     GET  /metrics       Prometheus text of the serving gauge (the SLO
-                        histograms as `_bucket/_sum/_count` families).
+                        histograms as `_bucket/_sum/_count` families);
+                        with a telemetry session attached, the session's
+                        full exposition (`telemetry/exporter.py`: the
+                        card's memory, recompiles, every gauge).
     GET  /healthz       Dispatcher liveness; 503 when the dispatcher
                         thread is dead or visibly stalled (non-empty
                         queue, no flush for `stall_after_s`).
@@ -27,9 +30,14 @@ keep-alive, so a closed-loop client's measured latency is the gateway's,
 not TCP setup. `threaded=False` is the single-threaded HTTP/1.0 baseline
 with a batch-1, zero-wait batcher.
 
-Not ported yet: the telemetry session's exposition, spans and flows
-(ROADMAP Queue 1 item 10) and the fleet health and aggregation routes
-(item 8).
+With a telemetry session (`session=`, else the process's current one)
+each /v1/act request emits its hops as spans, linked by one Chrome-trace
+flow per trace id: `serve_parse` and `serve_request` on the handler
+thread, `serve_queue_wait` and `serve_dispatch` on the dispatcher
+(`batcher._emit_flush_trace`), `serve_respond` after the socket write.
+
+Not ported yet: the fleet health and aggregation routes (ROADMAP Queue 1
+item 8).
 """
 
 from __future__ import annotations
@@ -54,10 +62,12 @@ from actor_critic_tpu_torch.serving.policy_store import PolicyStore, UnknownPoli
 from actor_critic_tpu_torch.telemetry import histo as _histo
 from actor_critic_tpu_torch.telemetry import sampler as _sampler
 from actor_critic_tpu_torch.telemetry.exporter import _line, _metric_name
+from actor_critic_tpu_torch.telemetry.session import current as _telemetry_current
+from actor_critic_tpu_torch.telemetry.spans import flow_id_of
 from actor_critic_tpu_torch.utils.numguard import NonFiniteError
 
 TRACE_HEADER = "x-trace-id"
-_TRACE_ID_MAX = 64  # a hostile header must not bloat every response
+_TRACE_ID_MAX = 64  # a hostile header must not bloat every span row
 
 
 def mint_trace_id() -> str:
@@ -125,14 +135,17 @@ class _Handler(BaseHTTPRequestHandler):
     def do_POST(self) -> None:  # noqa: N802 (http.server contract)
         gw = self.server.gateway  # type: ignore[attr-defined]
         path = urlparse(self.path).path
+        t_recv_pc = time.perf_counter()
         try:
             body = self._read_body()
             if body is None:
                 self._respond_json(400, {"error": "body must be a JSON object"})
             elif path == "/v1/act":
                 trace_id = (self.headers.get(TRACE_HEADER) or mint_trace_id())[:_TRACE_ID_MAX]
-                status, out = gw.handle_act(body, trace_id=trace_id)
+                status, out = gw.handle_act(body, trace_id=trace_id, t_recv_pc=t_recv_pc)
+                t_resp_pc = time.perf_counter()
                 self._respond_json(status, out, headers={TRACE_HEADER: trace_id})
+                gw.emit_respond_span(trace_id, t_resp_pc)
             elif path == "/v1/swap":
                 self._respond_json(*gw.handle_swap(body))
             else:
@@ -192,13 +205,16 @@ class ServeGateway:
 
     `threaded=False` swaps the concurrent server and micro-batcher for a
     single-threaded HTTP/1.0 server with a batch-1, zero-wait batcher: the
-    sequential baseline."""
+    sequential baseline. `session`: a telemetry session the request spans
+    go to and `/metrics` renders (default: the process's current session
+    for spans, the serving gauge alone for `/metrics`)."""
 
     def __init__(
         self,
         store: PolicyStore,
         port: int = 0,
         host: str = "127.0.0.1",
+        session=None,
         max_wait_us: float = 2000.0,
         max_batch_rows: Optional[int] = None,
         queue_limit: int = 256,
@@ -211,6 +227,7 @@ class ServeGateway:
         shed_queue_frac: float = 0.5,
     ):
         self.store = store
+        self.session = session
         self.threaded = bool(threaded)
         self.request_timeout_s = float(request_timeout_s)
         self.stall_after_s = float(stall_after_s)
@@ -225,6 +242,8 @@ class ServeGateway:
             queue_limit=queue_limit, max_inflight=max_inflight,
             shed_burn_threshold=shed_burn_threshold, shed_queue_frac=shed_queue_frac,
         )
+        # The dispatcher's hops go to the same session as the handler's.
+        self.batcher.session_resolver = self._trace_session
         self._gauge_key = _sampler.register_gauge("serving", self.batcher.gauge)
         try:
             if threaded:
@@ -250,16 +269,38 @@ class ServeGateway:
 
     # -- route handlers (return (status, body); HTTP-free for tests) ---------
 
-    def handle_act(self, body: dict, trace_id: Optional[str] = None) -> tuple[int, dict]:
+    def _trace_session(self):
+        """Span-emission target: the attached session, else the current one."""
+        return self.session if self.session is not None else _telemetry_current()
+
+    def emit_respond_span(self, trace_id: str, t_resp_pc: float) -> None:
+        """The `serve_respond` hop: response serialization and the socket
+        write the handler just finished."""
+        sess = self._trace_session()
+        if sess is not None:
+            sess.tracer.complete("serve_respond", t_resp_pc, time.perf_counter() - t_resp_pc,
+                                 {"trace": trace_id})
+
+    def handle_act(self, body: dict, trace_id: Optional[str] = None,
+                   t_recv_pc: Optional[float] = None) -> tuple[int, dict]:
         """One /v1/act request; a direct caller may omit `trace_id` (one is
-        minted, so the response carries one either way)."""
+        minted, so the response carries one either way) and `t_recv_pc`
+        (the handler's socket-read stamp)."""
+        t0_pc = time.perf_counter() if t_recv_pc is None else t_recv_pc
         tid = trace_id or mint_trace_id()
-        status, out = self._act(body, tid)
+        status, out = self._act(body, tid, t0_pc)
         if isinstance(out, dict):
             out.setdefault("trace", tid)
+        sess = self._trace_session()
+        if sess is not None:
+            # Flow END first: its ts must land inside the serve_request
+            # slice emitted next.
+            sess.tracer.flow(flow_id_of(tid), "f")
+            sess.tracer.complete("serve_request", t0_pc, time.perf_counter() - t0_pc,
+                                 {"trace": tid, "status": status})
         return status, out
 
-    def _act(self, body: dict, tid: str) -> tuple[int, dict]:
+    def _act(self, body: dict, tid: str, t0_pc: float) -> tuple[int, dict]:
         policy_id = body.get("policy")
         if "obs" not in body:
             return 400, {"error": "missing 'obs'"}
@@ -282,6 +323,11 @@ class ServeGateway:
                                       f"{tuple(obs.shape)}"}
         elif obs.ndim == 0:
             return 400, {"error": "obs must be at least rank 1"}
+        sess = self._trace_session()
+        if sess is not None:
+            # The parse hop: socket read, JSON decode, obs validation.
+            sess.tracer.complete("serve_parse", t0_pc, time.perf_counter() - t0_pc,
+                                 {"trace": tid})
         t0 = time.monotonic()
         try:
             # Route by the RESOLVED id: the default route could be repointed
@@ -297,6 +343,10 @@ class ServeGateway:
         except DispatcherDown as e:
             self.batcher.metrics.record_shed()
             return 503, {"error": str(e)}
+        if sess is not None:
+            # Flow START on this thread, inside serve_request: the
+            # dispatcher's flow step links the flush that serves it back here.
+            sess.tracer.flow(flow_id_of(tid), "s")
         try:
             actions, version = self.batcher.wait(req, timeout=self.request_timeout_s)
         except (DispatcherDown, TimeoutError) as e:
@@ -347,6 +397,10 @@ class ServeGateway:
         return 200, body
 
     def render_metrics(self) -> str:
+        if self.session is not None:
+            from actor_critic_tpu_torch.telemetry.exporter import render_metrics
+
+            return render_metrics(self.session)
         return standalone_metrics(self.batcher)
 
     def close(self) -> None:

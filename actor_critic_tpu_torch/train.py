@@ -84,6 +84,22 @@ hot-swapped to version it + 1 at block it's publish and to blocks + 1
 with the final parameters; `python -m actor_critic_tpu_torch.serve`
 serves checkpoints on their own.
 
+Telemetry (`telemetry/`, JAX's flags): `--telemetry-dir DIR` writes
+`spans.jsonl` (Chrome-trace phase spans), `resources.jsonl` (RSS, the
+card's live and peak bytes, the recompile counter, which counts CUDA-graph
+captures and kernel builds, and the registered gauges, every
+`--telemetry-sample-s` seconds) and `events.jsonl` (health, lifecycle and
+`compile` events) there, with the crash flight recorder's ring beside
+them; `scripts/run_report.py DIR` renders them. `--telemetry-port P`
+(with `--telemetry-dir`; 0 = OS-assigned, printed) serves `/metrics`,
+`/healthz` and `/profile?iters=N` (a `torch.profiler` window of the next N
+dispatches) on `--telemetry-bind` (loopback only); SIGUSR2 also arms a
+window. `--stall-timeout S` arms the stall watchdog: no progress for S
+seconds exits 42 with a diagnosis naming the open span, for a retry loop
+that resumes; with `--chunk` and `--ckpt-dir` the loop ratchets the
+timeout up to 3 x each clean chunk's wall and keeps the wall in
+`chunk_wall.json`.
+
 Not ported yet, and refused with a message that says so: `--workers` (the
 sharded host pool) and the flags of the other paths that come later
 (`UNPORTED_FLAGS`).
@@ -102,7 +118,7 @@ import warnings
 
 import torch
 
-from actor_critic_tpu_torch import resolve_device
+from actor_critic_tpu_torch import resolve_device, telemetry
 from actor_critic_tpu_torch.algos import a2c, ddpg, impala, ppo, sac
 from actor_critic_tpu_torch.algos.loop import fused_train_loop
 from actor_critic_tpu_torch.config import (
@@ -123,6 +139,7 @@ from actor_critic_tpu_torch.envs import (
 )
 from actor_critic_tpu_torch.envs.env import TorchEnv
 from actor_critic_tpu_torch.envs.host_pool import HostEnvPool
+from actor_critic_tpu_torch.telemetry import sampler
 from actor_critic_tpu_torch.utils.cadence import finite_or_none
 from actor_critic_tpu_torch.utils.checkpoint import Checkpointer
 from actor_critic_tpu_torch.utils.logging import JsonlLogger
@@ -150,11 +167,6 @@ UNPORTED_FLAGS = {
     "--gossip-every": "multi-GPU",
     "--gossip-weight": "multi-GPU",
     "--mailbox-dir": "multi-GPU",
-    "--telemetry-dir": "telemetry",
-    "--telemetry-port": "telemetry",
-    "--telemetry-bind": "telemetry",
-    "--telemetry-sample-s": "telemetry",
-    "--stall-timeout": "the stall watchdog",
     "--compile-cache-dir": "the compile cache",
     "--warmup": "the compile cache's warm-up",
     "--no-warmup": "the compile cache's warm-up",
@@ -403,11 +415,50 @@ def parse_args(argv=None) -> argparse.Namespace:
         "--serve-buckets", default="1,4,16", metavar="B,B,..",
         help="--serve-port: act bucket sizes of the gateway, each one CUDA graph on the card "
         "(default 1,4,16; captured before training starts)")
+    p.add_argument(
+        "--telemetry-dir",
+        help="run telemetry: write spans.jsonl (Chrome-trace phase events; render with "
+        "scripts/run_report.py --trace or open in Perfetto), resources.jsonl (RSS, the card's "
+        "memory, recompiles: CUDA-graph captures and kernel builds) and events.jsonl (health, "
+        "lifecycle and compile events) under this directory. Phase instrumentation is always "
+        "on and near-free; this flag only adds the file sinks and the resource sampler thread")
+    p.add_argument(
+        "--telemetry-port", type=int, default=None, metavar="PORT",
+        help="live run introspection: serve GET /metrics (Prometheus text), /healthz "
+        "(watchdog staleness and open span; 503 when stalled) and /profile?iters=N (arm an "
+        "on-demand torch.profiler window) on --telemetry-bind:PORT from a daemon thread. 0 "
+        "picks an ephemeral port (printed at startup). Requires --telemetry-dir (profile "
+        "windows land there). SIGUSR2 also arms a window")
+    p.add_argument(
+        "--telemetry-bind", default="127.0.0.1", metavar="HOST",
+        help="bind address for the --telemetry-port exporter (default 127.0.0.1). "
+        "Non-loopback binds expose unauthenticated run internals and are refused")
+    p.add_argument(
+        "--telemetry-sample-s", type=float, default=5.0, metavar="SECS",
+        help="cadence of the telemetry resource sampler thread (resources.jsonl rows; "
+        "default 5 s). Only meaningful with --telemetry-dir")
+    p.add_argument(
+        "--stall-timeout", type=float, default=0,
+        help="seconds without training progress before the process exits 42 (device presumed "
+        "wedged) so a retry loop can --resume; 0 = off. Pair with --ckpt-dir/--save-every")
     p.add_argument("--list-presets", action="store_true")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     for flag in UNPORTED_FLAGS:
         p.add_argument(flag, nargs="?", action=_NotPorted, help=argparse.SUPPRESS)
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.telemetry_port is not None and not args.telemetry_dir:
+        raise SystemExit(
+            "--telemetry-port requires --telemetry-dir (the exporter serves the session's "
+            "sinks and /profile captures land in that directory)")
+    if args.telemetry_sample_s <= 0:
+        raise SystemExit("--telemetry-sample-s must be > 0")
+    from actor_critic_tpu_torch.telemetry.exporter import validate_bind
+
+    try:
+        validate_bind(args.telemetry_bind)
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
+    return args
 
 
 def check_curriculum(args: argparse.Namespace, env_spec: str) -> None:
@@ -478,12 +529,14 @@ def run_fused(env: TorchEnv, preset, args: argparse.Namespace, logger: JsonlLogg
                "wall_s": time.perf_counter() - t0 - eval_s}
         if eval_fn is not None and (it % args.eval_every == 0 or it == args.iterations):
             t_eval = time.perf_counter()
-            eval_gen.manual_seed(args.seed + 1)
-            row["eval_return"] = float(eval_fn(state, eval_gen))
-            if typed_eval is not None:
-                for t, name in enumerate(env.member_names):
-                    r = float(typed_eval(state, eval_gen, type_ids[t]))
-                    row[f"eval_return_{name}"] = round(r, 3)
+            with telemetry.span("eval", it=it):
+                eval_gen.manual_seed(args.seed + 1)
+                row["eval_return"] = float(eval_fn(state, eval_gen))
+                if typed_eval is not None:
+                    for t, name in enumerate(env.member_names):
+                        r = float(typed_eval(state, eval_gen, type_ids[t]))
+                        row[f"eval_return_{name}"] = round(r, 3)
+                        eval_matrix.update(mixture.eval_matrix_row(name, r))
             if is_mixture:
                 fleet = state.rollout.env_state
                 shares = mixture.type_shares(fleet, env.n_types)
@@ -497,6 +550,7 @@ def run_fused(env: TorchEnv, preset, args: argparse.Namespace, logger: JsonlLogg
                           f"weights {list(advanced[1])}", flush=True)
                 row["curriculum_stage"] = curriculum.stage
             eval_s += time.perf_counter() - t_eval
+        telemetry.observe(it, row)
         logger.log(it, row)
 
     synced = [False]
@@ -512,14 +566,22 @@ def run_fused(env: TorchEnv, preset, args: argparse.Namespace, logger: JsonlLogg
             stage, weights = pending.pop()
             mixture.set_fleet_weights(state.rollout.env_state, weights, stage)
 
-    _, metrics = fused_train_loop(
-        mod.make_train_step, mod.init_state, env, cfg, args.iterations,
-        seed=args.seed, device=device, state=state,
-        log_every=args.log_every, log_fn=log_fn, eval_every=args.eval_every,
-        capturable=mod.CAPTURABLE,
-        state_hook=install_weights if curriculum is not None else None,
-        chunk=args.chunk, ckpt=ckpt, save_every=args.save_every, resume=args.resume,
-    )
+    # The per-type eval matrix rides the sampler (resources.jsonl, /metrics).
+    eval_matrix: dict[str, float] = {}
+    gauge = (sampler.register_gauge("mixture_eval", lambda: dict(eval_matrix))
+             if typed_eval is not None else None)
+    try:
+        _, metrics = fused_train_loop(
+            mod.make_train_step, mod.init_state, env, cfg, args.iterations,
+            seed=args.seed, device=device, state=state,
+            log_every=args.log_every, log_fn=log_fn, eval_every=args.eval_every,
+            capturable=mod.CAPTURABLE,
+            state_hook=install_weights if curriculum is not None else None,
+            chunk=args.chunk, ckpt=ckpt, save_every=args.save_every, resume=args.resume,
+        )
+    finally:
+        if gauge is not None:
+            sampler.unregister_gauge(gauge)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return {**metrics, "wall_s": time.perf_counter() - t0 - eval_s}
@@ -546,6 +608,7 @@ def run_host(pool: HostEnvPool, preset, args: argparse.Namespace, logger: JsonlL
         nonlocal eval_s
         eval_s += metrics.get("eval_s", 0.0)
         row = {**metrics, "wall_s": time.perf_counter() - t0 - eval_s}
+        telemetry.observe(it, row)
         last.clear()
         last.update(row)
         logger.log(it, row)
@@ -640,7 +703,7 @@ def start_serving_sidecar(preset, spec, args: argparse.Namespace, device: torch.
     template = serving.init_params(spec, preset.config, preset.algo, seed=args.seed)
     store.register("learner", engine, template, default=True)
     n_warm = engine.warm(store.get("learner").params)
-    gateway = serving.ServeGateway(store, port=args.serve_port)
+    gateway = serving.ServeGateway(store, port=args.serve_port, session=telemetry.current())
     print(f"serving learner on {gateway.url} (warm: {n_warm} act buckets)", flush=True)
 
     def publish_hook(it: int, np_params) -> None:
@@ -663,6 +726,7 @@ def _run_host_async(pools, preset, args, logger, device) -> dict:
         nonlocal eval_s
         eval_s += metrics.get("eval_s", 0.0)
         row = {**metrics, "wall_s": time.perf_counter() - t0 - eval_s}
+        telemetry.observe(it, row)
         last.clear()
         last.update(row)
         logger.log(it, row)
@@ -726,6 +790,43 @@ def check_async_flags(args: argparse.Namespace, algo: str) -> None:
                          "(PolicyPublisher) — pass --async-actors N")
 
 
+def start_telemetry(preset, args: argparse.Namespace):
+    """The `--telemetry-dir` session, installed as the current one (None
+    without the flag): its exporter on `--telemetry-port` (URL printed) and
+    SIGUSR2 arming a profiler window."""
+    if not args.telemetry_dir:
+        return None
+    from actor_critic_tpu_torch.telemetry.profiler import install_sigusr2
+
+    session = telemetry.TelemetrySession(
+        args.telemetry_dir,
+        run_info={"algo": preset.algo, "env": preset.env, "iterations": args.iterations,
+                  "seed": args.seed, "config": dataclasses.asdict(preset.config)},
+        resource_interval_s=args.telemetry_sample_s, serve_port=args.telemetry_port,
+        serve_host=args.telemetry_bind)
+    telemetry.set_current(session)
+    if session.exporter is not None:
+        print(f"telemetry exporter: {session.exporter.url}/metrics /healthz /profile?iters=N",
+              flush=True)
+    install_sigusr2()
+    return session
+
+
+def start_watchdog(args: argparse.Namespace):
+    """The `--stall-timeout` watchdog, armed (None without the flag)."""
+    if args.stall_timeout <= 0:
+        return None
+    from actor_critic_tpu_torch.utils.watchdog import StallWatchdog
+
+    if args.chunk > 1:
+        # One heartbeat per chunk: a timeout shorter than a chunk's wall
+        # would read normal progress as a stall.
+        print(f"watchdog with --chunk {args.chunk}: --stall-timeout {args.stall_timeout:g}s "
+              "must exceed one chunk's wall time or the run will be killed mid-chunk",
+              flush=True)
+    return StallWatchdog(args.stall_timeout).start()
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     if args.list_presets:
@@ -783,13 +884,21 @@ def main(argv=None) -> int:
                       flush=True)
             elif args.chunk > 1:
                 snap_cadences(args)
-            with JsonlLogger(args.metrics, echo=not args.quiet) as logger:
-                if pools is not None:
-                    final = run_host_async(pools, preset, args, logger, device)
-                elif host:
-                    final = run_host(env, preset, args, logger, device)
-                else:
-                    final = run_fused(env, preset, args, logger, device)
+            session = start_telemetry(preset, args)
+            watchdog = start_watchdog(args)
+            try:
+                with JsonlLogger(args.metrics, echo=not args.quiet) as logger:
+                    if pools is not None:
+                        final = run_host_async(pools, preset, args, logger, device)
+                    elif host:
+                        final = run_host(env, preset, args, logger, device)
+                    else:
+                        final = run_fused(env, preset, args, logger, device)
+            finally:
+                if watchdog is not None:
+                    watchdog.stop()
+                if session is not None:
+                    session.close()
         finally:
             for pool in pools or ([env] if host else []):
                 pool.close()

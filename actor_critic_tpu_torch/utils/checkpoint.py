@@ -22,6 +22,13 @@ graph captures is the init's own storage (`common.init_rollout`).
 A state with a non-finite float tensor is refused at save
 (`numguard.NonFiniteError`): the previous good checkpoint stays the latest. The
 metrics may carry a non-finite loss and are written as they are (null).
+
+The chunk-wall sidecar (`<dir>/chunk_wall.json`, `{"chunk_wall_s": s}`,
+JAX's format, so each package reads the other's): the largest clean
+chunk wall a watched `--chunk` run measured (`algos/loop.py`), which a
+resumed process reads to widen its armed stall watchdog before its own
+first chunks, whose walls carry the warm-up and captures and are never
+ratcheted from.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from actor_critic_tpu_torch.utils.numguard import NonFiniteError
 __all__ = ["Checkpointer", "NonFiniteError"]
 
 STATE_FILE, METRICS_FILE = "state.pt", "metrics.json"
+CHUNK_WALL_FILE = "chunk_wall.json"
 
 
 class Checkpointer:
@@ -125,3 +133,33 @@ class Checkpointer:
                 return json.load(f)
         except FileNotFoundError:
             return {}
+
+
+def _read_chunk_wall(path: str) -> Optional[float]:
+    """The persisted steady-state chunk wall seconds, or None (absent,
+    unreadable or non-positive: all mean "nothing learned yet")."""
+    try:
+        with open(path) as f:
+            data = json.load(f)
+    except (OSError, ValueError):
+        return None
+    # Valid but foreign JSON (a bare number, a list) reads as "nothing
+    # learned": the sidecar is advisory.
+    wall = data.get("chunk_wall_s") if isinstance(data, dict) else None
+    if isinstance(wall, (int, float)) and not isinstance(wall, bool):
+        return float(wall) if wall > 0 else None
+    return None
+
+
+def _persist_chunk_wall(path: str, wall_s: float) -> None:
+    """Record the largest clean chunk wall observed, so that a RESUMED
+    process can widen its armed watchdog before its own first chunks."""
+    prev = _read_chunk_wall(path)
+    if prev is not None and prev >= wall_s:
+        return
+    try:
+        with open(path, "w") as f:
+            json.dump({"chunk_wall_s": round(float(wall_s), 3)}, f)
+    except OSError:
+        pass  # advisory sidecar; never take the run down
+

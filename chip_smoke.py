@@ -66,9 +66,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    - the off-policy trainers: the learners of `ddpg_walker2d`,
      `td3_walker2d` and `sac_humanoid` at their published width (E=1,
      K=J=64, batch 256, hidden (256, 256), a 1M-transition ring) on
-     `jax:pendulum`, each for 200 iterations across its preset's
-     10,000-step warm-up (the gate opens at iteration 157, inside the
-     replays), update count read back from the final checkpoint; SAC
+     `jax:pendulum`, each for 60 iterations across its preset's
+     warm-up cut to 2,000 env steps (the gate opens at iteration 32,
+     inside the replays), update count read back from the final
+     checkpoint; SAC
      learning Pendulum (best greedy eval >= -250 in 2,000 iterations) and
      TD3 the point mass (> -1.0) through the graph; `td3_walker2d` with
      `--replay-dtype mixed` 8 straight against 4 + `--resume` 4, and
@@ -95,8 +96,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      CUDA graph from iteration 3, GAE launched once an iteration and
      counted on the card, ms an iteration and the split into collect,
      wait, dispatch (host clock), upload and update (device); the
-     off-policy presets at full width for 170 iterations past their
-     10,000-step warm-up (the ingest and 64 updates one graph, the
+     off-policy presets at full width for 60 iterations past their
+     warm-up cut to 2,000 env steps (the ingest and 64 updates one
+     graph, the
      update count read back), ms an iteration and updates/s after the
      gate; for each of the four a second run under `HostContract`: the
      update's graph equal to its eager run on one block at 0.0, every
@@ -104,7 +106,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      equal to the parameters the update read, bitwise, with overlap on;
      and `td3_walker2d`'s host checkpoint round trip at 0.0 (learner,
      pool stats, generator, env steps) with the ring and without;
-   - the async actor-learner, on the same env: a capture in "thread_local"
+   - the async actor-learner, on the same env (the runs that check
+     equality or launch counts at two epochs): a capture in "thread_local"
      mode while a thread enqueues blocks into the device ring (puts inside
      every capture, replays equal to eager); async PPO with one actor,
      depth 1, one update a block and correction none against
@@ -113,7 +116,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      update) against its eager run and showing in torch.profiler's trace
      that the learner's thread copies nothing to the card while the actor
      enqueues; `ppo_halfcheetah --async-actors 2` at full width through
-     `train.main` on the host plane and the device plane (fp32, int8),
+     `train.main` on the host plane and the device plane (fp32 at the
+     preset's 10 epochs; the host plane and int8 at two),
      V-trace's launches counted on the card equal to the consumed blocks,
      ms a consumed block, consumed env-steps/s, the split (collect per
      actor, learner idle, upload, update), drops and staleness, then the
@@ -121,7 +125,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      async flags (`--updates-per-block 2 --max-staleness 4 --queue-depth 2
      --async-correction none`: GAE twice a block, counted); the three
      off-policy presets with one actor on both planes across their
-     10,000-step warm-up (updates/s after the gate) and the device plane's
+     warm-up cut to 2,000 env steps (updates/s after the gate) and the
+     device plane's
      ingest + update graph against its eager run; async PPO's checkpoint
      on both planes (every actor pool's stats, the ring's stats at int8):
      the round trip at 0.0, a resume of a complete run starting no actor,
@@ -145,6 +150,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      served action = the learner's greedy act at 0.0, latency during
      training against the idle gateway, consumed env-steps/s against the
      async phase's run without the sidecar;
+   - telemetry and the stall watchdog: `a2c_cartpole`'s graph-vs-eager
+     check and its resume run with the resource sampler reading the card
+     every 20 ms through their "global"-mode captures (still 0.0);
+     `a2c_cartpole` at full width through `train.main` with `--chunk 4
+     --ckpt-dir --save-every 8 --stall-timeout 30 --telemetry-dir
+     --telemetry-port 0 --telemetry-sample-s 0.02`, scraped live, a
+     2-dispatch profile window armed after its captures (GAE 8 times in
+     the window's trace), spans canonical and their update/log/checkpoint
+     sequence the CPU run's, the card's live and peak bytes, recompiles =
+     captures = `compile` events (seconds printed), and
+     `scripts/run_report.py` on it (exit 0, run beside the next phases);
+     the session's cost in turns without a client (off, the default 5 s
+     sampling, 20 ms), each run's `chunk_wall.json` within 1.5 x 4 x its
+     replay ms + 5 ms; short host and async `ppo_halfcheetah` runs of
+     their own with `--telemetry-dir` (the update span: the graph's host
+     launch; env_step on both actor threads, queue_wait/update on the
+     learner's, the `device_ring` gauge); a child process stalled on a GPU
+     spin inside an `update` span (exit 42 naming it, a `stall` event, a
+     flight dump); `serve.py --telemetry-dir` (the request hops as spans
+     and flows, the card's memory on /metrics);
 6. a `{"kernels": [...]}` line (each kernel's launches on every main path
    that runs it under `launches_by_path`), then the card's name and power
    limit;
@@ -175,8 +200,16 @@ CURRICULUM_ITERATIONS = 8   # evals at 4 (a replay: the install lands on replays
 GRAPH_CHECK_ITERATIONS = 5  # the loop's eager warm-up, a capture, then replays
 RESUME_ITERATIONS, RESUME_AT = 8, 4  # N straight against k + a resumed N − k
 CHUNK, CHUNK_ITERATIONS = 4, 12      # warm-up, a short chunk, two full chunks
+# `ppo_halfcheetah`'s epochs in the runs that check what does not depend on
+# the update's depth (graph = eager, lockstep, uploads, launch counts): at
+# the preset's 10 epochs × 32 minibatches each run's two eager blocks and
+# its capture of the ~151,000-node update take ~20 s of the script's time.
+CHECK_EPOCHS = 2
 # Checkpoints and metrics of the drives, inside the checkout (gitignored).
 SCRATCH = "build/chip_smoke"
+# Past this many seconds every thread's stack goes to stderr (the run goes
+# on): where a run that outlasts its time limit stood.
+STACKS_AFTER_S = 1100
 # Kernel vs plain version: the same tolerances as the JAX package's kernel
 # tests (tests/test_pallas_scan.py). The GAE kernel rounds every operation
 # in the plain version's order, so on the card the two should agree
@@ -1141,7 +1174,12 @@ OFFPOLICY_PRESETS = ("ddpg_walker2d", "td3_walker2d", "sac_humanoid")
 OFFPOLICY_ENV = "jax:pendulum"
 OFFPOLICY_GRAPH_ITERATIONS = 6   # 2 eager, a capture, replays; the gate opens at 4
 OFFPOLICY_GRAPH_WARMUP = 128     # env steps: iterations 1-2; the 256-row batch is in at 4
-OFFPOLICY_MAIN_ITERATIONS = 200  # the presets' own 10,000-step warm-up ends at 157
+# The off-policy presets' 10,000-step warm-up, cut for the main-path runs:
+# the gate still opens inside the replays (iteration 32 of 64 env steps),
+# and the iterations cut are replays with the gate shut, which run the same
+# graph as the ones kept.
+OFFPOLICY_CUT_WARMUP = 2000
+OFFPOLICY_MAIN_ITERATIONS = 60
 SAC_LEARN_ITERATIONS, SAC_LEARN_EVAL_EVERY = 2000, 500
 HUMANOID_OBS, HUMANOID_ACT = 348, 17  # Humanoid-v5 (gymnasium 1.2.2)
 
@@ -1224,7 +1262,8 @@ def check_offpolicy_graph_equals_eager(preset_name: str, bf16: bool = False) -> 
 def run_offpolicy_main(preset_name: str) -> None:
     """An off-policy preset's learner at full width through `train.main`
     (`--preset <name> --env jax:pendulum`) for OFFPOLICY_MAIN_ITERATIONS
-    iterations, across the preset's own 10,000-step warm-up, the step
+    iterations, across the preset's warm-up cut to OFFPOLICY_CUT_WARMUP
+    env steps, the step
     replayed as a CUDA graph from iteration 3; the final checkpoint gives
     back the update count (it must have risen) and the ring's size. Prints
     ms an iteration over the replays before and after the gate opens,
@@ -1238,14 +1277,14 @@ def run_offpolicy_main(preset_name: str) -> None:
     logged, summary, launches = drive(
         ["--preset", preset_name, "--env", OFFPOLICY_ENV, "--iterations", str(n),
          "--log-every", "1", "--eval-every", str(n), "--seed", "0", "--ckpt-dir", d,
-         "--save-every", "0"], show_every=50)
+         "--save-every", "0", "--set", f"warmup_steps={OFFPOLICY_CUT_WARMUP}"], show_every=50)
     check_rows(logged, n, keys=("critic_loss", "actor_loss", "q_mean"))
     assert launches == {"gae": 0, "vtrace": 0}, launches
     saved = final_checkpoint(d, n)["tensors"]
     updates, size = int(saved["learner.update_count"]), int(saved["learner.replay size"])
     env_steps = int(saved["env_steps"])
-    _, cfg, _ = offpolicy_setup(preset_name)
-    opened = -(-cfg.warmup_steps // (cfg.steps_per_iter * cfg.num_envs))  # iteration 157
+    _, cfg, _ = offpolicy_setup(preset_name, warmup_steps=OFFPOLICY_CUT_WARMUP)
+    opened = -(-cfg.warmup_steps // (cfg.steps_per_iter * cfg.num_envs))  # iteration 32
     assert updates == (n - opened + 1) * cfg.updates_per_iter, (updates, opened)
     assert size == env_steps == n * cfg.steps_per_iter * cfg.num_envs, (size, env_steps)
     for k, v in summary.items():
@@ -1392,7 +1431,7 @@ def check_humanoid_update_loop() -> None:
     import torch
 
     from actor_critic_tpu_torch import replay
-    from actor_critic_tpu_torch.algos import sac
+    from actor_critic_tpu_torch.algos import loop, sac
     from actor_critic_tpu_torch.algos.common import OffPolicyTransition
     from actor_critic_tpu_torch.config import PRESETS
 
@@ -1445,16 +1484,16 @@ def check_humanoid_update_loop() -> None:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(g)
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph):
+        with loop.capture(graph):
             metrics = update_loop(learner, do_update, g)
         torch.cuda.synchronize()
         capture_s = time.perf_counter() - t0
         count0 = int(learner.update_count)
         ms = cuda_ms(graph.replay, iters=10, warmup=2)
-        kernels, wall = profile_kernels(graph.replay, iters=3)
-        busy_us = sum(us for _, us in kernels.values()) / 3
-        launches = sum(c for c, _ in kernels.values()) / 3
-        assert int(learner.update_count) == count0 + 15 * cfg.updates_per_iter
+        kernels, wall = profile_kernels(graph.replay, iters=1)
+        busy_us = sum(us for _, us in kernels.values())
+        launches = sum(c for c, _ in kernels.values())
+        assert int(learner.update_count) == count0 + 13 * cfg.updates_per_iter
         values = {k: float(v) for k, v in metrics.items()}
         assert all(math.isfinite(v) for v in values.values()), values
         peak = torch.cuda.max_memory_allocated()
@@ -1576,7 +1615,7 @@ HOST_LOG_EVERY = 4           # the main paths log (and so wait for the card) eve
 HOST_OFFPOLICY_LOG_EVERY = 10  # iteration, so the iterations between overlap host and card
 HOST_CHECK_ITERATIONS = 6    # the graph-vs-eager and upload checks: iterations 1-6
 HOST_CHECK_AT = 4            # a replayed iteration
-HOST_OFFPOLICY_ITERATIONS = 170  # the presets' 10,000-step warm-up ends at iteration 157
+HOST_OFFPOLICY_ITERATIONS = 60  # the warm-up (OFFPOLICY_CUT_WARMUP) ends at iteration 32
 HOST_RESUME_ITERATIONS = 3
 
 
@@ -1787,9 +1826,10 @@ def host_pool(preset_name: str, env: str):
 def run_host_ppo(env: str) -> int:
     """`ppo_halfcheetah` at its full width (E=8, T=256, 10 epochs × 32
     minibatches, hidden (64, 64)) on `env` through `train.main`, the update
-    replayed as one CUDA graph from iteration 3; then the same trainer under
-    a `HostContract` (graph vs eager, the upload and the snapshot). Returns
-    GAE's launches on the main path (one an iteration)."""
+    replayed as one CUDA graph from iteration 3; then the same trainer
+    under a `HostContract`
+    (graph vs eager, the upload and the snapshot). Returns GAE's launches
+    on the main path (one an iteration)."""
     import math
 
     n = HOST_PPO_ITERATIONS
@@ -1813,6 +1853,62 @@ def run_host_ppo(env: str) -> int:
     return launches["gae"]
 
 
+def run_telemetry_host_async(env: str) -> None:
+    """The session on the host and async paths, in runs of their own (the
+    main-path runs stay session-free, their ms the baselines of other
+    phases): `ppo_halfcheetah` at full width on `env` through `train.main
+    --telemetry-dir`, on the host for TELEMETRY_HOST_ITERATIONS iterations
+    (`check_host_telemetry`), then `--async-actors 2 --data-plane device
+    --async-correction vtrace` for TELEMETRY_ASYNC_BLOCKS consumed blocks
+    at two epochs (what it checks does not depend on the update's depth),
+    sampled every TELEMETRY_ASYNC_SAMPLE_S so that the short run writes
+    ring rows, V-trace's launches counted (`check_async_telemetry`)."""
+    import shutil
+
+    n = TELEMETRY_HOST_ITERATIONS
+    tel = f"{SCRATCH}/telemetry_host"
+    shutil.rmtree(tel, ignore_errors=True)
+    logged, _, launches = drive(
+        ["--preset", "ppo_halfcheetah", "--env", env, "--iterations", str(n), "--log-every", "2",
+         "--eval-every", str(n), "--eval-envs", "4", "--eval-steps", "1000", "--seed", "0",
+         "--telemetry-dir", tel], show_every=n)
+    check_rows(logged, n)
+    assert launches == {"gae": n, "vtrace": 0}, launches
+    check_host_telemetry(tel, n, env)
+
+    n = TELEMETRY_ASYNC_BLOCKS
+    tel = f"{SCRATCH}/telemetry_async"
+    shutil.rmtree(tel, ignore_errors=True)
+    logged, _, launches = drive(
+        ["--preset", "ppo_halfcheetah", "--env", env, "--async-actors", str(ASYNC_ACTORS),
+         "--iterations", str(n), "--log-every", "2", "--seed", "0", "--data-plane", "device",
+         "--async-correction", "vtrace", "--set", "epochs=2", "--telemetry-dir", tel,
+         "--telemetry-sample-s", str(TELEMETRY_ASYNC_SAMPLE_S)], show_every=n)
+    check_rows(logged, n)
+    check_async_kernel_launches(logged, launches, n, 1)
+    print(f"telemetry async ppo_halfcheetah on {env} (two epochs): V-trace launches "
+          f"{launches['vtrace']} in {n} consumed blocks", flush=True)
+    check_async_telemetry(tel, n, env)
+
+
+def check_host_telemetry(tel: str, n: int, env: str) -> None:
+    """The host PPO run's spans: per iteration an `iteration` span holding
+    `env_step`, `host_to_device`, `update` (the host's launch of the update
+    graph: a replay returns once queued) and `log`, names canonical; the
+    update span's ms printed (iterations 1-2 eager, 3 the capture, then
+    replays)."""
+    check_canonical(tel)
+    spans = [e for e in span_events(tel) if e["ph"] == "X"]
+    counts = {name: sum(e["name"] == name for e in spans)
+              for name in ("iteration", "env_step", "host_to_device", "update", "log", "eval")}
+    update_ms = [e["dur"] / 1e3 for e in spans if e["name"] == "update"]
+    print(f"telemetry host ppo_halfcheetah on {env}: spans {counts}; update span (the host's "
+          f"launch; iterations 1-2 eager, 3 the capture, then replays) "
+          f"{', '.join(f'{m:.3f}' for m in update_ms)} ms", flush=True)
+    assert counts == {"iteration": n, "env_step": n, "host_to_device": n, "update": n,
+                      "log": counts["log"], "eval": 1} and counts["log"] >= 2, counts
+
+
 def check_host_ppo_contract(env: str, bf16: bool = False) -> None:
     """`ppo_halfcheetah`'s host trainer on `env` under a `HostContract`
     (graph vs eager on one block at 0.0, the uploads and the mirror
@@ -1823,7 +1919,7 @@ def check_host_ppo_contract(env: str, bf16: bool = False) -> None:
     from actor_critic_tpu_torch.algos import ppo
 
     pool, cfg = host_pool("ppo_halfcheetah", env)
-    cfg = dataclasses.replace(cfg, bf16_compute=bf16)
+    cfg = dataclasses.replace(cfg, bf16_compute=bf16, epochs=CHECK_EPOCHS)
     contract = HostContract(lambda run: run.device_state["params"], HOST_CHECK_AT)
     try:
         ppo.train_host(pool, cfg, HOST_CHECK_ITERATIONS, seed=1, log_every=0, device="cuda",
@@ -1831,14 +1927,15 @@ def check_host_ppo_contract(env: str, bf16: bool = False) -> None:
     finally:
         pool.close()
     torch.cuda.synchronize()
-    contract.check(f"ppo_halfcheetah{' bf16' if bf16 else ''} on {env}")
+    contract.check(f"ppo_halfcheetah{' bf16' if bf16 else ''} on {env} ({CHECK_EPOCHS} epochs)")
 
 
 def run_host_offpolicy(preset_name: str, env: str) -> None:
     """An off-policy preset at its full width (E=1, K=J=64, batch 256,
     hidden (256, 256), a 1M ring) on `env` through `train.main` for
-    HOST_OFFPOLICY_ITERATIONS iterations, past the 10,000-step warm-up (the
-    gate opens at iteration 157, inside the replays), losses finite, the
+    HOST_OFFPOLICY_ITERATIONS iterations, past the warm-up cut to
+    OFFPOLICY_CUT_WARMUP env steps (the gate opens at iteration 32, inside
+    the replays), losses finite, the
     update count read back from the final checkpoint; then the ingest
     under a `HostContract` with the warm-up cut to 128 env steps."""
     import dataclasses
@@ -1856,14 +1953,15 @@ def run_host_offpolicy(preset_name: str, env: str) -> None:
         ["--preset", preset_name, "--env", env, "--iterations", str(n), "--log-every",
          str(HOST_OFFPOLICY_LOG_EVERY), "--eval-every", str(n), "--eval-envs", "2",
          "--eval-steps", "1000", "--seed", "0", "--ckpt-dir", d, "--save-every", "0",
-         "--no-save-replay"], show_every=50)
+         "--no-save-replay", "--set", f"warmup_steps={OFFPOLICY_CUT_WARMUP}"], show_every=50)
     check_rows(logged, n, keys=("critic_loss", "actor_loss", "q_mean"))
     assert launches == {"gae": 0, "vtrace": 0}, launches
     saved = final_checkpoint(d, n)["tensors"]
     updates = int(saved["device_state.learner.update_count"])
     pool, cfg = host_pool(preset_name, env)
     pool.close()
-    opened = -(-cfg.warmup_steps // (cfg.steps_per_iter * cfg.num_envs))  # iteration 157
+    cfg = dataclasses.replace(cfg, warmup_steps=OFFPOLICY_CUT_WARMUP)
+    opened = -(-cfg.warmup_steps // (cfg.steps_per_iter * cfg.num_envs))  # iteration 32
     assert updates == (n - opened + 1) * cfg.updates_per_iter, (updates, opened)
     assert int(saved["device_state.env_steps"]) == n * cfg.steps_per_iter * cfg.num_envs
     ev = logged[-1]["eval_return"]
@@ -1871,8 +1969,8 @@ def run_host_offpolicy(preset_name: str, env: str) -> None:
     rows = {r["iter"]: r for r in logged}
     per = lambda a, b: (rows[b]["wall_s"] - rows[a]["wall_s"]) / (b - a)
     every = HOST_OFFPOLICY_LOG_EVERY
-    shut = (every, opened // every * every)       # logged replays with the gate shut: 10-150
-    open_ = (-(-opened // every) * every, n)      # and open: 160-170
+    shut = (every, opened // every * every)       # logged replays with the gate shut: 10-30
+    open_ = (-(-opened // every) * every, n)      # and open: 40-60
     before, after = per(*shut), per(*open_)
     spi = cfg.steps_per_iter * cfg.num_envs
     print(f"main path {preset_name} on {env} (E={cfg.num_envs}, K=J={cfg.steps_per_iter}, "
@@ -1983,11 +2081,13 @@ ASYNC_PPO_BLOCKS = 8             # two eager blocks, a capture, then replays
 ASYNC_LOG_EVERY = 4
 ASYNC_CHECK_BLOCKS = 5           # the graph-vs-eager runs: blocks 1-5, checked at 4
 ASYNC_LOCKSTEP_ITERATIONS = 5    # two eager, a capture, replays
-# Consumed blocks of the off-policy async drives, on each plane: the
-# fleet's 10,000 collected env steps open the gate by block ~3-20 on the
-# host plane (its actor outruns the learner by 8-100 blocks to one, with
-# the GIL deciding) and by block ~25-28 on the device plane.
-ASYNC_OFFPOLICY_BLOCKS = {"host": 28, "device": 40}  # gates open by ~20 and ~28
+# Consumed blocks of the off-policy async drives, on each plane, the
+# warm-up cut to OFFPOLICY_CUT_WARMUP: the fleet has collected 250-2,500
+# env steps a block before the gate opens on the host plane (its actor
+# outruns the learner, with the GIL deciding) and 250-380 on the device
+# plane, so the gate opens by block ~8 and ~8-13; each run needs it open
+# 5 blocks before its end (at least 167 and 111 env steps a block).
+ASYNC_OFFPOLICY_BLOCKS = {"host": 18, "device": 24}
 ASYNC_RESUME_BLOCKS = 4
 # Consumed env-steps/s of the async PPO phase's runs, by (plane, codec): the
 # serve-while-training phase's run without --serve-port.
@@ -2088,9 +2188,11 @@ def check_async_kernel_launches(logged: list[dict], launches: dict, blocks: int,
 
 def run_async_ppo(env: str) -> int:
     """`ppo_halfcheetah --async-actors 2` at full width (E=8 as two actors of
-    4, T=256, 10 × 32 minibatches) through `train.main` for
-    ASYNC_PPO_BLOCKS consumed blocks, on the host plane and on the device
-    plane with the fp32 and the int8 codec: V-trace's launches counted on
+    4, T=256, 32 minibatches) through `train.main` for ASYNC_PPO_BLOCKS
+    consumed blocks, on the device plane with the fp32 codec at the
+    preset's 10 epochs (serve-while-training's baseline), then at
+    CHECK_EPOCHS on the host plane and with the int8 codec: V-trace's
+    launches counted on
     the card equal the consumed blocks; ms a consumed block, consumed
     env-steps/s, the split, drops and staleness printed. Then the host
     plane's V-trace update graph against its eager run on one block at 0.0,
@@ -2104,21 +2206,26 @@ def run_async_ppo(env: str) -> int:
 
     n = ASYNC_PPO_BLOCKS
     host_launches = None
-    for plane, codec in (("host", "fp32"), ("device", "fp32"), ("device", "int8")):
+    for plane, codec, epochs in (("device", "fp32", None), ("host", "fp32", CHECK_EPOCHS),
+                                 ("device", "int8", CHECK_EPOCHS)):
         t0 = time.perf_counter()
         logged, summary, launches = drive(
             ["--preset", "ppo_halfcheetah", "--env", env, "--async-actors", str(ASYNC_ACTORS),
              "--iterations", str(n), "--log-every", str(ASYNC_LOG_EVERY), "--seed", "0",
-             "--data-plane", plane, "--data-plane-codec", codec], show_every=ASYNC_LOG_EVERY)
+             "--data-plane", plane, "--data-plane-codec", codec,
+             *(["--set", f"epochs={epochs}"] if epochs else [])],
+            show_every=ASYNC_LOG_EVERY)
         check_rows(logged, n)
         check_async_kernel_launches(logged, launches, n, 1)
-        host_launches = host_launches if host_launches is not None else launches["vtrace"]
+        if plane == "host":
+            host_launches = launches["vtrace"]
         ASYNC_RATES[(plane, codec)] = consumed_rate(logged, summary)
         after = 2 * ASYNC_LOG_EVERY
         per_block, _ = per_iteration(logged, summary, after=ASYNC_LOG_EVERY)
         steps = logged[-1]["consumed_env_steps"] / logged[-1]["iter"]
         last = logged[-1]
-        print(f"main path async ppo_halfcheetah on {env}, --data-plane {plane} ({codec}): "
+        print(f"main path async ppo_halfcheetah on {env}, --data-plane {plane} ({codec}, "
+              f"{epochs or 10} epochs): "
               f"{ASYNC_ACTORS} actors of 4 envs, {n} consumed blocks of {int(steps)} env steps, "
               f"V-trace launches {launches['vtrace']} (= blocks × updates_per_block); eager "
               f"block 1 {logged[0]['wall_s'] * 1e3:.1f} ms; {per_block * 1e3:.3f} ms a consumed "
@@ -2131,6 +2238,7 @@ def run_async_ppo(env: str) -> int:
               flush=True)
 
     pools, cfg = host_pools("ppo_halfcheetah", env, ASYNC_ACTORS)
+    cfg = dataclasses.replace(cfg, epochs=CHECK_EPOCHS)
     hook = AsyncContract(os.path.abspath(f"{SCRATCH}/async_consume_host.json"))
     try:
         ppo.train_host_async(pools, cfg, ASYNC_CHECK_BLOCKS, seed=1, log_every=0,
@@ -2190,7 +2298,7 @@ def check_capture_beside_enqueues() -> None:
     import numpy as np
     import torch
 
-    from actor_critic_tpu_torch.algos import ppo
+    from actor_critic_tpu_torch.algos import loop, ppo
     from actor_critic_tpu_torch.config import PRESETS
     from actor_critic_tpu_torch.data_plane import DeviceTrajRing
     from actor_critic_tpu_torch.envs.env import EnvSpec
@@ -2228,7 +2336,7 @@ def check_capture_beside_enqueues() -> None:
             with torch.cuda.stream(side):
                 body()
             torch.cuda.current_stream().wait_stream(side)
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with loop.capture(graph, capture_error_mode="thread_local"):
                 before = ring.stats()["puts"]
                 out = body()
                 during.append(ring.stats()["puts"] - before)
@@ -2250,7 +2358,7 @@ def check_async_strict_lockstep(env: str) -> None:
     """Async PPO with one actor, queue depth 1, updates_per_block 1 and
     correction none equals `ppo.train_host` on the card at 0.0 (parameters
     and every Adam state), `ppo_halfcheetah`'s config at full width (E=8,
-    T=256, 10 × 32 minibatches) for ASYNC_LOCKSTEP_ITERATIONS iterations
+    T=256, CHECK_EPOCHS × 32 minibatches) for ASYNC_LOCKSTEP_ITERATIONS iterations
     (two eager, a capture, replays), on the host plane and on the device
     plane with the fp32 codec. The device-plane run also holds the device
     plane's update graph (gather, decode, update) against its eager run on
@@ -2268,6 +2376,7 @@ def check_async_strict_lockstep(env: str) -> None:
     runs = {}
     for plane in (None, "host", "device"):
         pool, cfg = host_pool("ppo_halfcheetah", env)
+        cfg = dataclasses.replace(cfg, epochs=CHECK_EPOCHS)
         t0 = time.perf_counter()
         try:
             if plane is None:
@@ -2292,7 +2401,8 @@ def check_async_strict_lockstep(env: str) -> None:
         worst = max(float((got[k].double() - want[k].double()).abs().max()) for k in want)
         print(f"strict lockstep on the card, ppo_halfcheetah on {env}, {plane} plane: async (1 "
               f"actor, depth 1, 1 update a block, correction none) vs train_host over {n} "
-              f"iterations: max abs difference {worst:.3e} over {len(want)} tensors (parameters, "
+              f"iterations of {CHECK_EPOCHS} epochs: max abs difference {worst:.3e} over "
+              f"{len(want)} tensors (parameters, "
               f"Adam moments and count); {secs:.1f} s (train_host {want_s:.1f} s)", flush=True)
         assert worst == 0.0, (plane, worst)
     mine, others = hook.check(f"ppo_halfcheetah on {env}, device plane (gather, decode, update)")
@@ -2328,8 +2438,9 @@ def run_async_offpolicy(preset_name: str, env: str) -> None:
     """An off-policy preset at full width (E=1, so one actor; K=J=64, batch
     256, hidden (256, 256), a 1M ring) with `--async-actors 1` through
     `train.main` for ASYNC_OFFPOLICY_BLOCKS consumed blocks on each plane:
-    the gate opens once the fleet has collected the preset's 10,000-step
-    warm-up; updates/s over the blocks after it. Then the device plane's
+    the gate opens once the fleet has collected the warm-up (cut to
+    OFFPOLICY_CUT_WARMUP env steps); updates/s over the blocks after it.
+    Then the device plane's
     ingest + update graph against its eager run on one block at 0.0 (the
     warm-up cut to 128 env steps)."""
     import dataclasses as dc
@@ -2342,10 +2453,11 @@ def run_async_offpolicy(preset_name: str, env: str) -> None:
         t0 = time.perf_counter()
         logged, summary, launches = drive(
             ["--preset", preset_name, "--env", env, "--async-actors", "1", "--iterations", str(n),
-             "--log-every", "1", "--seed", "0", "--data-plane", plane], show_every=20)
+             "--log-every", "1", "--seed", "0", "--data-plane", plane, "--set",
+             f"warmup_steps={OFFPOLICY_CUT_WARMUP}"], show_every=20)
         check_rows(logged, n, keys=("critic_loss", "actor_loss", "q_mean"))
         assert launches == {"gae": 0, "vtrace": 0}, launches
-        cfg = train.PRESETS[preset_name].config
+        cfg = dc.replace(train.PRESETS[preset_name].config, warmup_steps=OFFPOLICY_CUT_WARMUP)
         # The gate reads the fleet's count staged with the block: the row
         # before the first open block already shows it past the warm-up.
         past = [r["iter"] for r in logged if r["env_steps"] >= cfg.warmup_steps]
@@ -3158,7 +3270,8 @@ def run_bf16_main_paths(env: str) -> dict[str, dict[str, int]]:
     it, each kernel's launch count reset just before each run and read just
     after: the six fused presets for BF16_ITERATIONS iterations (the CUDA
     graph from iteration 3), host `ppo_halfcheetah`, async `ppo_halfcheetah`
-    (2 actors, device plane) and host and async `sac_humanoid` (1 actor,
+    (2 actors, device plane; both at CHECK_EPOCHS) and host and async
+    `sac_humanoid` (1 actor,
     device plane, the warm-up cut to BF16_SAC_WARMUP env steps) on `env`.
     GAE and V-trace launch once an iteration (or consumed block), as in
     float32. Returns {kernel: {path: launches}}."""
@@ -3182,21 +3295,25 @@ def run_bf16_main_paths(env: str) -> dict[str, dict[str, int]]:
     m = BF16_HOST_PPO_ITERATIONS
     logged, summary, launches = drive(
         ["--preset", "ppo_halfcheetah", "--env", env, "--update-dtype", "bf16", "--iterations",
-         str(m), "--log-every", "1", "--seed", "0"], show_every=m)
+         str(m), "--log-every", "1", "--seed", "0", "--set", f"epochs={CHECK_EPOCHS}"],
+        show_every=m)
     check_rows(logged, m)
     assert launches == {"gae": m, "vtrace": 0}, launches
     by_path["gae"]["host ppo_halfcheetah bf16"] = launches["gae"]
-    print(f"main path host ppo_halfcheetah --update-dtype bf16 on {env}: {m} iterations, "
+    print(f"main path host ppo_halfcheetah --update-dtype bf16 on {env}: {m} iterations of "
+          f"{CHECK_EPOCHS} epochs, "
           f"launches {launches}; {host_split(logged, 3)}", flush=True)
     b = BF16_ASYNC_BLOCKS
     logged, summary, launches = drive(
         ["--preset", "ppo_halfcheetah", "--env", env, "--update-dtype", "bf16",
          "--async-actors", str(ASYNC_ACTORS), "--iterations", str(b), "--log-every", "1",
-         "--seed", "0", "--data-plane", "device"], show_every=b)
+         "--seed", "0", "--data-plane", "device", "--set", f"epochs={CHECK_EPOCHS}"],
+        show_every=b)
     check_rows(logged, b)
     check_async_kernel_launches(logged, launches, b, 1)
     by_path["vtrace"]["async ppo_halfcheetah bf16 (device plane)"] = launches["vtrace"]
-    print(f"main path async ppo_halfcheetah --update-dtype bf16 on {env} (device plane): {b} "
+    print(f"main path async ppo_halfcheetah --update-dtype bf16 on {env} (device plane, "
+          f"{CHECK_EPOCHS} epochs): {b} "
           f"consumed blocks, launches {launches}, mean_rho {logged[-1]['mean_rho']:.4f}",
           flush=True)
     k = BF16_SAC_ITERATIONS
@@ -3254,6 +3371,419 @@ def compare_profiles(profiles: dict, replays: dict) -> None:
                   flush=True)
 
 
+# -- telemetry and the stall watchdog -----------------------------------
+
+TELEMETRY_ITERATIONS, TELEMETRY_CHUNK, TELEMETRY_SAVE = 24, 4, 8
+TELEMETRY_TIMING_ITERATIONS = 32  # 6 logged chunks of replays from iteration 8
+TELEMETRY_ROUNDS = 2          # the session's cost: each variant this many times, in turns
+TELEMETRY_HOST_ITERATIONS = 4  # two eager, the capture, a replay
+TELEMETRY_ASYNC_BLOCKS = 4     # two eager blocks, the capture, a replay
+TELEMETRY_ASYNC_SAMPLE_S = 0.5  # the run takes ~4 s: rows while blocks are consumed
+TELEMETRY_SAMPLE_S = 0.02     # the sampler ticks through every capture of the run
+STALL_TIMEOUT_S, STALL_SPIN_S = 2.0, 15.0
+
+
+def read_jsonl(path: str) -> list[dict]:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def span_events(tel: str) -> list[dict]:
+    return [e for e in read_jsonl(f"{tel}/spans.jsonl") if e["ph"] != "M"]
+
+
+def check_canonical(tel: str) -> None:
+    from actor_critic_tpu_torch import telemetry
+
+    names = {e["name"] for e in span_events(tel) if e["ph"] in ("X", "i")}
+    assert names <= telemetry.CANONICAL_PHASES, names - telemetry.CANONICAL_PHASES
+
+
+def dispatch_sequence(tel: str, chunk: int) -> list[tuple]:
+    """(name, args) of the fused loop's update, log and checkpoint spans at
+    chunk boundaries, in file order. The card's eager warm-up dispatches
+    (one iteration each, iterations 1 and 2) have no CPU counterpart."""
+    out = []
+    for e in span_events(tel):
+        args = e.get("args", {})
+        at = args.get("it", args.get("step"))
+        if e["name"] in ("update", "log", "checkpoint") and at % chunk == 0:
+            out.append((e["name"], tuple(sorted(args.items()))))
+    return out
+
+
+def replay_ms(logged: list[dict], after: int) -> float:
+    """The median ms an iteration between consecutive logged rows from
+    iteration `after` on (robust to the chunks a profiler window covered)."""
+    import statistics
+
+    rows = [r for r in logged if r["iter"] >= after]
+    per = [(b["wall_s"] - a["wall_s"]) / (b["iter"] - a["iter"]) * 1e3
+           for a, b in zip(rows, rows[1:])]
+    return statistics.median(per)
+
+
+def gpu_rows(tel: str) -> list[dict]:
+    """The card's rows of every resources.jsonl row (`platform` "gpu")."""
+    return [d for r in read_jsonl(f"{tel}/resources.jsonl") for d in r.get("devices", [])
+            if d.get("platform") == "gpu"]
+
+
+def sampled(label: str, fn, *args):
+    """`fn(*args)` inside a TelemetrySession whose sampler reads the card's
+    memory every TELEMETRY_SAMPLE_S, through whatever captures `fn` makes
+    (the fused loop captures in "global" mode, where a forbidden CUDA call
+    from the sampler's thread would break the capture). Prints the rows and
+    the captures' seconds."""
+    import shutil
+
+    from actor_critic_tpu_torch import telemetry
+
+    tel = f"{SCRATCH}/sampled_{label}"
+    shutil.rmtree(tel, ignore_errors=True)
+    session = telemetry.TelemetrySession(tel, resource_interval_s=TELEMETRY_SAMPLE_S)
+    telemetry.set_current(session)
+    try:
+        out = fn(*args)
+    finally:
+        session.close()
+    rows = read_jsonl(f"{tel}/resources.jsonl")
+    comps = [e for e in read_jsonl(f"{tel}/events.jsonl") if e["kind"] == "compile"]
+    print(f"{label} with the sampler at {TELEMETRY_SAMPLE_S * 1e3:.0f} ms: {len(rows)} rows, "
+          f"captures {', '.join(f'{e['name']} {e['compile_s']:.3f} s' for e in comps)}",
+          flush=True)
+    devs = gpu_rows(tel)
+    assert len(rows) >= 3 and comps and devs and max(d["live_bytes"] for d in devs) > 0
+    return out
+
+
+def run_telemetry_a2c() -> None:
+    """`a2c_cartpole` at full width (E=4096, T=64) through `train.main` with
+    the session, the exporter, the watchdog and the chunk-wall ratchet:
+    `--chunk 4 --ckpt-dir --save-every 8 --stall-timeout 30 --telemetry-dir
+    --telemetry-port 0 --telemetry-sample-s 0.02`, 24 iterations. A client
+    thread scrapes /metrics and /healthz while it runs and arms a window
+    (GET `/profile?iters=2`, JAX's route) once the run's two captures are
+    counted. Holds: the
+    spans canonical and the per-dispatch update/log/checkpoint sequence the
+    CPU run's (the same flags at E=64 on the CPU); the card's rows with
+    live and peak bytes; `recompiles` = the run's captures = its `compile`
+    events (seconds printed); `chunk_wall.json` below the 4-step capture's
+    wall (the scraper inflates it: printed); the profile window's trace holding GAE exactly
+    2 x 4 times while the device counter's GAE launches equal the
+    iterations. Then the session's cost, TELEMETRY_TIMING_ITERATIONS
+    iterations a run, the variants in turns for TELEMETRY_ROUNDS rounds,
+    every run with the watchdog armed and no client: without the session,
+    with it at the default 5 s sampling, with it at 20 ms. Each run's
+    `chunk_wall.json` is held within 1.5 x 4 x its own replay ms + 5 ms
+    (the ratio printed). Returns `scripts/run_report.py` on the run's
+    directory, started in a subprocess (its static-findings pass reads the
+    whole tree for tens of seconds: it runs beside the next phases, and
+    `wait_run_report` holds it to exit 0)."""
+    import os
+    import shutil
+    import statistics
+    import threading
+    import urllib.request
+
+    from actor_critic_tpu_torch import telemetry
+    from actor_critic_tpu_torch.telemetry import profiler
+
+    n, chunk = TELEMETRY_ITERATIONS, TELEMETRY_CHUNK
+    tel, ck = f"{SCRATCH}/telemetry_a2c", f"{SCRATCH}/telemetry_a2c_ck"
+    common = ["--preset", "a2c_cartpole", "--iterations", str(n), "--chunk", str(chunk),
+              "--save-every", str(TELEMETRY_SAVE), "--log-every", str(chunk), "--seed", "0",
+              "--stall-timeout", "30"]
+    flags = ["--telemetry-dir", tel, "--telemetry-port", "0", "--telemetry-sample-s",
+             str(TELEMETRY_SAMPLE_S)]
+    for d in (tel, ck, f"{tel}_cpu", f"{ck}_cpu"):
+        shutil.rmtree(d, ignore_errors=True)
+    base = profiler.recompile_count()
+    scraped = {"metrics": 0, "healthz": 0}
+    stop = threading.Event()
+    errors: list = []
+
+    def client():
+        try:
+            while telemetry.current() is None or telemetry.current().exporter is None:
+                if stop.wait(0.005):
+                    return
+            session = telemetry.current()
+            url = session.exporter.url
+            armed = False
+            while not stop.is_set():
+                try:
+                    with urllib.request.urlopen(url + "/metrics", timeout=10) as r:
+                        body = r.read().decode()
+                    scraped["metrics"] += 1
+                    with urllib.request.urlopen(url + "/healthz", timeout=10) as r:
+                        assert json.loads(r.read())["status"] == "ok"
+                    scraped["healthz"] += 1
+                except OSError:
+                    # The run's end closes the exporter before it marks the
+                    # session closed: a scrape cut by that is not an error.
+                    deadline = time.monotonic() + 10
+                    while not session.closed and time.monotonic() < deadline:
+                        time.sleep(0.01)
+                    if session.closed:
+                        return
+                    raise
+                rec = [float(x.split()[-1]) for x in body.splitlines()
+                       if x.startswith("actor_critic_recompiles_total ")]
+                if not armed and rec and rec[0] >= base + 2:
+                    with urllib.request.urlopen(url + "/profile?iters=2", timeout=10) as r:
+                        assert r.status == 202
+                    armed = True
+                    scraped["armed_at_recompiles"] = rec[0] - base
+                stop.wait(0.005)
+        except Exception as e:  # noqa: BLE001 — re-raised on the main thread
+            errors.append(e)
+
+    t = threading.Thread(target=client, daemon=True)
+    t.start()
+    try:
+        logged, _, launches = drive(common + flags + ["--ckpt-dir", ck], show_every=n)
+    finally:
+        stop.set()
+        t.join(30)
+    assert not errors, errors
+    events = read_jsonl(f"{tel}/events.jsonl")
+    comps = [e for e in events if e["kind"] == "compile"]
+    captures = [e for e in comps if not e.get("cache_hit")]
+    rows = read_jsonl(f"{tel}/resources.jsonl")
+    devs = gpu_rows(tel)
+    made = rows[-1]["recompiles"] - rows[0]["recompiles"]
+    done = [e for e in events if e["kind"] == "profile_done"]
+    gae_in_window = None
+    if len(done) == 1:
+        trace = json.load(open(os.path.join(done[0]["path"], "trace.json")))["traceEvents"]
+        gae_in_window = sum(1 for e in trace if e.get("cat") == "kernel" and "gae" in e["name"])
+    with open(f"{ck}/chunk_wall.json") as f:
+        wall_ms = json.load(f)["chunk_wall_s"] * 1e3
+    ms_on = replay_ms(logged, 2 * chunk)
+    x4 = [e["compile_s"] * 1e3 for e in captures if e["name"].endswith(f"[x{chunk}]")]
+
+    # The session's cost, the variants in turns; then the CPU run at E=64
+    # for the spans.
+    variants = {"off": [], "on 5 s": ["--telemetry-port", "0"],
+                "on 20 ms": ["--telemetry-port", "0", "--telemetry-sample-s",
+                             str(TELEMETRY_SAMPLE_S)]}
+    timed = [*common[:common.index("--iterations")], "--iterations",
+             str(TELEMETRY_TIMING_ITERATIONS), *common[common.index("--iterations") + 2:]]
+    ms = {v: [] for v in variants}
+    walls = {v: [] for v in variants}
+    for r in range(TELEMETRY_ROUNDS):
+        for i, (v, extra) in enumerate(variants.items()):
+            d, ck_d = f"{tel}_timing{r}{i}", f"{ck}_timing{r}{i}"
+            for x in (d, ck_d):
+                shutil.rmtree(x, ignore_errors=True)
+            session = ["--telemetry-dir", d, *extra] if extra else []
+            logged_v, _, launches_v = drive(timed + session + ["--ckpt-dir", ck_d],
+                                            show_every=TELEMETRY_TIMING_ITERATIONS)
+            assert launches_v["gae"] == TELEMETRY_TIMING_ITERATIONS, (v, launches_v)
+            ms[v].append(replay_ms(logged_v, 2 * chunk))
+            with open(f"{ck_d}/chunk_wall.json") as f:
+                walls[v].append(json.load(f)["chunk_wall_s"] * 1e3)
+    cpu_flags = ["--telemetry-dir", f"{tel}_cpu", "--telemetry-sample-s", str(TELEMETRY_SAMPLE_S)]
+    drive(common + cpu_flags + ["--ckpt-dir", f"{ck}_cpu", "--set", "num_envs=64", "--device",
+                                "cpu"], show_every=n)
+    # After the timed runs, so that it does not share the host with them.
+    report = subprocess.Popen([sys.executable, "scripts/run_report.py", tel, "-o",
+                               f"{tel}/report.md"], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+    card_seq, cpu_seq = dispatch_sequence(tel, chunk), dispatch_sequence(f"{tel}_cpu", chunk)
+    live = [d.get("live_bytes") for d in devs]
+    med = {v: statistics.median(x) for v, x in ms.items()}
+    ratios = {v: [w / (chunk * m) for w, m in zip(walls[v], ms[v])] for v in variants}
+    print(f"telemetry a2c_cartpole (E=4096, T=64, --chunk {chunk}, {n} iterations): "
+          f"{len(rows)} resource rows, {len(devs)} of the card, live bytes {min(live)} .. "
+          f"{max(live)}, peak {max(d.get('peak_bytes', 0) for d in devs)}; recompiles {made}, "
+          f"captures {', '.join(f'{e['name']} {e['compile_s']:.3f} s' for e in captures)}; "
+          f"{scraped['metrics']} /metrics and {scraped['healthz']} /healthz scrapes; the window "
+          f"armed after {scraped.get('armed_at_recompiles')} captures: {done}, GAE "
+          f"{gae_in_window} times in its trace (device counter: {launches['gae']} for {n} "
+          f"iterations); update/log/checkpoint sequence {'=' if card_seq == cpu_seq else '!='} "
+          f"the CPU run's ({len(card_seq)} spans); with this process's client thread scraping "
+          f"/metrics and /healthz every 5 ms: {ms_on:.3f} ms/iteration of the replays (median "
+          f"of chunks from iteration {2 * chunk}), chunk_wall.json {wall_ms:.3f} ms (the "
+          f"{chunk}-step capture {x4} ms)", flush=True)
+    for v in variants:
+        print(f"telemetry a2c_cartpole, the session's cost ({TELEMETRY_TIMING_ITERATIONS} "
+              f"iterations a run, the watchdog armed, no client, {TELEMETRY_ROUNDS} rounds in "
+              f"turns): {v}: ms/iteration of the replays {', '.join(f'{x:.3f}' for x in ms[v])} "
+              f"(median {med[v]:.3f}, {(med[v] / med['off'] - 1) * 100:+.1f}% against off); "
+              f"chunk_wall.json {', '.join(f'{w:.3f}' for w in walls[v])} ms = "
+              f"{', '.join(f'{x:.3f}' for x in ratios[v])} x {chunk} x the run's replay ms",
+              flush=True)
+    check_canonical(tel)
+    assert devs and all("live_bytes" in d and d["peak_bytes"] >= d["live_bytes"] for d in devs)
+    assert max(live) > 0, live
+    assert made == len(captures) == 2, (made, comps)
+    assert len(done) == 1 and "cut_by" not in done[0], done
+    assert gae_in_window == 2 * chunk, gae_in_window
+    assert launches["gae"] == n, launches
+    assert x4 and wall_ms < x4[0], (wall_ms, x4)
+    for v in variants:
+        for w, m in zip(walls[v], ms[v]):
+            assert w < 1.5 * chunk * m + 5.0, (v, w, m)
+    assert card_seq == cpu_seq, (card_seq, cpu_seq)
+    return report
+
+
+def wait_run_report(report: subprocess.Popen) -> None:
+    out, err = report.communicate(timeout=300)
+    assert report.returncode == 0, err[-2000:]
+    print(f"scripts/run_report.py on the telemetry a2c_cartpole run: exit 0 "
+          f"({report.args[2]}/report.md)", flush=True)
+
+
+def check_async_telemetry(tel: str, n: int, env: str) -> None:
+    """The async PPO run's spans and gauges (device plane, V-trace):
+    `env_step` spans on the two actor threads, `queue_wait` and `update` on
+    the learner's (one a block), names canonical, and the `device_ring`
+    gauge in resources.jsonl (the run's ring: it consumed blocks; rings
+    left open by earlier phases keep the plain key, so this one may carry
+    a suffix)."""
+    check_canonical(tel)
+    spans = [e for e in span_events(tel) if e["ph"] == "X"]
+    learner = {e["tid"] for e in spans if e["name"] in ("queue_wait", "update")}
+    actors = {e["tid"] for e in spans if e["name"] == "env_step"}
+    ring = [v for r in read_jsonl(f"{tel}/resources.jsonl") for k, v in r.items()
+            if k.startswith("device_ring") and v.get("gets", 0) > 0]
+    update_ms = [e["dur"] / 1e3 for e in spans if e["name"] == "update"]
+    print(f"telemetry async ppo_halfcheetah on {env}, device plane: env_step spans on "
+          f"{len(actors)} actor threads, queue_wait/update on {len(learner)} learner thread; "
+          f"{len(ring)} device_ring gauge rows (last: gets {ring[-1]['gets'] if ring else None}, "
+          f"drops full {ring[-1]['drops_full'] if ring else None}); update span "
+          f"{', '.join(f'{m:.3f}' for m in update_ms)} ms", flush=True)
+    assert len(learner) == 1 and len(actors) == ASYNC_ACTORS and not learner & actors, (
+        learner, actors)
+    assert sum(e["name"] == "update" for e in spans) == n
+    assert sum(e["name"] == "queue_wait" for e in spans) == n
+    assert ring, "no device_ring gauge row of the run's ring"
+
+
+STALL_CHILD = r"""
+import sys, time
+import torch
+from actor_critic_tpu_torch import telemetry
+from actor_critic_tpu_torch.utils.watchdog import StallWatchdog
+
+session = telemetry.TelemetrySession(sys.argv[1], sample_resources=False)
+telemetry.set_current(session)
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+# The spin's clock cycles a second, timed on a short spin.
+start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+start.record()
+torch.cuda._sleep(100_000_000)
+end.record()
+end.synchronize()
+cycles = int(float(sys.argv[2]) * 100_000_000 / (start.elapsed_time(end) / 1e3))
+StallWatchdog(float(sys.argv[3]), startup_grace_s=0.0).start()
+print(f"armed {time.time()}", flush=True)
+with telemetry.span("update", it=1):
+    torch.cuda._sleep(cycles)  # a kernel that spins: the wedged device
+    torch.cuda.synchronize()
+print("unreachable", flush=True)
+"""
+
+
+def run_stall_on_card(beside=None) -> None:
+    """The card's counterpart of the wedge the watchdog exists for: a child
+    arms `StallWatchdog(2.0, startup_grace_s=0)` under a session, opens an
+    `update` span and synchronizes on a ~15 s GPU spin. It must exit 42
+    within timeout + poll + 2 s of arming, its stderr naming `update`, with
+    a `stall` event in events.jsonl and a flight dump beside it. `beside()`
+    (another phase) runs while the child starts and stalls; a thread
+    records the child's exit time."""
+    import os
+    import shutil
+    import threading
+
+    from actor_critic_tpu_torch.telemetry import flight
+
+    tel = os.path.abspath(f"{SCRATCH}/telemetry_stall")
+    shutil.rmtree(tel, ignore_errors=True)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", STALL_CHILD, tel, str(STALL_SPIN_S), str(STALL_TIMEOUT_S)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": os.getcwd()})
+    exits: list[float] = []
+    waiter = threading.Thread(target=lambda: (proc.wait(), exits.append(time.time())),
+                              daemon=True)
+    waiter.start()
+    try:
+        if beside is not None:
+            beside()
+        waiter.join(120)
+        out = proc.stdout.read()
+        armed = [float(x.split()[1]) for x in out.splitlines() if x.startswith("armed ")]
+        assert armed and exits, (out, proc.stderr.read())
+        armed, exited, rc = armed[0], exits[0], proc.returncode
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    err = proc.stderr.read()
+    diag = [x for x in err.splitlines() if "stall-watchdog" in x]
+    poll = min(5.0, STALL_TIMEOUT_S / 4)
+    stall = [e for e in read_jsonl(f"{tel}/events.jsonl") if e["kind"] == "stall"]
+    print(f"stall on the card: exit {rc} {exited - armed:.2f} s after arming (timeout "
+          f"{STALL_TIMEOUT_S} s, poll {poll} s, spin {STALL_SPIN_S} s); {diag}; stall event "
+          f"{stall}; flight dumps {[os.path.basename(p) for p in flight.find_dumps(tel)]}",
+          flush=True)
+    assert rc == 42, (rc, err[-2000:])
+    assert exited - armed <= STALL_TIMEOUT_S + poll + 2.0, exited - armed
+    assert diag and "last open telemetry span: 'update'" in diag[0], err[-2000:]
+    assert len(stall) == 1 and stall[0]["phase"] == "update", stall
+    assert len(flight.find_dumps(tel)) == 1
+
+
+def run_telemetry_serve() -> None:
+    """`python -m actor_critic_tpu_torch.serve --preset ppo_cartpole
+    --random-init --port 0 --telemetry-dir` in a subprocess: requests with
+    trace ids give serve_parse, serve_queue_wait, serve_dispatch,
+    serve_respond and serve_request spans linked by flows; /metrics has the
+    card's memory rows and the serving gauge; the bucket captures are
+    `compile` events."""
+    import os
+    import shutil
+
+    tel = os.path.abspath(f"{SCRATCH}/telemetry_serve")
+    shutil.rmtree(tel, ignore_errors=True)
+    server = ServeProcess(["--preset", "ppo_cartpole", "--random-init", "--port", "0",
+                           "--buckets", "1,4", "--telemetry-dir", tel])
+    try:
+        import urllib.request
+
+        for i in range(4):
+            req = urllib.request.Request(
+                server.url + "/v1/act", data=json.dumps({"obs": [0.01 * i] * 4}).encode(),
+                headers={"x-trace-id": f"smoke{i}"})
+            with urllib.request.urlopen(req, timeout=30) as r:
+                assert json.loads(r.read())["trace"] == f"smoke{i}"
+        with urllib.request.urlopen(server.url + "/metrics", timeout=30) as r:
+            body = r.read().decode()
+    finally:
+        server.stop()
+    check_canonical(tel)
+    spans = span_events(tel)
+    hops = {e["name"] for e in spans if e.get("args", {}).get("trace") == "smoke3"}
+    assert hops >= {"serve_parse", "serve_queue_wait", "serve_respond", "serve_request"}, hops
+    assert any(e["name"] == "serve_dispatch" for e in spans)
+    flows = {e["ph"] for e in spans if e.get("cat") == "flow"}
+    assert flows == {"s", "t", "f"}, flows
+    mem = [x for x in body.splitlines() if x.startswith("actor_critic_device_live_bytes{")]
+    assert mem and float(mem[0].split()[-1]) > 0, mem
+    assert "actor_critic_serving_requests_total" in body
+    comps = [e for e in read_jsonl(f"{tel}/events.jsonl") if e["kind"] == "compile"]
+    assert len(comps) == 2, comps  # buckets 1 and 4, one lane
+    print(f"telemetry serve: hops of one request {sorted(hops)}, flows {sorted(flows)}; "
+          f"/metrics {mem[0]}; bucket captures "
+          f"{', '.join(f'{e['name']} {e['compile_s']:.3f} s' for e in comps)}", flush=True)
+
+
 def phase(label: str, fn, *args, **kwargs):
     """`fn(*args, **kwargs)`, its host seconds printed after it as `phase
     <label>: <s> s` (the script's time budget is read off these lines)."""
@@ -3271,6 +3801,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    import faulthandler
+
+    faulthandler.dump_traceback_later(STACKS_AFTER_S)
     from actor_critic_tpu_torch import _build, resolve_device
 
     resolve_device("cuda")  # the port's entry point: pins the precision
@@ -3297,7 +3830,11 @@ def main() -> int:
     phase("IMPALA update on the card", check_impala_update_on_card)
     phase("bf16 update on the card", check_update_on_card, True)
     phase("bf16 IMPALA update on the card", check_impala_update_on_card, True)
-    for preset_name in ("a2c_cartpole", "ppo_cartpole", "a2c_mixture", "impala_pong", "a3c_pong"):
+    # a2c_cartpole's graph check runs with the telemetry sampler ticking
+    # through its capture (graph = eager at 0.0 all the same).
+    phase("graph vs eager a2c_cartpole", sampled, "graph_vs_eager_a2c_cartpole",
+          check_graph_equals_eager, "a2c_cartpole")
+    for preset_name in ("ppo_cartpole", "a2c_mixture", "impala_pong", "a3c_pong"):
         phase(f"graph vs eager {preset_name}", check_graph_equals_eager, preset_name)
     for preset_name in OFFPOLICY_PRESETS:
         phase(f"graph vs eager {preset_name}", check_offpolicy_graph_equals_eager, preset_name)
@@ -3313,7 +3850,7 @@ def main() -> int:
     phase("a3c_pong", run_a3c_pong)
     phase("a2c_mixture", run_a2c_mixture)
     phase("a2c_mixture curriculum", run_a2c_mixture_curriculum)
-    phase("resume a2c_cartpole", run_resume, "a2c_cartpole", [])
+    phase("resume a2c_cartpole", sampled, "resume_a2c_cartpole", run_resume, "a2c_cartpole", [])
     phase("resume impala_pong", run_resume, "impala_pong", [])
     phase("resume a2c_mixture", run_resume, "a2c_mixture",
           ["--eval-every", str(RESUME_AT), "--curriculum=-1e9:0,0,0,1"])
@@ -3344,6 +3881,10 @@ def main() -> int:
     phase("serve CLI", run_serve_cli)
     serve_vtrace = phase("serve while training", run_serve_while_training,
                          host_envs["ppo_halfcheetah"], ASYNC_RATES[("device", "fp32")])
+    report = phase("telemetry a2c_cartpole", run_telemetry_a2c)
+    phase("telemetry host and async", run_telemetry_host_async, host_envs["ppo_halfcheetah"])
+    phase("stall on the card, telemetry serve beside it", run_stall_on_card, run_telemetry_serve)
+    phase("run report", wait_run_report, report)
     phase("IMPALA learns", check_impala_learns)
     # One step each way for the steps of ~21,000–24,000 launches
     # (PROFILE_PRESETS): the profiler's bookkeeping of them takes longer than
@@ -3369,6 +3910,7 @@ def main() -> int:
         assert all(v > 0 for v in by_path[e["name"]].values()), \
             f"kernel {e['name']} was not launched on a main path: {by_path[e['name']]}"
 
+    faulthandler.cancel_dump_traceback_later()
     print(f"script: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)

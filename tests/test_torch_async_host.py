@@ -495,8 +495,8 @@ def stub_graph(monkeypatch):
     _StubCapture.made = []
     init = host_loop.HostUpdate.__init__
 
-    def card_like_init(self, body, generator, capture_error_mode="global"):
-        init(self, body, generator, capture_error_mode)
+    def card_like_init(self, body, generator, capture_error_mode="global", **kwargs):
+        init(self, body, generator, capture_error_mode, **kwargs)
         self.stream, self.eager_left = "side stream", loop.WARMUP_ITERATIONS
 
     monkeypatch.setattr(host_loop.HostUpdate, "__init__", card_like_init)

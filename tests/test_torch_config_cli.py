@@ -20,7 +20,9 @@ JAX package's `config.py` and `train.py`:
 - `--update-dtype fp32|bf16` is `--set bf16_compute=...`, and bf16 runs
   on the host path's `host:`/`native:` envs and the MuJoCo presets'
   learners; what is not ported yet (`--workers` and the flags of later
-  paths) exits with a message saying so;
+  paths) exits with a message saying so; the telemetry and watchdog flags
+  run, or exit with JAX's errors (`tests/test_torch_telemetry.py` holds
+  their traces against JAX's);
 - the async actor-learner's seven flags (`--async-actors`,
   `--updates-per-block`, `--max-staleness`, `--queue-depth`,
   `--async-correction`, `--data-plane`, `--data-plane-codec`) each run
@@ -321,6 +323,40 @@ def test_flags_still_to_port_are_refused(flag, capsys):
         train.main(["--preset", "a2c_cartpole", flag, "2", "--device", "cpu"])
     err = capsys.readouterr().err
     assert f"{flag} is not ported yet" in err and train.UNPORTED_FLAGS[flag] in err
+
+
+@pytest.mark.parametrize("flags,expect", [
+    (["--telemetry-dir", "{tmp}/tel"], "runs"),
+    (["--telemetry-dir", "{tmp}/tel", "--telemetry-port", "0"], "runs"),
+    (["--telemetry-port", "0"], "--telemetry-port requires --telemetry-dir"),
+    (["--telemetry-dir", "{tmp}/tel", "--telemetry-bind", "0.0.0.0"], "non-loopback"),
+    (["--telemetry-dir", "{tmp}/tel", "--telemetry-sample-s", "0"],
+     "--telemetry-sample-s must be > 0"),
+    (["--telemetry-dir", "{tmp}/tel", "--telemetry-sample-s", "0.05"], "runs"),
+    (["--stall-timeout", "60"], "runs"),
+], ids=["dir", "port", "port_without_dir", "bind_non_loopback", "sample_s_zero", "sample_s",
+        "stall_timeout"])
+def test_telemetry_flags_run_or_give_jax_errors(flags, expect, capsys, tmp_path):
+    """The five telemetry and watchdog flags, once refused as not ported: each
+    now runs, or exits with JAX's error for JAX's bad values. A run with a
+    telemetry dir leaves the session's three sinks, and the session and
+    the watchdog are gone when it returns."""
+    from actor_critic_tpu_torch import telemetry
+    from actor_critic_tpu_torch.utils import watchdog
+
+    flags = [f.format(tmp=tmp_path) for f in flags]
+    if expect != "runs":
+        with pytest.raises(SystemExit, match=expect):
+            train.main(SMALL + flags + ["--iterations", "1", "--device", "cpu"])
+        return
+    _, summary, lines = _cli(SMALL + flags + ["--iterations", "2", "--quiet"], capsys, tmp_path)
+    assert summary["iterations"] == 2
+    assert telemetry.current() is None and not watchdog.armed()
+    if "--telemetry-dir" in flags:
+        assert {"spans.jsonl", "resources.jsonl", "events.jsonl"} <= set(
+            p.name for p in (tmp_path / "tel").iterdir())
+    assert any(x.startswith("telemetry exporter: http://127.0.0.1:") for x in lines) == (
+        "--telemetry-port" in flags)
 
 
 def test_list_presets_names_jax_presets(capsys):

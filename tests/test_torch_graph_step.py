@@ -376,3 +376,36 @@ def test_offpolicy_chunked_loop_equals_per_iteration(name):
     assert all(torch.equal(t1[k], t4[k]) for k in t1)
     assert all(torch.equal(m1[k], m4[k]) for k in m1)
     assert torch.equal(g1, g4)
+
+
+def test_capture_holds_off_the_collector(monkeypatch):
+    """`loop.capture` keeps the cyclic collector off from the first of
+    overlapping captures until the last one ends, also when a capture
+    raises: a CUDAGraph the collector frees mid-capture resets itself and
+    invalidates the capture. A collector the caller disabled stays off."""
+    import contextlib
+    import gc
+
+    entered = []
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda graph, **kw: contextlib.nullcontext(entered.append((graph, kw))))
+    assert gc.isenabled()
+    with loop.capture("g1", capture_error_mode="global"):
+        assert not gc.isenabled()
+        with loop.capture("g2", capture_error_mode="thread_local"):
+            assert not gc.isenabled()
+        assert not gc.isenabled()
+    assert gc.isenabled()
+    assert entered == [("g1", {"capture_error_mode": "global"}),
+                       ("g2", {"capture_error_mode": "thread_local"})]
+    with pytest.raises(RuntimeError, match="failed"):
+        with loop.capture("g3"):
+            raise RuntimeError("capture failed")
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with loop.capture("g4"):
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()

@@ -5,6 +5,9 @@ the async learners) on the CPU:
 - the CLI's flags build JAX's stores (random init, checkpoints, the default
   route, per-policy SLO classes and windows) and refuse what JAX refuses;
   the flags of later paths exit "not ported yet" with their ROADMAP item;
+  `--telemetry-dir` attaches a session whose exposition /metrics serves
+  and whose spans hold each request's hops, and `--telemetry-bind` refuses
+  a non-loopback host, as JAX's does;
   `--backend xla` (JAX's name) is `device`; `--set bf16_compute=true`
   serves the bf16 network; `--backend auto` reports its choice; without `--device cpu` it needs the
   card; a subprocess binds port 0, prints it, serves and shuts down on
@@ -64,6 +67,40 @@ def test_later_paths_are_refused(flag, capsys):
         serve.parse_args(["--preset", "ppo_cartpole", flag, "1"])
     err = capsys.readouterr().err
     assert f"{flag} is not ported yet" in err and serve.UNPORTED_FLAGS[flag] in err
+
+
+def test_telemetry_dir_attaches_a_session(tmp_path):
+    """`--telemetry-dir`: the session starts before the engine, the gateway
+    serves its exposition on /metrics, and a request's hops are spans."""
+    from actor_critic_tpu_torch import telemetry
+
+    args = _args("--random-init", "--telemetry-dir", str(tmp_path / "tel"))
+    session = serve.start_session(args)
+    try:
+        assert telemetry.current() is session and session.exporter is not None
+        _, store, wait = serve.build(args)
+        gw = serving.ServeGateway(store, port=0, session=session, max_wait_us=wait)
+        try:
+            req = urllib.request.Request(gw.url + "/v1/act", data=json.dumps(
+                {"obs": [0.1, 0.2, 0.3, 0.4]}).encode(), headers={"x-trace-id": "abc"})
+            assert json.loads(urllib.request.urlopen(req, timeout=TIMEOUT).read())["trace"] == "abc"
+            with urllib.request.urlopen(gw.url + "/metrics", timeout=TIMEOUT) as r:
+                body = r.read().decode()
+            assert "actor_critic_up 1" in body and "actor_critic_serving_requests_total" in body
+        finally:
+            gw.close()
+    finally:
+        session.close()
+    spans = [json.loads(x) for x in open(tmp_path / "tel" / "spans.jsonl")]
+    assert {e["name"] for e in spans if e.get("args", {}).get("trace") == "abc"} >= {
+        "serve_parse", "serve_queue_wait", "serve_request", "serve_respond"}
+
+
+def test_telemetry_bind_refuses_non_loopback():
+    """JAX's refusal (without --distributed, which the port does not have)."""
+    assert _args("--telemetry-bind", "localhost").telemetry_bind == "localhost"
+    with pytest.raises(SystemExit, match="non-loopback"):
+        _args("--telemetry-dir", "/tmp/x", "--telemetry-bind", "0.0.0.0")
 
 
 def test_backend_xla_is_device():
