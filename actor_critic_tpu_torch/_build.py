@@ -4,13 +4,17 @@ Each `csrc/<name>.cu` exposes a plain `extern "C"` launcher and is compiled
 at first use, on the machine with the card, by
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -o <cache>/kernels/lib<name>-<hash>.so csrc/<name>.cu
 
-into `build/kernels/` at the root of the checkout (listed in `.gitignore`).
-The library name carries a hash of the source and of the shared headers
-(`csrc/*.cuh`), so an edited source is rebuilt and a stale library is
-never loaded. `build()` compiles several
-sources at once, one `nvcc` process each, all started together.
+into the build cache's `kernels/` directory (`utils/compile_cache.py`: by
+default `build/kernels/` at the root of the checkout, listed in
+`.gitignore`; `--compile-cache-dir` moves it). The library name carries a
+hash of the source, of the shared headers (`csrc/*.cuh`) and of the
+flags, so an edited source is rebuilt and a stale library is never
+loaded, also from a cache that other checkouts share. `build()` compiles
+several sources at once, one `nvcc` process each, all started together;
+concurrent callers (the warm-up's thread and a first launch) take turns,
+so a library is built once.
 Each kernel counts its own launches on the card (`csrc/scan_tile.cuh::
 count_launch`); `device_launches` reads those counts.
 """
@@ -22,12 +26,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 
 ARCH = "sm_90a"
 NVCC_FLAGS = (
@@ -38,6 +42,15 @@ NVCC_FLAGS = (
 _loaded: dict[str, ctypes.CDLL] = {}
 # name -> (seconds, compiler output) of the builds this process ran.
 build_log: dict[str, tuple[float, str]] = {}
+_build_lock = threading.Lock()
+
+
+def build_dir() -> Path:
+    """Where the libraries are built and looked up: the build cache's
+    `kernels/` directory."""
+    from actor_critic_tpu_torch.utils import compile_cache
+
+    return compile_cache.cache_path("kernels")
 
 
 def _nvcc() -> str:
@@ -56,7 +69,7 @@ def library_path(name: str) -> Path:
     digest = hashlib.sha256(
         b"".join(p.read_bytes() for p in sources) + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return build_dir() / f"lib{name}-{digest}.so"
 
 
 def build(*names: str) -> dict[str, Path]:
@@ -64,9 +77,14 @@ def build(*names: str) -> dict[str, Path]:
     parallel; raise with the compiler's output if any build fails. Each
     source is recorded as one `compile` event (`telemetry/profiler.py`:
     its nvcc seconds and arch; a library already built is a cache hit)."""
+    with _build_lock:
+        return _build(names)
+
+
+def _build(names) -> dict[str, Path]:
     from actor_critic_tpu_torch.telemetry import profiler
 
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     nvcc = None
     procs = {}
     for name in names:

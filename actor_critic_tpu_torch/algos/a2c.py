@@ -228,3 +228,9 @@ def train(
         seed=seed, device=device, state=state, log_every=log_every, log_fn=log_fn,
         capturable=CAPTURABLE,
     )
+
+
+# -- the warm-up registry (utils/compile_cache.py) ---------------------------
+from actor_critic_tpu_torch.utils import compile_cache as _compile_cache  # noqa: E402
+
+_compile_cache.register_fused_warmups("a2c", ("a2c",), lambda cfg: ("gae",))

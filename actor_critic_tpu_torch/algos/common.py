@@ -174,7 +174,13 @@ def named_carried(obj: Any, prefix: str) -> dict[str, torch.Tensor]:
         out[f"{prefix} count"] = obj.count
         return out
     if isinstance(obj, tuple):
-        return {f"{prefix} {k}": t for k, t in named_leaves(obj).items()}
+        out = {}
+        for k, t in named_leaves(obj).items():
+            # A dict inside a tuple (the device ring's storage by key) is
+            # a node too.
+            out.update(named_carried(t, f"{prefix} {k}") if isinstance(t, dict)
+                       else {f"{prefix} {k}": t})
+        return out
     if isinstance(obj, torch.Tensor):
         return {prefix: obj}
     if isinstance(obj, dict):
@@ -535,7 +541,9 @@ class BlockedEval:
     graphs serve that generator only. The act function, the env and the
     buffers are frozen into the graphs: a later call evaluates the
     parameters the act function reads, as they are then. `capture_s` holds
-    the seconds each capture took, warm-up included."""
+    the seconds each capture took, warm-up included. `warm` captures every
+    block length ahead of the first call (the warm-up registry's capture
+    part of the evals, `utils/compile_cache.py`)."""
 
     def __init__(self, env: TorchEnv, act_fn: Callable[[torch.Tensor], torch.Tensor],
                  num_envs: int, num_steps: int):
@@ -582,9 +590,9 @@ class BlockedEval:
         self.capture_s[n] = time.perf_counter() - t0
         return graph
 
-    @torch.no_grad()
-    def __call__(self, generator: torch.Generator,
-                 reset_fn: Callable[[int, torch.Generator], tuple[Any, torch.Tensor]]) -> torch.Tensor:
+    def _reset(self, generator: torch.Generator, reset_fn) -> None:
+        """A fresh fleet (`reset_fn`, eager) and zeroed returns, alive
+        everywhere, into the buffers (allocated at the first call)."""
         env_state, obs = reset_fn(self.num_envs, generator)
         ret = torch.zeros(self.num_envs, device=obs.device)
         alive = torch.ones(self.num_envs, device=obs.device)
@@ -595,12 +603,34 @@ class BlockedEval:
         else:
             for buf, new in zip(tree_leaves(self.buffers), tree_leaves(fresh), strict=True):
                 buf.copy_(new)
-        capture = generator.device.type == "cuda"
-        if capture:
+        if generator.device.type == "cuda":
             if self.generator is None:
                 self.generator = generator
             elif generator is not self.generator:
                 raise ValueError("a captured eval replays the generator it was captured with")
+
+    @torch.no_grad()
+    def warm(self, generator: torch.Generator,
+             reset_fn: Callable[[int, torch.Generator], tuple[Any, torch.Tensor]]) -> None:
+        """Capture every block length ahead of the first call, from one reset
+        into the buffers, the generator's state put back after (on the card;
+        on the CPU there is nothing to capture)."""
+        if generator.device.type != "cuda":
+            return
+        saved = generator.get_state()
+        try:
+            self._reset(generator, reset_fn)
+            for n in dict.fromkeys(self.blocks):
+                if n not in self.graphs:
+                    self.graphs[n] = self._capture(generator, n)
+        finally:
+            generator.set_state(saved)
+
+    @torch.no_grad()
+    def __call__(self, generator: torch.Generator,
+                 reset_fn: Callable[[int, torch.Generator], tuple[Any, torch.Tensor]]) -> torch.Tensor:
+        self._reset(generator, reset_fn)
+        capture = generator.device.type == "cuda"
         alive = self.buffers[3]
         for i, n in enumerate(self.blocks):
             if i > 0 and not bool(alive.any()):
@@ -627,17 +657,26 @@ def make_net_eval(
     replays on the card), one per (net, num_envs, num_steps), kept for the
     later calls. A `reset_fn` (the mixture's type-pinned reset) is run
     eagerly at each call, so one set of graphs serves every reset of that
-    shape."""
+    shape. `run.warm(...)`, with the same arguments, captures that eval's
+    blocks ahead of its first call (`BlockedEval.warm`)."""
     evals: dict[tuple, BlockedEval] = {}
 
-    def run(net: nn.Module, generator: torch.Generator, num_envs: int, num_steps: int,
-            reset_fn=None) -> torch.Tensor:
+    def blocked(net: nn.Module, num_envs: int, num_steps: int) -> BlockedEval:
         key = (net, num_envs, num_steps)
         if key not in evals:
             evals[key] = BlockedEval(env, lambda obs: act(net, obs), num_envs, num_steps)
-        return evals[key](generator, reset_fn or env.reset)
+        return evals[key]
+
+    def run(net: nn.Module, generator: torch.Generator, num_envs: int, num_steps: int,
+            reset_fn=None) -> torch.Tensor:
+        return blocked(net, num_envs, num_steps)(generator, reset_fn or env.reset)
+
+    def warm(net: nn.Module, generator: torch.Generator, num_envs: int, num_steps: int,
+             reset_fn=None) -> None:
+        blocked(net, num_envs, num_steps).warm(generator, reset_fn or env.reset)
 
     run.evals = evals
+    run.warm = warm
     return run
 
 
@@ -651,7 +690,9 @@ def make_mode_eval(env: TorchEnv):
     """Greedy (mode-action) eval for actor-critic nets whose
     `net(obs) → (dist, value)`; returns
     `eval_fn(state, generator, num_envs=32, num_steps=default_eval_steps(env))`,
-    replayed as CUDA graphs on the card (`make_net_eval`)."""
+    replayed as CUDA graphs on the card (`make_net_eval`); `eval_fn.warm`
+    takes the same arguments and captures its blocks ahead of the first
+    call."""
     default_steps = default_eval_steps(env)
     run = make_net_eval(env)
 
@@ -659,7 +700,12 @@ def make_mode_eval(env: TorchEnv):
                 num_envs: int = 32, num_steps: int = default_steps) -> torch.Tensor:
         return run(state.net, generator, num_envs, num_steps)
 
+    def warm(state: TrainState, generator: torch.Generator,
+             num_envs: int = 32, num_steps: int = default_steps) -> None:
+        run.warm(state.net, generator, num_envs, num_steps)
+
     eval_fn.evals = run.evals
+    eval_fn.warm = warm
     return eval_fn
 
 
@@ -680,7 +726,12 @@ def make_greedy_eval(
                 num_steps: int = default_steps) -> torch.Tensor:
         return run(module_of(state), generator, num_envs, num_steps)
 
+    def warm(state, generator: torch.Generator, num_envs: int = 32,
+             num_steps: int = default_steps) -> None:
+        run.warm(module_of(state), generator, num_envs, num_steps)
+
     eval_fn.evals = run.evals
+    eval_fn.warm = warm
     return eval_fn
 
 

@@ -18,7 +18,11 @@ one device update on it. This module holds what they share:
   the other set.
 - `HostUpdate`: the device update replayed as one CUDA graph over those
   static buffers (the first `loop.WARMUP_ITERATIONS` calls eager on a side
-  stream, then a capture; eager on the CPU).
+  stream, then a capture; eager on the CPU). When the run's warm-up plan
+  names the update's entry (`utils/compile_cache.py`), the trainer runs
+  `HostUpdate.warm` before its first iteration instead, on a zero block
+  staged into the static buffers (`BlockBuffers.preallocate`), and every
+  call is a replay.
 - `IterationClock`: where an iteration's time goes (collect, wait,
   dispatch on the host clock; upload and update on the device).
 - the checkpoint state (`host_ckpt_state`, `strip_replay`, `host_resume`,
@@ -172,6 +176,18 @@ class BlockBuffers:
         buf = self._bufs[self._active]
         return {k: buf[k][1] for k in buf if k in self._seen}
 
+    def preallocate(self, spec: dict) -> None:
+        """Allocate the static device buffers of `spec` (name → an object
+        with `shape` and a numpy `dtype`) zero-filled, before any upload: a
+        warm-up ahead of the first block reads them (finite, and valid
+        indices), and every upload after checks its block against them."""
+        from actor_critic_tpu_torch.data_plane.ring import torch_dtype
+
+        for name, leaf in spec.items():
+            if name not in self.static:
+                self.static[name] = torch.zeros(tuple(leaf.shape), dtype=torch_dtype(leaf.dtype),
+                                                device=self.device)
+
     def upload(self) -> dict[str, torch.Tensor]:
         buf = self._bufs[self._active]
         for name in self._seen:
@@ -324,6 +340,26 @@ class HostUpdate:
     def _step(self, _):
         return self, self.body()
 
+    def _capture(self) -> None:
+        with profiler.record_compile(self.name, profiler.signature_of(self.carried())):
+            self.captured = loop.CapturedStep(self._step, self,
+                                              capture_error_mode=self.capture_error_mode)
+
+    def warm(self) -> None:
+        """The update's warm-up ahead of its first call, off the books:
+        `loop.WARMUP_ITERATIONS` eager calls (on the side stream on the card)
+        from a snapshot of `carried()` and the generator's state, put back
+        bitwise after them, then (on the card) the capture: every call
+        after it replays. Its inputs are what the static buffers or the
+        ring's slot hold now, so the caller stages finite ones first."""
+        with loop.restored(self.carried(), self.generator):
+            for _ in range(loop.WARMUP_ITERATIONS):
+                loop.eager_step(self._step, self, self.stream)
+        if self.stream is not None:
+            self.eager_left = 0
+            if self.captured is None:
+                self._capture()
+
     def __call__(self) -> dict[str, torch.Tensor]:
         if self.stream is None:
             return self.body()
@@ -331,10 +367,45 @@ class HostUpdate:
             self.eager_left -= 1
             return loop.eager_step(self._step, self, self.stream)[1]
         if self.captured is None:
-            with profiler.record_compile(self.name, profiler.signature_of(self.carried())):
-                self.captured = loop.CapturedStep(self._step, self,
-                                                  capture_error_mode=self.capture_error_mode)
+            self._capture()
         return self.captured.replay()
+
+
+def warm_update(entry: str, update: HostUpdate, buffers: Optional[BlockBuffers] = None,
+                spec: Optional[dict] = None, gate=None) -> bool:
+    """Entry `entry`'s capture part, run when the run's warm-up plan names it
+    (`utils/compile_cache.capture_part`): a zero block of `spec` staged into
+    `buffers`' static device buffers (None on the device data plane, whose
+    ring slot is zeroed at its allocation), then `update.warm()`, with
+    `gate` (an async learner's: a serving sidecar's flushes wait on it)
+    cleared meanwhile. Returns whether it ran; without it the update warms
+    up at its first calls."""
+    from actor_critic_tpu_torch.utils import compile_cache
+
+    def warm() -> None:
+        if buffers is not None:
+            buffers.preallocate(spec)
+        if gate is not None:
+            gate.clear()
+        try:
+            update.warm()
+        finally:
+            if gate is not None:
+                gate.set()
+
+    return compile_cache.capture_part(entry, warm)
+
+
+def offpolicy_block_fields(spec, cfg, actors: int) -> dict:
+    """The fields an off-policy update reads from its static buffers: the
+    [K, E_a] transition block (`device_replay.offpolicy_block_spec`; the
+    lockstep loop records no `last_obs`) and the 0-dim int64 `env_steps`."""
+    from actor_critic_tpu_torch.data_plane import device_replay, ring
+
+    out = device_replay.offpolicy_block_spec(spec, cfg, actors)
+    if not actors:
+        del out["last_obs"]
+    return {**out, "env_steps": ring.array_spec((), "int64")}
 
 
 class IterationClock:
@@ -682,6 +753,9 @@ def off_policy_train_host(
                         carried=lambda: named_carried(
                             {"learner": learner, "block": buffers.static}, ""))
     run = HostRun(buffers, snapshot, update, {"learner": learner}, clock)
+    if start_it < num_iterations:
+        warm_update(f"{offpolicy_name(cfg)}.make_host_ingest_update", update, buffers,
+                    offpolicy_block_fields(spec, cfg, 0))
     gauge = register_replay_gauge(learner, cfg)
     try:
         for it in range(start_it, num_iterations):
@@ -1064,8 +1138,8 @@ def off_policy_train_host_async(
     called right after block `it`'s publish with the publisher's frozen copy
     of the actor, and once after the last block with the final actor (`it`
     = `num_iterations`). `gate`, as `ppo.train_host_async`'s, is cleared
-    while the update runs eagerly or is captured. Returns (learner,
-    history)."""
+    while the update runs eagerly or is captured (under a warm-up plan,
+    once, before the actors start). Returns (learner, history)."""
     import threading
 
     from actor_critic_tpu_torch import resolve_device
@@ -1149,6 +1223,11 @@ def off_policy_train_host_async(
                             ""))
     clock = IterationClock(device)
     run = HostRun(feed.buffers, snapshot, update, {"learner": learner}, clock, queue, gate)
+    # Captured before the actors start: the gate is not cleared for it once
+    # training runs.
+    warm_update("device_replay.make_device_ingest_update" if feed.device_plane
+                else f"{offpolicy_name(cfg)}.make_host_ingest_update",
+                update, feed.buffers, offpolicy_block_fields(spec, cfg, A), gate)
     history: list = []
     metrics: dict = {}
     trackers = MergedEpisodeTracker([a.tracker for a in actors])

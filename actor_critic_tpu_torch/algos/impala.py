@@ -249,3 +249,12 @@ def train(
         seed=seed, device=device, state=state, log_every=log_every, log_fn=log_fn,
         capturable=CAPTURABLE,
     )
+
+
+# -- the warm-up registry (utils/compile_cache.py) ---------------------------
+# V-trace for IMPALA, GAE for A3C (`correction="none"`).
+from actor_critic_tpu_torch.utils import compile_cache as _compile_cache  # noqa: E402
+
+_compile_cache.register_fused_warmups(
+    "impala", ("impala", "a3c"),
+    lambda cfg: ("vtrace",) if cfg.correction == "vtrace" else ("gae",))

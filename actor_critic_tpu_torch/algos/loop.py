@@ -41,6 +41,16 @@ before any capture, and runs the iterations left; it saves on the
 the host waits for the device). A resume with nothing left to run returns
 the saved metrics.
 
+The warm-up registry (`utils/compile_cache.py`): when the run's warm-up
+plan names the trainer's `<module>.make_train_step` entry, the loop runs
+its capture part right before the first dispatch (after the restore and
+the first `state_hook` call): `warm_up`, the `WARMUP_ITERATIONS` eager
+steps off the books (everything the step writes snapshotted and put back
+bitwise), then the captures of the graphs `compile_cache.fused_graphs`
+names. The loop then replays from its first iteration and records no
+capture; on the CPU only the eager part runs. Without the plan (or when
+its capture part failed) the loop behaves as described above.
+
 A `state_hook(it, state)` runs on the host before the first dispatch and
 after each one (`it` the number of iterations already run), so before
 every iteration that follows, and before the save of iteration `it`: the
@@ -70,8 +80,9 @@ The chunk-wall ratchet (JAX's): with `chunk` > 1 and a stall watchdog
 armed, each dispatch waits for its replay (an event sync; the unwatched
 loop adds no sync) and times itself. A dispatch that ran eagerly in the
 warm-up (on the CPU: the process's first), captured a graph or built a
-kernel (`profiler.compile_event_count` moved) only extends the watchdog's
-grace by 3 x its wall; any other raises the watchdog's timeout to at least
+kernel (`profiler.compile_event_count` moved), or ran a graph's first
+replay (after a warm-up the loop's first dispatch is one) only extends
+the watchdog's grace by 3 x its wall; any other raises the watchdog's timeout to at least
 3 x its wall and, with `ckpt`, persists the wall to `<ckpt
 dir>/chunk_wall.json`, which a resumed run reads before its first
 dispatch.
@@ -152,6 +163,47 @@ class CapturedStep:
         return self.metrics
 
 
+@contextlib.contextmanager
+def restored(tensors: dict[str, torch.Tensor], generator: torch.Generator):
+    """Snapshot `tensors` and `generator`'s state, and put both back bitwise
+    when the block ends, also when it raises (the copies run on the current
+    stream, after any side-stream work the block joined back). The
+    snapshot is freed then."""
+    saved = {k: t.clone() for k, t in tensors.items()}
+    generator_state = generator.get_state()
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for k, t in tensors.items():
+                t.copy_(saved[k])
+        generator.set_state(generator_state)
+        saved.clear()
+
+
+def warm_up(step: Callable, state, graphs: tuple[int, ...] = (),
+            stream: Optional[torch.cuda.Stream] = None,
+            name: str = "train_step") -> dict[int, CapturedStep]:
+    """The warm-up a capture needs, ahead of the first dispatch and off the
+    books: `WARMUP_ITERATIONS` eager steps (on `stream`, a side stream, on
+    the card) from a snapshot of everything the step writes
+    (`common.carried_tensors` and the generator's state), put back bitwise
+    after them; then one capture per steps-per-replay in `graphs` (each
+    one `compile` event named `<name>[x<n>]`). Returns the captures by
+    steps per replay."""
+    from actor_critic_tpu_torch.algos.common import carried_tensors
+
+    with restored(carried_tensors(state), state.generator):
+        for _ in range(WARMUP_ITERATIONS):
+            eager_step(step, state, stream)
+    captured = {}
+    for n in graphs:
+        with profiler.record_compile(f"{name}[x{n}]",
+                                     profiler.signature_of(carried_tensors(state))):
+            captured[n] = CapturedStep(step, state, n)
+    return captured
+
+
 def eager_step(step: Callable, state, stream: Optional[torch.cuda.Stream] = None):
     """`step(state)`, on `stream` if one is given, ordered after the current
     stream's work and before its next (the caller reads the metrics and may
@@ -196,7 +248,7 @@ def fused_train_loop(
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     from actor_critic_tpu_torch.algos.common import carried_tensors
-    from actor_critic_tpu_torch.utils import checkpoint
+    from actor_critic_tpu_torch.utils import checkpoint, compile_cache
 
     if state is None:
         state = init_state(env, cfg, seed, device)
@@ -210,6 +262,7 @@ def fused_train_loop(
     warmup_stream = torch.cuda.Stream(state.ep_return.device) if graph else None
     eager_left = WARMUP_ITERATIONS if graph else 0
     captured: dict[int, CapturedStep] = {}  # by steps per replay: 1 and `chunk`
+    replayed: set[int] = set()  # the graphs whose first replay has run
     chunk_wall_path = None
     if chunk > 1 and ckpt is not None:
         chunk_wall_path = os.path.join(ckpt.directory, checkpoint.CHUNK_WALL_FILE)
@@ -236,6 +289,14 @@ def fused_train_loop(
     it = done
     if state_hook is not None:
         state_hook(it, state)
+    if it < num_iterations:
+        graphs = compile_cache.fused_graphs(chunk, num_iterations, resume) if graph else ()
+
+        def warm_captures() -> None:
+            captured.update(warm_up(step, state, graphs, warmup_stream, f"{name}.train_step"))
+
+        if compile_cache.capture_part(f"{name}.make_train_step", warm_captures) and graph:
+            eager_left = 0
     while it < num_iterations:
         # A chunk cut short realigns the next one to a multiple of `chunk`.
         k = min(chunk - it % chunk, num_iterations - it)
@@ -248,6 +309,7 @@ def fused_train_loop(
         telemetry.profiler_tick()
         timed = chunk > 1 and watchdog.armed()
         compiles_before = profiler.compile_event_count() if timed else 0
+        first_replay = False
         t_dispatch = time.monotonic()
         with telemetry.span("update", it=it + k, dispatch="async"):
             telemetry.instant("env_step", fused=True)
@@ -263,6 +325,8 @@ def fused_train_loop(
                             f"{name}.train_step[x{n}]",
                             profiler.signature_of(carried_tensors(state))):
                         captured[n] = CapturedStep(step, state, n)
+                first_replay = n not in replayed
+                replayed.add(n)
                 for _ in range(k // n):
                     metrics = captured[n].replay()
         if timed:
@@ -273,9 +337,10 @@ def fused_train_loop(
                 done_event.record()
                 done_event.synchronize()
             wall = time.monotonic() - t_dispatch
-            if warm or profiler.compile_event_count() > compiles_before:
-                # A warm-up or capture wall would bake that one-off cost into
-                # 3x the stall timeout for good: shield the next chunk only.
+            if warm or first_replay or profiler.compile_event_count() > compiles_before:
+                # A warm-up, capture or first-replay wall would bake that
+                # one-off cost into 3x the stall timeout for good: shield the
+                # next chunk only.
                 watchdog.extend_grace(3.0 * wall)
             else:
                 watchdog.ensure_timeout_at_least(3.0 * wall)

@@ -537,6 +537,9 @@ def train_host(
                                        "block": buffers.static}, ""))
     run = host_loop.HostRun(buffers, snapshot, update,
                             {"params": net, "opt_state": opt_state}, clock)
+    if start_it < num_iterations:
+        host_loop.warm_update("ppo.make_host_update_step", update, buffers,
+                              host_block_spec(spec, cfg, snapshot is not None))
     steps_per_iter = cfg.rollout_steps * pool.num_envs
     for it in range(start_it, num_iterations):
         telemetry.profiler_tick()
@@ -642,6 +645,15 @@ def async_block_spec(spec: EnvSpec, cfg: PPOConfig, actors: int,
         out["final_values"] = s((T, E), "float32")
         out["bootstrap_value"] = s((E,), "float32")
     return out
+
+
+def host_block_spec(spec: EnvSpec, cfg: PPOConfig, mirror: bool) -> dict:
+    """name → `ArraySpec` of the [T, E] block the lockstep `train_host`
+    uploads: `async_block_spec`'s one-actor block with the mirror's
+    baselines (`final_values`, `bootstrap_value`) where the mirror acts,
+    `last_obs` where the device acts."""
+    drop = ("last_obs",) if mirror else ("final_values", "bootstrap_value")
+    return {k: v for k, v in async_block_spec(spec, cfg, 1, "none").items() if k not in drop}
 
 
 def make_async_update_fn(env_spec: EnvSpec, cfg: PPOConfig, can_truncate: bool = True,
@@ -817,8 +829,10 @@ def train_host_async(
     after the last block with the final parameters (`it` =
     `num_iterations`). `gate` (a `threading.Event`, a fresh one by default)
     is cleared while an update runs eagerly or is captured: the actors, and
-    a serving sidecar's flushes, wait on it. Returns (net, opt_state,
-    history)."""
+    a serving sidecar's flushes, wait on it. Under a warm-up plan that
+    names the update's entry (`utils/compile_cache.py`) that happens once,
+    before the actors start (`host_loop.warm_update`), and never during
+    training. Returns (net, opt_state, history)."""
     import threading
 
     from actor_critic_tpu_torch.algos import host_loop
@@ -925,6 +939,12 @@ def train_host_async(
     clock = host_loop.IterationClock(device)
     run = host_loop.HostRun(feed.buffers, snapshot, update,
                             {"params": net, "opt_state": opt_state}, clock, queue, gate)
+    if start_it < num_iterations:
+        # Captured before the actors start: the gate is not cleared for it
+        # once training runs.
+        host_loop.warm_update(
+            "ppo.make_device_update_step" if feed.device_plane else "ppo.make_async_update_step",
+            update, feed.buffers, async_block_spec(spec, cfg, len(pools), correction), gate)
     history: list = []
     metrics: dict = {}
     trackers = host_loop.MergedEpisodeTracker([a.tracker for a in actors])
@@ -979,3 +999,59 @@ def train_host_async(
         if eval_pool is not None:
             eval_pool.close()
     return net, opt_state, history
+
+
+# -- the warm-up registry (utils/compile_cache.py) ---------------------------
+from actor_critic_tpu_torch.utils import compile_cache as _compile_cache  # noqa: E402
+
+
+def _advantage_kernel(correction: str) -> tuple[str, ...]:
+    return ("vtrace",) if correction == "vtrace" else ("gae",)
+
+
+@_compile_cache.register_warmup("ppo.make_policy_step")
+def _warmup_policy_step(ctx):
+    """The host loop's device act (no mirror, or no overlap) runs eagerly,
+    one call an env step: nothing to capture."""
+    return None
+
+
+@_compile_cache.register_warmup("ppo.make_host_update_step")
+def _warmup_host_update(ctx):
+    """The lockstep host update (`train_host`): GAE built, its graph captured
+    on a zero block before the first iteration. Async runs capture the
+    update of their plane instead."""
+    if ctx.fused or ctx.algo != "ppo" or ctx.async_actors:
+        return None
+    return _compile_cache.warmup_of(ctx, ("gae",), host=True)
+
+
+@_compile_cache.register_warmup("ppo.make_async_update_step")
+def _warmup_async_update(ctx):
+    """The async learner's update on the host plane ([T, E_a] blocks;
+    V-trace, or GAE with correction none), captured before the actors
+    start."""
+    if (ctx.fused or ctx.algo != "ppo" or not ctx.async_actors
+            or ctx.data_plane == "device"):
+        return None
+    return _compile_cache.warmup_of(ctx, _advantage_kernel(ctx.async_correction), host=True)
+
+
+@_compile_cache.register_warmup("ppo.make_device_update_step")
+def _warmup_device_update(ctx):
+    """The device data plane's update (the ring's slot gathered, decoded and
+    learned from in one graph), captured before the actors start."""
+    if (ctx.fused or ctx.algo != "ppo" or not ctx.async_actors
+            or ctx.data_plane != "device"):
+        return None
+    return _compile_cache.warmup_of(ctx, _advantage_kernel(ctx.async_correction), host=True)
+
+
+@_compile_cache.register_warmup("ppo.make_greedy_act")
+def _warmup_greedy_act(ctx):
+    """The host eval acts eagerly (through the numpy mirror, or the module on
+    the device at each step): nothing to capture."""
+    return None
+
+
+_compile_cache.register_fused_warmups("ppo", ("ppo",), lambda cfg: ("gae",))

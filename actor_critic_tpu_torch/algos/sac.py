@@ -410,3 +410,9 @@ def train_host_async(
         data_plane=data_plane, plane_codec=plane_codec, transfer_pad_s=transfer_pad_s,
         device=device, iteration_hook=iteration_hook, publish_hook=publish_hook, gate=gate,
     )
+
+
+# -- the warm-up registry (utils/compile_cache.py) ---------------------------
+from actor_critic_tpu_torch.utils import compile_cache as _compile_cache  # noqa: E402
+
+_compile_cache.register_offpolicy_warmups("sac", ("sac",))

@@ -108,3 +108,18 @@ def sample_training_sequences(state: replay.ReplayState, generator: torch.Genera
     that consecutive inserts are one env's steps (num_envs == 1)."""
     seq = replay.sample_sequences(state, generator, batch_size, burn_in + seq_len, codecs)
     return split_burn_in(seq, burn_in)
+
+
+# -- the warm-up registry (utils/compile_cache.py) ---------------------------
+from actor_critic_tpu_torch.utils import compile_cache as _compile_cache  # noqa: E402
+
+
+@_compile_cache.register_warmup("device_replay.make_device_ingest_update")
+def _warmup_device_ingest(ctx):
+    """The off-policy learner's update on the device data plane (the slot
+    gathered and decoded into the replay ring, the gate, the update loop),
+    captured before the actors start."""
+    if (ctx.data_plane != "device" or not ctx.async_actors or ctx.fused
+            or ctx.algo not in ("ddpg", "td3", "sac")):
+        return None
+    return _compile_cache.warmup_of(ctx, host=True)

@@ -523,3 +523,14 @@ class DeviceTrajRing:
             from actor_critic_tpu_torch.telemetry import sampler
 
             sampler.unregister_gauge(gauge_key)
+
+
+# -- the warm-up registry (utils/compile_cache.py) ---------------------------
+from actor_critic_tpu_torch.utils import compile_cache as _compile_cache  # noqa: E402
+
+
+@_compile_cache.register_warmup("ring.make_enqueue")
+def _warmup_enqueue(ctx):
+    """An actor's enqueue (`DeviceTrajRing.put`) is a few plain copies on the
+    slot's stream, never captured: nothing to warm."""
+    return None

@@ -408,7 +408,8 @@ def make_typed_eval(env: MixtureEnv):
     `type_id`, an int or an int64 tensor on the device. The type enters
     only through the eager reset, so on the card one set of captured eval
     blocks serves every member type (`common.make_net_eval`), as JAX
-    traces one program for a traced type id."""
+    traces one program for a traced type id. `eval_fn.warm(state,
+    generator)` captures those blocks ahead of the first call."""
     from actor_critic_tpu_torch.algos.common import default_eval_steps, make_net_eval
 
     default_steps = default_eval_steps(env)
@@ -419,7 +420,13 @@ def make_typed_eval(env: MixtureEnv):
         return run(state.net, generator, num_envs, num_steps,
                    reset_fn=lambda k, g: env.reset_typed(k, g, type_id))
 
+    def warm(state, generator: torch.Generator, type_id=0, num_envs: int = 16,
+             num_steps: int = default_steps) -> None:
+        run.warm(state.net, generator, num_envs, num_steps,
+                 reset_fn=lambda k, g: env.reset_typed(k, g, type_id))
+
     eval_fn.evals = run.evals
+    eval_fn.warm = warm
     return eval_fn
 
 
@@ -431,3 +438,19 @@ def eval_matrix_row(name: str, ret: float) -> dict[str, float]:
     if bar is not None:
         row[f"{name}_solved"] = float(ret >= bar)
     return row
+
+
+# -- the warm-up registry (utils/compile_cache.py) ---------------------------
+from actor_critic_tpu_torch.utils import compile_cache as _compile_cache  # noqa: E402
+
+
+@_compile_cache.register_warmup("mixture.make_typed_eval")
+def _typed_eval_planner(ctx):
+    """The per-type eval's block graphs, for fused mixture runs with eval on
+    (one set serves every member type; the train step and the greedy eval
+    are the per-algo `<algo>.make_train_step` / `make_eval_fn` entries)."""
+    if not ctx.fused or ctx.eval_every <= 0 or not isinstance(ctx.env, MixtureEnv):
+        return None
+    if ctx.algo not in ("a2c", "ppo", "impala", "a3c"):
+        return None
+    return _compile_cache.warmup_of(ctx)

@@ -4,14 +4,21 @@
 `load()` compiles the source at its first call with the system g++,
 
     g++ -O3 -march=native -ffp-contract=off -shared -fPIC vecenv.cpp \
-        -o build/native/_vecenv.so
+        -o <cache>/native/_vecenv-<hash>.so
 
-into `build/native/` at the root of the checkout (listed in `.gitignore`),
-under a per-process temporary name renamed into place, so that a
-concurrent process never opens a half-written library; it builds again
-when `vecenv.cpp` is newer than the library. Nothing is built at import.
-The JAX package's own library (`actor_critic_tpu/native/_vecenv.so`) is
-never read or written.
+into the build cache's `native/` directory (`utils/compile_cache.py`: by
+default `build/native/` at the root of the checkout, listed in
+`.gitignore`; `--compile-cache-dir` moves it). The name carries a hash of
+the source and of `CXX_FLAGS`, as the kernel libraries' do, and of the
+host CPU's model and flags (`-march=native` builds for them), so an
+edited source is rebuilt and a stale engine is never loaded, also from a
+cache that another checkout or machine shares; a library already there is a cache hit
+(recorded as a `compile` event with `cache_hit`). The build writes a
+per-process temporary name and renames it into place, so that a
+concurrent process never opens a half-written library, and concurrent
+callers in one process (the warm-up's thread and a pool's constructor)
+take turns. Nothing is built at import. The JAX package's own library
+(`actor_critic_tpu/native/_vecenv.so`) is never read or written.
 
 `-ffp-contract=off` is load-bearing: gymnasium's NumPy arithmetic never
 fuses a multiply and an add, and FMA contraction (the default under -O3)
@@ -23,14 +30,14 @@ raises `ImportError`; the caller gets no gymnasium stand-in.
 from __future__ import annotations
 
 import ctypes
-import functools
+import hashlib
 import os
+import platform
 import subprocess
+import threading
 from pathlib import Path
 
 SRC = Path(__file__).resolve().parent / "vecenv.cpp"
-BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "native"
-LIB = BUILD_DIR / "_vecenv.so"
 CXX_FLAGS = ("-O3", "-march=native", "-ffp-contract=off", "-shared", "-fPIC")
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -41,35 +48,71 @@ _f32p = ctypes.POINTER(ctypes.c_float)
 _f64p = ctypes.POINTER(ctypes.c_double)
 
 
+_lock = threading.RLock()
+_loaded: dict[Path, ctypes.CDLL] = {}
+
+
+def _host_cpu() -> bytes:
+    """The host CPU's model and feature flags (`-march=native` compiles for
+    them, so a library built on another CPU may not run here)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            lines = [x for x in f if x.startswith(("model name", "flags"))]
+        return "".join(sorted(set(lines))).encode()
+    except OSError:
+        return platform.processor().encode()
+
+
+def library_path() -> Path:
+    """The engine's library in the build cache: `_vecenv-<hash>.so`, the
+    hash of the source, of `CXX_FLAGS` and of the host CPU."""
+    from actor_critic_tpu_torch.utils import compile_cache
+
+    digest = hashlib.sha256(
+        SRC.read_bytes() + " ".join(CXX_FLAGS).encode() + _host_cpu()).hexdigest()[:12]
+    return compile_cache.cache_path("native") / f"_vecenv-{digest}.so"
+
+
 def build() -> Path:
-    """Compile `vecenv.cpp` into `LIB`; raises ImportError with the
-    compiler's output when g++ is missing or fails. The build is recorded
-    as one `compile` event (`telemetry/profiler.py`)."""
+    """The engine's library: found in the build cache (one `compile` event
+    with `cache_hit`), or compiled there (one `compile` event with its g++
+    seconds). Raises ImportError with the compiler's output when g++ is
+    missing or fails."""
     from actor_critic_tpu_torch.telemetry import profiler
 
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB.with_suffix(f".{os.getpid()}.tmp")
-    try:
-        with profiler.record_compile("vecenv.cpp", " ".join(CXX_FLAGS), capture=False):
-            subprocess.run(["g++", *CXX_FLAGS, str(SRC), "-o", str(tmp)],
-                           check=True, capture_output=True, text=True)
-        os.replace(tmp, LIB)
-    except FileNotFoundError as e:
-        raise ImportError(f"the native env engine needs g++ to build: {e}") from e
-    except subprocess.CalledProcessError as e:
-        raise ImportError(f"the native env engine failed to build:\n{e.stderr}") from e
-    finally:
-        tmp.unlink(missing_ok=True)
-    return LIB
+    out = library_path()
+    with _lock:
+        if out.exists():
+            profiler.record_build("vecenv.cpp", 0.0, " ".join(CXX_FLAGS), cache_hit=True)
+            return out
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        try:
+            with profiler.record_compile("vecenv.cpp", " ".join(CXX_FLAGS), capture=False):
+                subprocess.run(["g++", *CXX_FLAGS, str(SRC), "-o", str(tmp)],
+                               check=True, capture_output=True, text=True)
+            os.replace(tmp, out)
+        except FileNotFoundError as e:
+            raise ImportError(f"the native env engine needs g++ to build: {e}") from e
+        except subprocess.CalledProcessError as e:
+            raise ImportError(f"the native env engine failed to build:\n{e.stderr}") from e
+        finally:
+            tmp.unlink(missing_ok=True)
+    return out
 
 
-@functools.lru_cache(maxsize=1)
 def load() -> ctypes.CDLL:
-    """The compiled engine, built first when there is no library or the
-    source is newer than it."""
-    if not LIB.exists() or LIB.stat().st_mtime < SRC.stat().st_mtime:
-        build()
-    lib = ctypes.CDLL(str(LIB))
+    """The compiled engine (built first where the cache has none), bound
+    once a process for each library path."""
+    with _lock:
+        path = library_path()
+        lib = _loaded.get(path)
+        if lib is None:
+            lib = _loaded[path] = _bind(ctypes.CDLL(str(build())))
+        return lib
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     for prefix, act in (("cartpole", _i64p), ("pendulum", _f32p), ("mountaincar", _f32p),
                         ("acrobot", _i64p)):
         reset, step = getattr(lib, f"{prefix}_reset"), getattr(lib, f"{prefix}_step")

@@ -11,9 +11,14 @@ graph per act bucket on the card.
         --default champ --port 8000 --buckets 1,4,16,64 --max-wait-us 2000
 
 Checkpoints are params-only trees written by
-`serving.export_policy_params`. Startup: every architecture's act buckets
-are run once and captured as CUDA graphs (`PolicyEngine.warm`, one set
-per `--max-inflight` lane) BEFORE the gateway binds. `--port 0` binds an
+`serving.export_policy_params`. Startup: the serving side of the warm-up
+registry (`utils/compile_cache.py`, entry `engine.make_act_program`) runs
+every architecture's act buckets once and captures them as CUDA graphs
+(`PolicyEngine.warm`, one set per `--max-inflight` lane) BEFORE the
+gateway binds; `--no-warmup` skips it, and each bucket's first flush
+captures instead. `--compile-cache-dir DIR` is the build cache (`auto`,
+the default: the checkout's `build/`; `none`: a fresh temporary
+directory), where a `native:` env's engine is built and found. `--port 0` binds an
 OS-assigned port and prints the actual one. `--device cpu` serves from
 the CPU (eager acts); by default the card serves, and a run without one
 raises. `--backend xla`, the JAX CLI's name for it, is `--backend device`.
@@ -29,8 +34,7 @@ an OS-assigned port on `--telemetry-bind` (loopback only: the port has no
 `--distributed`).
 
 Not ported yet, refused with the ROADMAP item each belongs to: the
-compile-cache flags (`--compile-cache-dir`, `--no-warmup`) and the
-fleet's (`--distributed`, `--rank`, `--world`, the mailbox flags).
+fleet's flags (`--distributed`, `--rank`, `--world`, the mailbox flags).
 """
 
 from __future__ import annotations
@@ -42,8 +46,6 @@ import time
 # The JAX CLI's flags whose paths are not ported yet, with the ROADMAP
 # Queue 1 item each belongs to.
 UNPORTED_FLAGS = {
-    "--compile-cache-dir": "item 10, the compile cache",
-    "--no-warmup": "item 10, the compile cache's warm-up",
     "--distributed": "item 8, multi-GPU",
     "--rank": "item 8, multi-GPU",
     "--world": "item 8, multi-GPU",
@@ -159,6 +161,13 @@ def parse_args(argv=None) -> argparse.Namespace:
         "--slo-ms", action="append", default=[], metavar="[ID=]MS",
         help="per-policy latency SLO class in ms (repeatable; plain MS applies to every policy "
         "without its own); /metrics exports slo_burn per policy")
+    p.add_argument(
+        "--compile-cache-dir", default=None, metavar="DIR",
+        help="the build cache (utils/compile_cache.py): where the native env engine (and any "
+        "kernel library) is built and found; default 'auto', the checkout's build/; 'none' a "
+        "fresh temporary directory (a cold start)")
+    p.add_argument("--no-warmup", action="store_true",
+                   help="skip the startup bucket captures (each bucket's first flush captures)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--telemetry-dir", default=None,
                    help="attach a TelemetrySession: /metrics serves the full exporter exposition "
@@ -182,10 +191,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def build(args: argparse.Namespace):
-    """The engine, the store with its resident policies (warmed), from the
-    parsed flags: `(engine, store, wait_default)`."""
+    """The engine, the store with its resident policies (warmed unless
+    `--no-warmup`), from the parsed flags: `(engine, store, wait_default)`."""
     from actor_critic_tpu_torch import config as config_mod
     from actor_critic_tpu_torch import resolve_device, serving
+    from actor_critic_tpu_torch.utils import compile_cache
 
     slo_default, slo_by_id = parse_classed(args.slo_ms, "--slo-ms", "MS")
     # The global window feeds the batcher; per-policy ones ride handles.
@@ -213,6 +223,22 @@ def build(args: argparse.Namespace):
                          f"{sorted(resident)}")
     if args.backend != "mirror":
         resolve_device(args.device)  # no card and no --device cpu: raise before any work
+    runner = None
+    if not args.no_warmup:
+        runner = compile_cache.start_warmup(compile_cache.WarmupContext(
+            algo=preset.algo, fused=False, spec=None, cfg=preset.config,
+            serving_buckets=buckets, serving_sample=args.sample,
+            device=args.device, native=preset.env.startswith("native:")))
+    with compile_cache.running(runner):
+        engine, store = _build(args, preset, buckets, policies, slo_default, slo_by_id,
+                               wait_by_id, runner)
+    return engine, store, wait_default
+
+
+def _build(args, preset, buckets, policies, slo_default, slo_by_id, wait_by_id, runner):
+    from actor_critic_tpu_torch import serving
+    from actor_critic_tpu_torch.utils import compile_cache
+
     spec = spec_for(preset.env, preset.env_kwargs)
     engine = serving.PolicyEngine(
         spec, preset.config, algo=preset.algo, buckets=buckets, sample=args.sample,
@@ -240,9 +266,14 @@ def build(args: argparse.Namespace):
         unknown = set(by_id) - set(store.ids())
         if unknown:
             raise SystemExit(f"{flag} names no resident policy: {sorted(unknown)}")
-    n_warm = engine.warm(store.get(store.default_id).params)
-    print(f"warm: {n_warm} act buckets captured", flush=True)
-    return engine, store, wait_default
+    warmed: list[int] = []
+    params = store.get(store.default_id).params
+    if compile_cache.capture_part("engine.make_act_program",
+                                  lambda: warmed.append(engine.warm(params))):
+        print(f"warm: {warmed[0]} act buckets captured", flush=True)
+    elif runner is None:
+        print("warm: skipped (--no-warmup): each bucket captures at its first flush", flush=True)
+    return engine, store
 
 
 def start_session(args: argparse.Namespace):
@@ -261,10 +292,21 @@ def start_session(args: argparse.Namespace):
     return session
 
 
+def apply_cache_dir(args: argparse.Namespace) -> str:
+    """Enable the build cache `--compile-cache-dir` resolves to (a fresh
+    temporary directory for 'none') for the rest of the process; returns
+    it."""
+    from actor_critic_tpu_torch.utils import compile_cache
+
+    cache_dir = compile_cache.resolve_cache_dir(args.compile_cache_dir, None)
+    return compile_cache.enable_persistent_cache(cache_dir or compile_cache.fresh_cache_dir())
+
+
 def main(argv=None) -> int:
     from actor_critic_tpu_torch import serving
 
     args = parse_args(argv)
+    print(f"compile cache: {apply_cache_dir(args)}", flush=True)
     session = start_session(args)
     gateway = None
     try:

@@ -41,8 +41,12 @@ async learners' `publish_snapshot` produce and what the JAX package's
 module's layout for the device backend, and the mirror backend reads them
 as they are.
 
-Not ported yet (ROADMAP Queue 1 item 10, the warm-up registry): JAX's
-`abstract_params`, `warmup_thunk` and the `register_warmup` planner.
+The warm-up registry (`utils/compile_cache.py`): the serving planner
+`engine.make_act_program` (serving side only) makes `PolicyEngine.warm` a
+serving run's capture part, which the serve CLI runs before the gateway
+binds unless `--no-warmup` (then each bucket's first flush captures). JAX's
+`abstract_params` and `warmup_thunk` have no counterpart: a capture needs
+the live lane buffers, not abstract shapes.
 """
 
 from __future__ import annotations
@@ -61,6 +65,8 @@ from actor_critic_tpu_torch.algos import loop
 from actor_critic_tpu_torch.algos.traj_queue import snapshot_frozen
 from actor_critic_tpu_torch.models import host_actor
 from actor_critic_tpu_torch.telemetry import profiler
+from actor_critic_tpu_torch.utils import compile_cache
+from actor_critic_tpu_torch.utils.compile_cache import pad_to_bucket
 
 # Serving act programs are tiny (one policy forward); a fine-grained ladder
 # keeps padding waste low at small occupancy while the top end bounds the
@@ -72,34 +78,6 @@ BACKENDS = ("device", "mirror", "auto")
 # Serial numbers of installed param versions, unique in the process: a lane
 # reloads its parameter copy when a flush's serial differs from its own.
 _SERIALS = itertools.count()
-
-
-def bucket_size(n: int, buckets: tuple[int, ...]) -> int:
-    """The smallest bucket >= n (`utils/compile_cache.py::bucket_size` of
-    the JAX package). Raises when n exceeds every bucket."""
-    if n < 0:
-        raise ValueError(f"n must be >= 0, got {n}")
-    fitting = [b for b in buckets if b >= n]
-    if not fitting:
-        raise ValueError(f"n={n} exceeds every bucket in {sorted(buckets)}")
-    return min(fitting)
-
-
-def pad_to_bucket(x, buckets: tuple[int, ...], axis: int = 0):
-    """Zero-pad `x` along `axis` to the smallest fitting bucket size;
-    returns (padded, valid_mask) where `valid_mask` is float32 [bucket]
-    with 1.0 on real rows (`utils/compile_cache.py::pad_to_bucket` of the
-    JAX package)."""
-    x = np.asarray(x)
-    n = x.shape[axis]
-    b = bucket_size(n, buckets)
-    mask = np.zeros(b, np.float32)
-    mask[:n] = 1.0
-    if b == n:
-        return x, mask
-    widths = [(0, 0)] * x.ndim
-    widths[axis] = (0, b - n)
-    return np.pad(x, widths), mask
 
 
 def obs_dtype_of(spec) -> np.dtype:
@@ -506,3 +484,14 @@ class PolicyEngine:
                 self._free = lanes
                 self._lanes_cv.notify_all()
         return len(self.buckets)
+
+
+@compile_cache.register_warmup("engine.make_act_program", serving=True)
+def _warmup_act_buckets(ctx):
+    """Serving-side planner: every act bucket of every lane captured before
+    the gateway takes traffic (`PolicyEngine.warm`, which the serve CLI runs
+    as this entry's capture part). Runs only for serving contexts
+    (`ctx.serving_buckets` non-empty)."""
+    if not ctx.serving_buckets:
+        return None
+    return compile_cache.warmup_of(ctx)

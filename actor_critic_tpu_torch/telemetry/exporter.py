@@ -25,8 +25,10 @@ Enabled by `python -m actor_critic_tpu_torch.train --telemetry-port PORT`
 (0 picks an ephemeral port, printed at startup and recorded as an
 `exporter_start` event). Binds 127.0.0.1 unless told otherwise
 (`validate_bind`). The serving gateway's `/metrics` reads `_line` and
-`_metric_name` from here. JAX's persistent compile-cache counters have no
-counterpart in the port and are not exported.
+`_metric_name` from here. JAX's three compile-cache metrics read the
+port's build cache (`utils/compile_cache.py`): the builds that found their
+library (hits) and those that ran a compiler (misses), and whether a cache
+directory is enabled.
 """
 
 from __future__ import annotations
@@ -126,6 +128,17 @@ def render_metrics(session: "TelemetrySession") -> str:
         "CUDA-graph captures and kernel builds that ran a compiler",
         [_line(_metric_name("recompiles_total"), row.get("recompiles", 0))],
     )
+    from actor_critic_tpu_torch.utils import compile_cache
+
+    cstats = compile_cache.cache_stats()
+    for field in ("hits", "misses"):
+        name = _metric_name("compile_cache", f"{field}_total")
+        emit(name, "counter",
+             f"kernel and engine build cache {field} (a library found vs a compiler run)",
+             [_line(name, cstats[field])])
+    name = _metric_name("compile_cache_enabled")
+    emit(name, "gauge", "1 when a build cache directory is configured",
+         [_line(name, int(compile_cache.enabled_dir() is not None))])
     if "rss_bytes" in row:
         emit(
             _metric_name("rss_bytes"), "gauge", "process resident set size",

@@ -53,6 +53,7 @@ _COMPILE_RING_MAX = 256
 _compile_records: list[dict] = []
 _compile_total = 0  # every record, cache hits included (monotonic)
 _recompile_total = 0  # captures and compiler runs only: `recompiles`
+_build_counts = {"hits": 0, "misses": 0}  # the builds alone: the build cache's
 _compile_lock = threading.Lock()
 
 
@@ -79,6 +80,14 @@ def recompile_count() -> int:
     return _recompile_total
 
 
+def build_cache_counts() -> dict:
+    """{'hits', 'misses'}: the builds recorded so far that found their
+    library (`cache_hit`) and those that ran a compiler; captures are not
+    builds (`utils/compile_cache.cache_stats`)."""
+    with _compile_lock:
+        return dict(_build_counts)
+
+
 def signature_of(named: dict) -> str:
     """`name:dtype[shape]` of each tensor in `named`, comma-joined (at most
     2000 characters): the abstract signature a capture is specialized to."""
@@ -101,27 +110,30 @@ def record_compile(name: str, signature: Optional[str] = None, cache_hit: bool =
         _close_window_for_capture()
     t0 = time.perf_counter()
     yield
-    record_build(name, time.perf_counter() - t0, signature, cache_hit)
+    record_build(name, time.perf_counter() - t0, signature, cache_hit, build=not capture)
 
 
 def record_build(name: str, seconds: float, signature: Optional[str] = None,
-                 cache_hit: bool = False) -> None:
+                 cache_hit: bool = False, build: bool = True) -> None:
     """Record one compile timed by the caller (builds that run in parallel
-    time themselves)."""
+    time themselves); `build=False` for a capture, which the build cache's
+    counts leave out."""
     record = {"name": name, "compile_s": round(seconds, 4)}
     if cache_hit:
         record["cache_hit"] = True
     if signature:
         record["signature"] = signature[:2000]
-    _record(record)
+    _record(record, build)
 
 
-def _record(record: dict) -> None:
+def _record(record: dict, build: bool = False) -> None:
     global _compile_total, _recompile_total
     with _compile_lock:
         _compile_total += 1
         if not record.get("cache_hit"):
             _recompile_total += 1
+        if build:
+            _build_counts["hits" if record.get("cache_hit") else "misses"] += 1
         _compile_records.append(record)
         del _compile_records[:-_COMPILE_RING_MAX]
     from actor_critic_tpu_torch.telemetry import session as _session

@@ -100,6 +100,19 @@ that resumes; with `--chunk` and `--ckpt-dir` the loop ratchets the
 timeout up to 3 x each clean chunk's wall and keeps the wall in
 `chunk_wall.json`.
 
+The warm-up and the build cache (`utils/compile_cache.py`, JAX's flags):
+`--warmup` (the default; `--no-warmup` turns it off) plans the run's
+registered entries as soon as the preset is resolved (the plan is
+printed), builds the kernel libraries its path launches and the C++
+engine of a `native:` pool on a background thread while the pools, the
+restore and the state are set up, and captures every CUDA graph of the
+run (the train step, the host or async update, the eval blocks) before
+its first call, with the state bitwise as it was: the loop's first
+iteration is already a replay. `--compile-cache-dir DIR` is where the
+libraries are built and found (`auto`, the default: the checkout's
+`build/`; `none`: a fresh temporary directory, removed at exit, for a cold
+start); the directory is printed.
+
 Not ported yet, and refused with a message that says so: `--workers` (the
 sharded host pool) and the flags of the other paths that come later
 (`UNPORTED_FLAGS`).
@@ -140,6 +153,7 @@ from actor_critic_tpu_torch.envs import (
 from actor_critic_tpu_torch.envs.env import TorchEnv
 from actor_critic_tpu_torch.envs.host_pool import HostEnvPool
 from actor_critic_tpu_torch.telemetry import sampler
+from actor_critic_tpu_torch.utils import compile_cache
 from actor_critic_tpu_torch.utils.cadence import finite_or_none
 from actor_critic_tpu_torch.utils.checkpoint import Checkpointer
 from actor_critic_tpu_torch.utils.logging import JsonlLogger
@@ -167,9 +181,6 @@ UNPORTED_FLAGS = {
     "--gossip-every": "multi-GPU",
     "--gossip-weight": "multi-GPU",
     "--mailbox-dir": "multi-GPU",
-    "--compile-cache-dir": "the compile cache",
-    "--warmup": "the compile cache's warm-up",
-    "--no-warmup": "the compile cache's warm-up",
 }
 
 
@@ -358,6 +369,18 @@ def parse_args(argv=None) -> argparse.Namespace:
         "--scale-actions", action=argparse.BooleanOptionalAction, default=None,
         help="continuous envs: map policy actions from [-1,1] onto the env's bounds "
         "instead of clipping (default: the env's own convention; jax:pendulum scales)")
+    p.add_argument(
+        "--compile-cache-dir", default="auto", metavar="DIR",
+        help="the build cache (utils/compile_cache.py): where the CUDA kernel libraries and the "
+        "native env engine are built and found, each named by a hash of its sources and flags. "
+        "'auto' (default) is the checkout's build/, shared by every run; 'none' builds into a "
+        "fresh temporary directory removed at exit (a cold start)")
+    p.add_argument(
+        "--warmup", action=argparse.BooleanOptionalAction, default=True,
+        help="warm up every registered entry point of the run before its first call "
+        "(utils/compile_cache.py): the kernel and engine builds on a background thread while "
+        "the pools, the restore and the state are set up, then each CUDA graph's eager warm-up "
+        "(the state put back bitwise) and capture, so the first iteration is already a replay")
     p.add_argument("--ckpt-dir", help="checkpoint directory")
     p.add_argument("--save-every", type=int, default=100)
     p.add_argument("--resume", action="store_true", help="resume from --ckpt-dir")
@@ -518,6 +541,12 @@ def run_fused(env: TorchEnv, preset, args: argparse.Namespace, logger: JsonlLogg
         if args.curriculum else None)
     pending: list[tuple[int, tuple[float, ...]]] = []  # a stage's weights, to install
     eval_gen = torch.Generator(device=device)
+    module = mod.__name__.rpartition(".")[2]
+    if eval_fn is not None:
+        compile_cache.capture_part(f"{module}.make_eval_fn", lambda: eval_fn.warm(state, eval_gen))
+    if typed_eval is not None:
+        compile_cache.capture_part("mixture.make_typed_eval",
+                                   lambda: typed_eval.warm(state, eval_gen))
     t0 = time.perf_counter()
     eval_s = 0.0  # time spent in evals so far, left out of wall_s
 
@@ -687,7 +716,8 @@ def start_serving_sidecar(preset, spec, args: argparse.Namespace, device: torch.
     the init placeholder registers at 0, block `it`'s publish swaps to
     `it + 1`, the final parameters to blocks + 1, so /v1/act's `version` is
     strictly monotone. The gateway's flushes wait on the learner's gate
-    (while an update runs eagerly or is captured), as its actors do.
+    (while an update runs eagerly or is captured: with the warm-up, once,
+    before the actors start), as its actors do.
     Returns `(gateway, learner_kwargs)`: `publish_hook` and `gate` for the
     async learner; the caller closes the gateway."""
     import threading
@@ -827,6 +857,28 @@ def start_watchdog(args: argparse.Namespace):
     return StallWatchdog(args.stall_timeout).start()
 
 
+def start_warmup(preset, args: argparse.Namespace, env, device: torch.device):
+    """Plan the run's warm-up (`utils/compile_cache.py`), print the plan and
+    start its builds on the runner's thread; None with `--no-warmup`. `env`
+    is the fused env (None for a host pool, which does not exist yet: no
+    host planner needs it)."""
+    if not args.warmup:
+        return None
+    host = env is None
+    ctx = compile_cache.WarmupContext(
+        algo=preset.algo, fused=not host, spec=None if host else env.spec,
+        cfg=preset.config, env=env, chunk=1 if host else args.chunk,
+        iterations=args.iterations, eval_every=args.eval_every, eval_envs=args.eval_envs,
+        overlap=not args.no_overlap, resume=args.resume, async_actors=args.async_actors,
+        async_correction=args.async_correction, data_plane=args.data_plane,
+        plane_codec=args.data_plane_codec, queue_depth=args.queue_depth,
+        device=device.type, native=preset.env.startswith("native:"))
+    plan = compile_cache.plan_warmup(ctx)
+    print(f"warmup: {len(plan)} entry point(s) building in the background, captured before "
+          f"their first call: {', '.join(n for n, _ in plan)}", flush=True)
+    return compile_cache.WarmupRunner(plan).start()
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     if args.list_presets:
@@ -867,43 +919,18 @@ def main(argv=None) -> int:
           f"config={dataclasses.asdict(preset.config)} env_kwargs={preset.env_kwargs}",
           flush=True)
     host = is_host_spec(preset.env)
-    pools = build_actor_pools(preset, args, args.async_actors) if args.async_actors else None
-    try:
-        if pools is not None:
-            env = pools[0]
-        elif host:
-            env = make_host_pool(preset.env, preset.algo, preset.config, args.seed,
-                                 args.scale_actions, preset.env_kwargs)
-        else:
-            env = make_env(preset.env, preset.env_kwargs, args.scale_actions)
+    fused_env = None if host else make_env(preset.env, preset.env_kwargs, args.scale_actions)
+    cache_dir = compile_cache.resolve_cache_dir(args.compile_cache_dir, args.ckpt_dir)
+    with compile_cache.temporary_cache(cache_dir or compile_cache.fresh_cache_dir()) as cache:
+        print(f"compile cache: {cache}", flush=True)
+        # The session first: the warm-up's builds and captures are its events.
+        session = start_telemetry(preset, args)
         try:
-            check_env_convention(args.ckpt_dir, preset.env, args.scale_actions, args.resume,
-                                 env_kwargs=preset.env_kwargs)
-            if args.chunk > 1 and host:
-                print(f"--chunk applies to fused envs only; ignored for {preset.env}",
-                      flush=True)
-            elif args.chunk > 1:
-                snap_cadences(args)
-            session = start_telemetry(preset, args)
-            watchdog = start_watchdog(args)
-            try:
-                with JsonlLogger(args.metrics, echo=not args.quiet) as logger:
-                    if pools is not None:
-                        final = run_host_async(pools, preset, args, logger, device)
-                    elif host:
-                        final = run_host(env, preset, args, logger, device)
-                    else:
-                        final = run_fused(env, preset, args, logger, device)
-            finally:
-                if watchdog is not None:
-                    watchdog.stop()
-                if session is not None:
-                    session.close()
+            with compile_cache.running(start_warmup(preset, args, fused_env, device)):
+                final = _run(preset, args, host, fused_env, device)
         finally:
-            for pool in pools or ([env] if host else []):
-                pool.close()
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from e
+            if session is not None:
+                session.close()
     cfg = preset.config
     print(json.dumps({
         "algo": preset.algo,
@@ -916,6 +943,46 @@ def main(argv=None) -> int:
         **{k: finite_or_none(v) for k, v in final.items()},
     }), flush=True)
     return 0
+
+
+def _run(preset, args: argparse.Namespace, host: bool, fused_env, device: torch.device) -> dict:
+    """The run itself: the pools (a host run's) and the watchdog, then the
+    trainer of the path; returns the last metrics."""
+    pools = build_actor_pools(preset, args, args.async_actors) if args.async_actors else None
+    try:
+        if pools is not None:
+            env = pools[0]
+        elif host:
+            env = make_host_pool(preset.env, preset.algo, preset.config, args.seed,
+                                 args.scale_actions, preset.env_kwargs)
+        else:
+            env = fused_env
+        try:
+            check_env_convention(args.ckpt_dir, preset.env, args.scale_actions, args.resume,
+                                 env_kwargs=preset.env_kwargs)
+            if args.chunk > 1 and host:
+                print(f"--chunk applies to fused envs only; ignored for {preset.env}",
+                      flush=True)
+            elif args.chunk > 1:
+                snap_cadences(args)
+            watchdog = start_watchdog(args)
+            try:
+                with JsonlLogger(args.metrics, echo=not args.quiet) as logger:
+                    if pools is not None:
+                        final = run_host_async(pools, preset, args, logger, device)
+                    elif host:
+                        final = run_host(env, preset, args, logger, device)
+                    else:
+                        final = run_fused(env, preset, args, logger, device)
+            finally:
+                if watchdog is not None:
+                    watchdog.stop()
+        finally:
+            for pool in pools or ([env] if host else []):
+                pool.close()
+    except NotImplementedError as e:
+        raise SystemExit(str(e)) from e
+    return final
 
 
 if __name__ == "__main__":

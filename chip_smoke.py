@@ -78,7 +78,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      ring in fp32 and mixed as one captured graph (ms an update, launches,
      peak memory);
    - `--update-dtype bf16` through `train.main`: the six fused presets
-     (the CUDA graph from iteration 3), host and async `ppo_halfcheetah`
+     (warmed: the CUDA graph from iteration 1), host and async `ppo_halfcheetah`
      and host and async `sac_humanoid` (the warm-up cut), GAE's and
      V-trace's launches counted as in float32; the host PPO update's graph
      against eager at 0.0 in bf16 (`HostContract`, the mirror acting in
@@ -93,7 +93,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    - the host env path, on each preset's MuJoCo env or the engine's
      Pendulum (as the probe found): `ppo_halfcheetah` at full width (E=8,
      T=256, 10 × 32 minibatches) through `train.main`, the update one
-     CUDA graph from iteration 3, GAE launched once an iteration and
+     CUDA graph from iteration 1 (warmed), GAE launched once an iteration and
      counted on the card, ms an iteration and the split into collect,
      wait, dispatch (host clock), upload and update (device); the
      off-policy presets at full width for 60 iterations past their
@@ -822,21 +822,42 @@ def check_eval_graphs() -> None:
 def drive(argv: list[str], show_every: int) -> tuple[list[dict], dict, dict[str, int]]:
     """Run `train.main(argv)` with every kernel's launch count reset just
     before and read just after; returns (logged rows, summary row,
-    launches). Prints the first and last rows, every `show_every`-th, the
-    summary, and the lines that are not JSON (the curriculum's, the
-    resume's), but not the run's config line."""
+    launches). A warmed run (the CLI's default) resets the counts again
+    when its warm-up is done, right before the first dispatch of the site
+    that completed it, so that the counts are the real iterations' and not
+    the warm-up's eager steps'; its `warmup_done` must report no error.
+    Prints the first and last rows, every `show_every`-th, the summary,
+    and the lines that are not JSON (the curriculum's, the resume's, the
+    warm-up's plan), but not the run's config line."""
     from actor_critic_tpu_torch import train
     from actor_critic_tpu_torch.ops import gae_cuda, vtrace_cuda
+    from actor_critic_tpu_torch.utils import compile_cache
 
     buf = io.StringIO()
     if "--metrics" not in argv:
         argv = argv + ["--metrics", f"{SCRATCH}/metrics.jsonl"]
+    runners = []
+
+    def warmed(runner) -> None:
+        runners.append(runner)
+        if not any("skipped" in r for r in runner.results):  # else the run has ended
+            gae_cuda.reset_launch_count()
+            vtrace_cuda.reset_launch_count()
+
     gae_cuda.reset_launch_count()
     vtrace_cuda.reset_launch_count()
-    with contextlib.redirect_stdout(buf):
-        rc = train.main(argv)
+    compile_cache.WARMUP_DONE_HOOKS.append(warmed)
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = train.main(argv)
+    finally:
+        compile_cache.WARMUP_DONE_HOOKS.remove(warmed)
     launches = {"gae": gae_cuda.launch_count(), "vtrace": vtrace_cuda.launch_count()}
     assert rc == 0, f"train.main returned {rc}"
+    assert len(runners) == (0 if "--no-warmup" in argv else 1), runners
+    for runner in runners:
+        errors = [r for r in runner.results if "error" in r]
+        assert not errors, f"warm-up errors: {errors}"
     lines = buf.getvalue().splitlines()
     for line in lines:
         if not line.startswith(("{", "algo=")):
@@ -975,7 +996,7 @@ def run_a3c_pong() -> dict[str, int]:
     assert launches == {"gae": n, "vtrace": 0}, launches
     assert all(r["mean_rho"] == 1.0 for r in logged), logged
     per_iter_s, _ = per_iteration(logged, summary)
-    print(f"main path a3c_pong (CUDA graph from iteration 3): {n} iterations, "
+    print(f"main path a3c_pong (warmed: CUDA graph from iteration 1): {n} iterations, "
           f"{per_iter_s * 1e3:.3f} ms/iteration after the first; launches {launches}", flush=True)
     return launches
 
@@ -1108,10 +1129,9 @@ def run_resume(preset_name: str, extra: list[str]) -> None:
 
 def run_chunk() -> None:
     """`--chunk 4` against `--chunk 1` on a2c_cartpole at full width through
-    `train.main`, CHUNK_ITERATIONS iterations: two eager, two replays of the
-    one-step graph (the short chunk that realigns), then two replays of the
-    4-step graph. The final checkpoints agree at 0.0 and GAE runs once an
-    iteration in both."""
+    `train.main`, CHUNK_ITERATIONS iterations: warmed, three replays of the
+    4-step graph (with `--chunk 1`, twelve of the one-step graph). The final
+    checkpoints agree at 0.0 and GAE runs once an iteration in both."""
     import shutil
 
     n = CHUNK_ITERATIONS
@@ -1264,7 +1284,7 @@ def run_offpolicy_main(preset_name: str) -> None:
     (`--preset <name> --env jax:pendulum`) for OFFPOLICY_MAIN_ITERATIONS
     iterations, across the preset's warm-up cut to OFFPOLICY_CUT_WARMUP
     env steps, the step
-    replayed as a CUDA graph from iteration 3; the final checkpoint gives
+    replayed as a CUDA graph from iteration 1 (warmed); the final checkpoint gives
     back the update count (it must have risen) and the ring's size. Prints
     ms an iteration over the replays before and after the gate opens,
     env-steps/s and updates/s."""
@@ -1296,9 +1316,9 @@ def run_offpolicy_main(preset_name: str) -> None:
     before, after = per(3, opened - 1), per(opened + 1, n)
     spi = cfg.steps_per_iter * cfg.num_envs
     print(
-        f"main path {preset_name} on {OFFPOLICY_ENV} (CUDA graph from iteration 3): {n} "
-        f"iterations of {spi} env steps and {cfg.updates_per_iter} updates; eager iteration 1 "
-        f"{rows[1]['wall_s'] * 1e3:.1f} ms, iteration 2 {per(1, 2) * 1e3:.1f} ms; "
+        f"main path {preset_name} on {OFFPOLICY_ENV} (warmed: a CUDA graph from iteration 1): {n} "
+        f"iterations of {spi} env steps and {cfg.updates_per_iter} updates; iteration 1 (the warm-up "
+        f"included) {rows[1]['wall_s'] * 1e3:.1f} ms, iteration 2 {per(1, 2) * 1e3:.1f} ms; "
         f"{before * 1e3:.3f} ms/iteration over the replays before the gate opens (3-{opened - 1}),"
         f" {after * 1e3:.3f} after it ({opened + 1}-{n}): {spi / after:.0f} env-steps/s, "
         f"{cfg.updates_per_iter / after:.0f} updates/s; update_count {updates} (the gate opened "
@@ -1649,10 +1669,10 @@ def probe_host_envs() -> dict:
     print(f"probe: gymnasium {found['gymnasium']}, mujoco {found['mujoco']}; resets {resets}; "
           f"the host phases run on {'MuJoCo' if mujoco else HOST_FALLBACK_ENV}", flush=True)
     t0 = time.perf_counter()
-    native.build()
     native.load()
+    lib = native.library_path()
     print(f"probe: native env engine built in {time.perf_counter() - t0:.2f} s (g++ "
-          f"{' '.join(native.CXX_FLAGS)}) into {native.LIB.relative_to(native.BUILD_DIR.parent.parent)}",
+          f"{' '.join(native.CXX_FLAGS)}) into {lib.relative_to(lib.parent.parent.parent)}",
           flush=True)
     return {p: (f"host:{e}" if mujoco else HOST_FALLBACK_ENV) for p, e in HOST_MUJOCO_ENVS.items()}
 
@@ -1826,7 +1846,7 @@ def host_pool(preset_name: str, env: str):
 def run_host_ppo(env: str) -> int:
     """`ppo_halfcheetah` at its full width (E=8, T=256, 10 epochs × 32
     minibatches, hidden (64, 64)) on `env` through `train.main`, the update
-    replayed as one CUDA graph from iteration 3; then the same trainer
+    replayed as one CUDA graph from iteration 1 (warmed); then the same trainer
     under a `HostContract`
     (graph vs eager, the upload and the snapshot). Returns GAE's launches
     on the main path (one an iteration)."""
@@ -1843,8 +1863,8 @@ def run_host_ppo(env: str) -> int:
     after = 2 * HOST_LOG_EVERY
     per_iter_s, steps = per_iteration(logged, summary, after=HOST_LOG_EVERY)
     print(f"main path ppo_halfcheetah on {env} (E=8, T=256, 10x32 minibatches, the update a CUDA "
-          f"graph from iteration 3, logged every {HOST_LOG_EVERY}): {n} iterations, GAE launches "
-          f"{launches['gae']}; eager iteration 1 {logged[0]['wall_s'] * 1e3:.1f} ms; "
+          f"graph from iteration 1, warmed, logged every {HOST_LOG_EVERY}): {n} iterations, GAE launches "
+          f"{launches['gae']}; iteration 1 (the warm-up included) {logged[0]['wall_s'] * 1e3:.1f} ms; "
           f"{per_iter_s * 1e3:.3f} ms/iteration over the replays {HOST_LOG_EVERY + 1}-{n} "
           f"({steps / per_iter_s:.0f} env-steps/s); split of iterations {after}, ..., {n} "
           f"{host_split(logged, after)}; greedy eval {logged[-1]['eval_return']:.2f}", flush=True)
@@ -1895,15 +1915,14 @@ def check_host_telemetry(tel: str, n: int, env: str) -> None:
     """The host PPO run's spans: per iteration an `iteration` span holding
     `env_step`, `host_to_device`, `update` (the host's launch of the update
     graph: a replay returns once queued) and `log`, names canonical; the
-    update span's ms printed (iterations 1-2 eager, 3 the capture, then
-    replays)."""
+    update span's ms printed (warmed: every iteration a replay)."""
     check_canonical(tel)
     spans = [e for e in span_events(tel) if e["ph"] == "X"]
     counts = {name: sum(e["name"] == name for e in spans)
               for name in ("iteration", "env_step", "host_to_device", "update", "log", "eval")}
     update_ms = [e["dur"] / 1e3 for e in spans if e["name"] == "update"]
     print(f"telemetry host ppo_halfcheetah on {env}: spans {counts}; update span (the host's "
-          f"launch; iterations 1-2 eager, 3 the capture, then replays) "
+          f"launch; warmed: every iteration a replay) "
           f"{', '.join(f'{m:.3f}' for m in update_ms)} ms", flush=True)
     assert counts == {"iteration": n, "env_step": n, "host_to_device": n, "update": n,
                       "log": counts["log"], "eval": 1} and counts["log"] >= 2, counts
@@ -1974,7 +1993,7 @@ def run_host_offpolicy(preset_name: str, env: str) -> None:
     before, after = per(*shut), per(*open_)
     spi = cfg.steps_per_iter * cfg.num_envs
     print(f"main path {preset_name} on {env} (E={cfg.num_envs}, K=J={cfg.steps_per_iter}, "
-          f"ingest and updates a CUDA graph from iteration 3, logged every {every}): {n} "
+          f"ingest and updates a CUDA graph from iteration 1, warmed, logged every {every}): {n} "
           f"iterations; {before * 1e3:.3f} ms/iteration over the replays {shut[0] + 1}-{shut[1]} "
           f"(the gate shut), {after * 1e3:.3f} over {open_[0] + 1}-{n} (open): "
           f"{spi / after:.0f} env-steps/s, {cfg.updates_per_iter / after:.0f} updates/s; split "
@@ -2077,7 +2096,7 @@ def run_host_resume(preset_name: str, env: str) -> None:
 # -- the async actor-learner and the device data plane ----------------------
 
 ASYNC_ACTORS = 2                 # ppo_halfcheetah's E=8 as 2 actors of 4 envs
-ASYNC_PPO_BLOCKS = 8             # two eager blocks, a capture, then replays
+ASYNC_PPO_BLOCKS = 8             # replays (the warm-up captures before the actors start)
 ASYNC_LOG_EVERY = 4
 ASYNC_CHECK_BLOCKS = 5           # the graph-vs-eager runs: blocks 1-5, checked at 4
 ASYNC_LOCKSTEP_ITERATIONS = 5    # two eager, a capture, replays
@@ -2227,8 +2246,8 @@ def run_async_ppo(env: str) -> int:
         print(f"main path async ppo_halfcheetah on {env}, --data-plane {plane} ({codec}, "
               f"{epochs or 10} epochs): "
               f"{ASYNC_ACTORS} actors of 4 envs, {n} consumed blocks of {int(steps)} env steps, "
-              f"V-trace launches {launches['vtrace']} (= blocks × updates_per_block); eager "
-              f"block 1 {logged[0]['wall_s'] * 1e3:.1f} ms; {per_block * 1e3:.3f} ms a consumed "
+              f"V-trace launches {launches['vtrace']} (= blocks × updates_per_block); "
+              f"block 1 (the warm-up included) {logged[0]['wall_s'] * 1e3:.1f} ms; {per_block * 1e3:.3f} ms a consumed "
               f"block over the replays {ASYNC_LOG_EVERY + 1}-{n} ({steps / per_block:.0f} "
               f"consumed env-steps/s); fleet collected {int(last['env_steps'])} env steps; "
               f"drops full {int(last['queue_drops_full'])}, stale {int(last['queue_drops_stale'])}; "
@@ -2985,14 +3004,14 @@ def poll(i):
         c.connect()
         c.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         while not stop.is_set():
-            t0 = time.perf_counter()
+            t0, issued = time.perf_counter(), time.time()
             c.request("POST", "/v1/act", body, {"Content-Type": "application/json"})
             r = c.getresponse()
             b = json.loads(r.read())
             if r.status != 200:
                 failed.append([r.status, str(b)[:300]])
                 continue
-            out[i].append([b["version"], b["actions"], time.perf_counter() - t0])
+            out[i].append([b["version"], b["actions"], time.perf_counter() - t0, issued])
     except (OSError, http.client.HTTPException, ValueError) as e:
         if not stop.is_set():
             failed.append([None, repr(e)[:300]])
@@ -3011,7 +3030,12 @@ class SidecarProbe:
     """Wraps `train.start_serving_sidecar`: records the store, times
     SERVE_HTTP_CALLS requests against the idle gateway, then starts a client
     process (POLL_CLIENT) of SERVE_POLL_CLIENTS threads that request back to
-    back until `finish`, which collects their (version, actions, seconds)."""
+    back until `finish`, which collects their (version, actions, seconds,
+    time issued). It also times every closure of the learner's gate
+    (`closures`: start and seconds), and `warm_done` is when the run's
+    warm-up ended (`time.time()`): a closure that starts after it closed
+    the gate during training, and a request issued before it waited for
+    the warm-up."""
 
     def __init__(self, obs):
         self.obs = obs
@@ -3021,10 +3045,37 @@ class SidecarProbe:
         self.failed: list = []
         self.gateway = None
         self.proc = None
+        self.closures: list[tuple[float, float]] = []
+        self.closed_at = None
+        self.warm_done = None
+
+    def time_gate(self, gate) -> None:
+        clear, set_ = gate.clear, gate.set
+
+        def closing() -> None:
+            self.closed_at = time.time()
+            clear()
+
+        def opening() -> None:
+            if self.closed_at is not None:
+                self.closures.append((self.closed_at, time.time() - self.closed_at))
+                self.closed_at = None
+            set_()
+
+        gate.clear, gate.set = closing, opening
+
+    def gate_line(self) -> str:
+        """How long the gate was closed in the warm-up and after it."""
+        done = self.warm_done if self.warm_done is not None else float("-inf")
+        warm = [d for t, d in self.closures if t < done]
+        run = [d for t, d in self.closures if t >= done]
+        return (f"the learner's gate closed {len(warm)} time(s) in the warm-up "
+                f"({sum(warm):.3f} s) and {len(run)} time(s) after it ({sum(run):.3f} s)")
 
     def wrap(self, start):
         def start_serving_sidecar(*a, **k):
             gateway, learner_kwargs = start(*a, **k)
+            self.time_gate(learner_kwargs["gate"])
             self.store, self.gateway = gateway.store, gateway
             conn = KeepAlive(gateway.url)
             self.idle = timed_calls(lambda: conn.post("/v1/act", {"obs": self.obs.tolist()}),
@@ -3069,6 +3120,7 @@ def serve_drive(argv: list[str], mod, module_of) -> tuple:
     import numpy as np
 
     from actor_critic_tpu_torch import train
+    from actor_critic_tpu_torch.utils import compile_cache
 
     probe = SidecarProbe(np.random.default_rng(0).normal(size=(16, 3)).astype(np.float32))
     learned = {}
@@ -3079,11 +3131,16 @@ def serve_drive(argv: list[str], mod, module_of) -> tuple:
         learned["module"] = module_of(out)
         return out
 
+    def warm_done(_runner) -> None:
+        probe.warm_done = time.time()
+
     train.start_serving_sidecar, mod.train_host_async = probe.wrap(start), capture
+    compile_cache.WARMUP_DONE_HOOKS.append(warm_done)
     try:
         logged, summary, launches = drive(argv + ["--serve-port", "0"],
                                           show_every=ASYNC_LOG_EVERY)
     finally:
+        compile_cache.WARMUP_DONE_HOOKS.remove(warm_done)
         train.start_serving_sidecar, mod.train_host_async = start, run
         probe.finish()
     return logged, summary, launches, probe, learned["module"]
@@ -3125,7 +3182,7 @@ def run_serve_while_training(env: str, without: float | None = None) -> int:
           f"V-trace launches {launches['vtrace']} in {SERVE_TRAIN_BLOCKS} blocks; consumed "
           f"env-steps/s over blocks {ASYNC_LOG_EVERY}-{SERVE_TRAIN_BLOCKS} "
           f"{consumed_rate(logged, summary):.0f} with the sidecar ({SERVE_POLL_CLIENTS} clients "
-          f"back to back), {without:.0f} without; eager block 1 {logged[0]['wall_s']:.2f} s; "
+          f"back to back), {without:.0f} without; block 1 (the warm-up included) {logged[0]['wall_s']:.2f} s; "
           f"{busy}", flush=True)
     logged, summary, sac_launches, probe, actor = serve_drive(
         ["--preset", "sac_humanoid", "--async-actors", "1", "--set",
@@ -3134,7 +3191,7 @@ def run_serve_while_training(env: str, without: float | None = None) -> int:
     busy = check_sidecar(probe, actor, "sac_humanoid", SERVE_TRAIN_BLOCKS,
                          lambda actor, o: actor(o).mode())
     print(f"serve-while-training sac_humanoid on {env} (device plane, one actor, warm-up "
-          f"{SERVE_SAC_WARMUP} env steps): eager block 1 {logged[0]['wall_s']:.2f} s; {busy}",
+          f"{SERVE_SAC_WARMUP} env steps): block 1 (the warm-up included) {logged[0]['wall_s']:.2f} s; {busy}",
           flush=True)
     return launches["vtrace"]
 
@@ -3147,14 +3204,16 @@ def check_sidecar(probe: SidecarProbe, module, label: str, blocks: int, greedy) 
     import numpy as np
     import torch
 
-    walls = [s for polls in probe.polls for _, _, s in polls]
+    done = probe.warm_done if probe.warm_done is not None else float("-inf")
+    walls = [s for polls in probe.polls for _, _, s, issued in polls if issued >= done]
+    waited = [s for polls in probe.polls for _, _, s, issued in polls if issued < done]
     metrics = probe.gateway.batcher.metrics.snapshot()
     assert not probe.failed and metrics["errors_total"] == metrics["shed_total"] == 0, \
         (label, probe.failed[:3], len(probe.failed), metrics)
     assert walls, "no request was served during training"
-    seen = sorted({v for polls in probe.polls for v, _, _ in polls})
+    seen = sorted({p[0] for polls in probe.polls for p in polls})
     for polls in probe.polls:
-        got = [v for v, _, _ in polls]
+        got = [p[0] for p in polls]
         assert got == sorted(got), got
     assert probe.store.ids() == {"learner": blocks + 1}, probe.store.ids()
     handle = probe.store.get("learner")
@@ -3163,12 +3222,228 @@ def check_sidecar(probe: SidecarProbe, module, label: str, blocks: int, greedy) 
         own = greedy(module, torch.from_numpy(probe.obs).cuda()).cpu().numpy()
     diff = float(np.abs(served - own).max())
     assert diff == 0.0, (label, diff)
-    return (f"{len(walls)} requests during training over versions {seen[0]}..{seen[-1]} "
+    # Warmed (the CLI's default): the update was captured before the actors
+    # started, so the gate never closes during training.
+    assert probe.warm_done is not None and all(t < probe.warm_done for t, _ in probe.closures), (
+        label, probe.gate_line())
+    return (f"{probe.gate_line()}; "
+            f"{len(walls)} requests during training over versions {seen[0]}..{seen[-1]} "
             f"({len(seen)} distinct), monotone; store at {blocks + 1}; final served action = "
             f"the learner's greedy act (max diff {diff}); {len(probe.obs)}-row requests "
-            f"during training {percentiles_ms(walls)}, max {max(walls) * 1e3:.1f} ms (flushes "
-            f"wait while the learner's update is eager or captured), idle gateway "
+            f"issued after the warm-up (during training) {percentiles_ms(walls)}, max "
+            f"{max(walls) * 1e3:.1f} ms; {len(waited)} issued in the warm-up waited for its "
+            f"end (max {max(waited, default=0.0) * 1e3:.1f} ms); idle gateway "
             f"{percentiles_ms(probe.idle)}")
+
+
+# -- the warm-up registry and the build cache ------------------------------
+
+WARMUP_A2C_ITERATIONS, WARMUP_A2C_CHUNK = 10, 4  # two full chunks and a 2-iteration tail
+WARMUP_HOST_ITERATIONS = 2
+CACHE_CHILD = r"""
+import json, sys, time
+from actor_critic_tpu_torch import _build
+from actor_critic_tpu_torch.telemetry import profiler
+from actor_critic_tpu_torch.utils import compile_cache
+
+resolved = compile_cache.resolve_cache_dir(sys.argv[1], None)
+cache = compile_cache.enable_persistent_cache(resolved or compile_cache.fresh_cache_dir())
+t0 = time.perf_counter()
+# What a plan entry's build part runs: the path's kernels, the native engine.
+compile_cache.Warmup(kernels=("gae", "vtrace"), native=True)()
+print(json.dumps({"cache": cache, "seconds": time.perf_counter() - t0,
+                  "stats": compile_cache.cache_stats(),
+                  "builds": {r["name"]: [r["compile_s"], bool(r.get("cache_hit"))]
+                             for r in profiler.compile_records()}}))
+"""
+
+
+@contextlib.contextmanager
+def logged_rows(stamps: dict):
+    """Stamps `stamps[iteration]` = time.perf_counter() at each row the CLI
+    logs (after its float() reads have waited for the card), for the length
+    of the block."""
+    from actor_critic_tpu_torch.utils.logging import JsonlLogger
+
+    log = JsonlLogger.log
+
+    def stamped(self, iteration, metrics):
+        stamps.setdefault(iteration, time.perf_counter())
+        return log(self, iteration, metrics)
+
+    JsonlLogger.log = stamped
+    try:
+        yield stamps
+    finally:
+        JsonlLogger.log = log
+
+
+def warmed_against_unwarmed(argv: list[str], label: str, show_every: int) -> dict:
+    """`train.main(argv)` warmed (the default) and with `--no-warmup`, each
+    with a checkpoint at its end and a telemetry session: the final
+    checkpoints (every carried tensor and the generator) and the logged
+    metrics of the iterations both log must be equal at 0.0. Returns, by
+    mode: the logged rows, the launches, the seconds from `main`'s start to
+    each logged row by iteration, the run's `compile` events after its
+    `warmup_done` (all of them unwarmed, where captures run in the loop),
+    its warm-up events, and its `update` spans' ms."""
+    import shutil
+
+    out = {}
+    for mode in ("--warmup", "--no-warmup"):
+        tel, ck = f"{SCRATCH}/{label}_tel{mode}", f"{SCRATCH}/{label}_ck{mode}"
+        for d in (tel, ck):
+            shutil.rmtree(d, ignore_errors=True)
+        stamps = {}
+        t0 = time.perf_counter()
+        with logged_rows(stamps):
+            logged, summary, launches = drive(
+                argv + ["--ckpt-dir", ck, "--save-every", "0", "--telemetry-dir", tel, mode],
+                show_every=show_every)
+        events = read_jsonl(f"{tel}/events.jsonl")
+        done = [i for i, e in enumerate(events) if e["kind"] == "warmup_done"]
+        after = events[done[0] + 1:] if done else events
+        out[mode] = dict(
+            logged=logged, launches=launches, rows_s={it: t - t0 for it, t in stamps.items()},
+            loop_compiles=[e for e in after if e["kind"] == "compile" and not e.get("cache_hit")],
+            warmup=[e for e in events if e["kind"].startswith("warmup")],
+            update_ms=[e["dur"] / 1e3 for e in span_events(tel)
+                       if e["ph"] == "X" and e["name"] == "update"],
+            state=final_checkpoint(ck, summary["iterations"]))
+    warm, cold = out["--warmup"], out["--no-warmup"]
+    worst, gen = checkpoint_diff(warm["state"], cold["state"])
+    # A warmed run logs its first dispatch's last iteration, an unwarmed one
+    # also its eager first: the rows of the iterations both logged.
+    common = {r["iter"] for r in warm["logged"]} & {r["iter"] for r in cold["logged"]}
+
+    def rows(run) -> list[dict]:
+        return [{k: v for k, v in r.items() if not k.endswith(("_s", "_ms"))}
+                for r in run["logged"] if r["iter"] in common]
+
+    rows_equal = warm["logged"][-1]["iter"] in common and rows(warm) == rows(cold)
+    done = [e for e in warm["warmup"] if e["kind"] == "warmup_done"]
+    entries = [f"{e['entry']} build {e.get('build_s')} s capture {e.get('capture_s')} s"
+               for e in warm["warmup"] if e["kind"] == "warmup_compile"]
+    captures = [f"{e['name']} {e['compile_s']:.3f} s" for e in cold["loop_compiles"]]
+    print(f"warm-up {label}: warmed against --no-warmup, the final checkpoints' worst "
+          f"difference {worst:.3e} over {len(warm['state']['tensors'])} tensors, the generator "
+          f"{'equal' if not gen else 'DIFFERENT'}, logged metrics at iterations "
+          f"{sorted(common)} {'equal' if rows_equal else 'DIFFERENT'}; warm-up {done} "
+          f"({', '.join(entries)}); compile events inside the loop: warmed "
+          f"{len(warm['loop_compiles'])}, unwarmed {len(cold['loop_compiles'])} "
+          f"({', '.join(captures)}); "
+          f"seconds from main's start to the end of iteration (logged rows) warmed "
+          f"{ {it: round(t, 3) for it, t in warm['rows_s'].items()} }, unwarmed "
+          f"{ {it: round(t, 3) for it, t in cold['rows_s'].items()} }; "
+          f"update spans warmed {', '.join(f'{m:.3f}' for m in warm['update_ms'])} ms, "
+          f"unwarmed {', '.join(f'{m:.3f}' for m in cold['update_ms'])} ms", flush=True)
+    assert worst == 0.0 and not gen and rows_equal, (label, worst, gen, rows_equal)
+    assert len(done) == 1 and done[0]["errors"] == 0, done
+    assert warm["loop_compiles"] == [], warm["loop_compiles"]
+    return out
+
+
+def run_warmup_a2c() -> None:
+    """`a2c_cartpole` at full width (E=4096, T=64), `--chunk 4 --iterations
+    10` (two full chunks and a 2-iteration tail, so both graphs), warmed
+    against `--no-warmup` through `train.main`: equal at 0.0; `compile`
+    events inside the loop 0 warmed, 2 unwarmed (the 1-step and the 4-step
+    graph); GAE 10 times in 10 real iterations both ways; the seconds from
+    `main`'s start to each logged row both ways (the unwarmed run logs its
+    eager iteration 1; both log 4, 8 and 10)."""
+    n, chunk = WARMUP_A2C_ITERATIONS, WARMUP_A2C_CHUNK
+    out = warmed_against_unwarmed(
+        ["--preset", "a2c_cartpole", "--iterations", str(n), "--chunk", str(chunk),
+         "--log-every", str(chunk), "--seed", "0"], "a2c_cartpole", show_every=n)
+    for mode, run in out.items():
+        assert run["launches"] == {"gae": n, "vtrace": 0}, (mode, run["launches"])
+    assert len(out["--no-warmup"]["loop_compiles"]) == 2, out["--no-warmup"]["loop_compiles"]
+    print(f"warm-up a2c_cartpole: GAE launches {out['--warmup']['launches']['gae']} warmed, "
+          f"{out['--no-warmup']['launches']['gae']} unwarmed, in {n} iterations", flush=True)
+
+
+def run_warmup_host_ppo(env: str) -> None:
+    """Host `ppo_halfcheetah` on `env` (two epochs), WARMUP_HOST_ITERATIONS
+    iterations, warmed against `--no-warmup` through `train.main`: equal at
+    0.0; the first iteration's `update` span (a replay warmed, an eager
+    update unwarmed) printed; GAE once an iteration both ways."""
+    n = WARMUP_HOST_ITERATIONS
+    out = warmed_against_unwarmed(
+        ["--preset", "ppo_halfcheetah", "--env", env, "--iterations", str(n), "--log-every",
+         "1", "--seed", "0", "--set", f"epochs={CHECK_EPOCHS}"], "host_ppo", show_every=1)
+    for mode, run in out.items():
+        assert run["launches"] == {"gae": n, "vtrace": 0}, (mode, run["launches"])
+    print(f"warm-up host ppo_halfcheetah on {env} ({CHECK_EPOCHS} epochs): the first "
+          f"iteration's update span {out['--warmup']['update_ms'][0]:.3f} ms warmed (a replay's "
+          f"launch), {out['--no-warmup']['update_ms'][0]:.3f} ms unwarmed (an eager update)",
+          flush=True)
+
+
+def run_build_cache() -> None:
+    """The build cache cold and warm, each a fresh process that runs a plan
+    entry's build part for `gae.cu`, `vtrace.cu` and the native engine:
+    `--compile-cache-dir none` (a fresh temporary directory: three misses,
+    with nvcc's and g++'s seconds) and an explicit new directory, side by
+    side; then a second process on that directory: three hits."""
+    import os
+    import shutil
+
+    explicit = os.path.abspath(f"{SCRATCH}/build_cache")
+    shutil.rmtree(explicit, ignore_errors=True)
+
+    def child(value: str) -> subprocess.Popen:
+        return subprocess.Popen([sys.executable, "-c", CACHE_CHILD, value],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                env={**os.environ, "PYTHONPATH": os.getcwd()})
+
+    def result(proc: subprocess.Popen) -> dict:
+        out, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, err[-2000:]
+        return json.loads(out.strip().splitlines()[-1])
+
+    cold_none, cold_dir = child("none"), child(explicit)
+    runs = {"none (cold)": result(cold_none), "explicit (cold)": result(cold_dir)}
+    runs["explicit (warm)"] = result(child(explicit))
+    for label, r in runs.items():
+        builds = [f"{k} {s:.2f} s{' (hit)' if hit else ''}" for k, (s, hit) in r["builds"].items()]
+        print(f"build cache {label}: {r['cache']}, {r['seconds']:.2f} s, {r['stats']}; "
+              f"{', '.join(builds)}", flush=True)
+    for label in ("none (cold)", "explicit (cold)"):
+        r = runs[label]
+        assert r["stats"] == {"hits": 0, "misses": 3}, (label, r)
+        assert all(not hit for _, hit in r["builds"].values()), (label, r)
+    warm = runs["explicit (warm)"]
+    assert warm["stats"] == {"hits": 3, "misses": 0} and warm["cache"] == explicit, warm
+    assert runs["none (cold)"]["cache"] != explicit
+    assert not os.path.exists(runs["none (cold)"]["cache"]), "the temporary cache outlived its run"
+
+
+def run_serve_warmup() -> None:
+    """The serve CLI (`ppo_cartpole --random-init`, buckets 1 and 4) with
+    `--no-warmup`, whose first request captures its bucket's graph, against
+    the warmed default: the first batch-1 request's latency each way, and
+    the captures each process made before the gateway bound."""
+    out = {}
+    for mode in ([], ["--no-warmup"]):
+        server = ServeProcess(["--preset", "ppo_cartpole", "--random-init", "--port", "0",
+                               "--buckets", "1,4", *mode])
+        try:
+            conn = KeepAlive(server.url)
+            walls = []
+            for _ in range(21):  # the first request timed too
+                t0 = time.perf_counter()
+                conn.post("/v1/act", {"obs": [0.01, 0.02, 0.03, 0.04]})
+                walls.append(time.perf_counter() - t0)
+            conn.close()
+        finally:
+            server.stop()
+        warm = [x for x in server.lines if x.startswith("warm: ")]
+        out["--no-warmup" if mode else "warmed"] = (walls, warm)
+    for label, (walls, warm) in out.items():
+        print(f"serve CLI {label}: first request {walls[0] * 1e3:.3f} ms, the next 20 "
+              f"{percentiles_ms(walls[1:])}; {warm}", flush=True)
+    assert out["warmed"][1] == ["warm: 2 act buckets captured"], out["warmed"][1]
+    assert out["--no-warmup"][1][0].startswith("warm: skipped"), out["--no-warmup"][1]
 
 
 # -- precision: the TF32 pin and bf16 compute ------------------------------
@@ -3177,7 +3452,7 @@ TF32_REPLAYS = 20            # impala_pong graph replays a turn
 BF16_FUSED_PRESETS = ("a2c_cartpole", "ppo_cartpole", "impala_pong", "impala_pong_learn",
                       "a3c_pong", "a2c_mixture")
 BF16_GRAPH_PRESETS = ("a2c_cartpole", "ppo_cartpole", "impala_pong", "a2c_mixture")
-BF16_ITERATIONS = 5          # two eager, a capture, two replays
+BF16_ITERATIONS = 5          # through train.main: five replays, warmed
 BF16_HOST_PPO_ITERATIONS = 3  # two eager updates, then the graph
 BF16_ASYNC_BLOCKS = 5
 BF16_SAC_WARMUP = 256        # env steps: the SAC learner's gate opens at iteration 5
@@ -3269,7 +3544,7 @@ def run_bf16_main_paths(env: str) -> dict[str, dict[str, int]]:
     """`--update-dtype bf16` through `train.main` on every path that reaches
     it, each kernel's launch count reset just before each run and read just
     after: the six fused presets for BF16_ITERATIONS iterations (the CUDA
-    graph from iteration 3), host `ppo_halfcheetah`, async `ppo_halfcheetah`
+    graph from iteration 1, warmed), host `ppo_halfcheetah`, async `ppo_halfcheetah`
     (2 actors, device plane; both at CHECK_EPOCHS) and host and async
     `sac_humanoid` (1 actor,
     device plane, the warm-up cut to BF16_SAC_WARMUP env steps) on `env`.
@@ -3376,7 +3651,7 @@ def compare_profiles(profiles: dict, replays: dict) -> None:
 TELEMETRY_ITERATIONS, TELEMETRY_CHUNK, TELEMETRY_SAVE = 24, 4, 8
 TELEMETRY_TIMING_ITERATIONS = 32  # 6 logged chunks of replays from iteration 8
 TELEMETRY_ROUNDS = 2          # the session's cost: each variant this many times, in turns
-TELEMETRY_HOST_ITERATIONS = 4  # two eager, the capture, a replay
+TELEMETRY_HOST_ITERATIONS = 4  # four replays (warmed)
 TELEMETRY_ASYNC_BLOCKS = 4     # two eager blocks, the capture, a replay
 TELEMETRY_ASYNC_SAMPLE_S = 0.5  # the run takes ~4 s: rows while blocks are consumed
 TELEMETRY_SAMPLE_S = 0.02     # the sampler ticks through every capture of the run
@@ -3463,7 +3738,7 @@ def run_telemetry_a2c() -> None:
     `--chunk 4 --ckpt-dir --save-every 8 --stall-timeout 30 --telemetry-dir
     --telemetry-port 0 --telemetry-sample-s 0.02`, 24 iterations. A client
     thread scrapes /metrics and /healthz while it runs and arms a window
-    (GET `/profile?iters=2`, JAX's route) once the run's two captures are
+    (GET `/profile?iters=2`, JAX's route) once the run's capture is
     counted. Holds: the
     spans canonical and the per-dispatch update/log/checkpoint sequence the
     CPU run's (the same flags at E=64 on the CPU); the card's rows with
@@ -3471,8 +3746,10 @@ def run_telemetry_a2c() -> None:
     events (seconds printed); `chunk_wall.json` below the 4-step capture's
     wall (the scraper inflates it: printed); the profile window's trace holding GAE exactly
     2 x 4 times while the device counter's GAE launches equal the
-    iterations. Then the session's cost, TELEMETRY_TIMING_ITERATIONS
-    iterations a run, the variants in turns for TELEMETRY_ROUNDS rounds,
+    iterations. The run is warmed (the CLI's default): its one graph, the
+    4-step one (24 iterations from 0 run no partial chunk), is captured by
+    the warm-up before the first dispatch. Then the session's cost,
+    TELEMETRY_TIMING_ITERATIONS iterations a run, the variants in turns for TELEMETRY_ROUNDS rounds,
     every run with the watchdog armed and no client: without the session,
     with it at the default 5 s sampling, with it at 20 ms. Each run's
     `chunk_wall.json` is held within 1.5 x 4 x its own replay ms + 5 ms
@@ -3530,7 +3807,7 @@ def run_telemetry_a2c() -> None:
                     raise
                 rec = [float(x.split()[-1]) for x in body.splitlines()
                        if x.startswith("actor_critic_recompiles_total ")]
-                if not armed and rec and rec[0] >= base + 2:
+                if not armed and rec and rec[0] >= base + 1:
                     with urllib.request.urlopen(url + "/profile?iters=2", timeout=10) as r:
                         assert r.status == 202
                     armed = True
@@ -3618,7 +3895,7 @@ def run_telemetry_a2c() -> None:
     check_canonical(tel)
     assert devs and all("live_bytes" in d and d["peak_bytes"] >= d["live_bytes"] for d in devs)
     assert max(live) > 0, live
-    assert made == len(captures) == 2, (made, comps)
+    assert made == len(captures) == 1, (made, comps)
     assert len(done) == 1 and "cut_by" not in done[0], done
     assert gae_in_window == 2 * chunk, gae_in_window
     assert launches["gae"] == n, launches
@@ -3855,6 +4132,7 @@ def main() -> int:
     phase("resume a2c_mixture", run_resume, "a2c_mixture",
           ["--eval-every", str(RESUME_AT), "--curriculum=-1e9:0,0,0,1"])
     phase("chunk", run_chunk)
+    phase("warm-up a2c_cartpole", run_warmup_a2c)
     for preset_name in OFFPOLICY_PRESETS:
         phase(preset_name, run_offpolicy_main, preset_name)
     phase("off-policy learning", run_offpolicy_learning)
@@ -3864,6 +4142,8 @@ def main() -> int:
     for preset_name in OFFPOLICY_PRESETS:
         phase(f"host {preset_name}", run_host_offpolicy, preset_name, host_envs[preset_name])
     phase("host resume", run_host_resume, "td3_walker2d", host_envs["td3_walker2d"])
+    phase("warm-up host ppo_halfcheetah", run_warmup_host_ppo, host_envs["ppo_halfcheetah"])
+    phase("build cache", run_build_cache)
     print(f"host envs the presets ran on: {host_envs}; GAE launches on the host PPO path "
           f"{host_gae}", flush=True)
     phase("host ppo_halfcheetah bf16 contract", check_host_ppo_contract,
@@ -3879,6 +4159,7 @@ def main() -> int:
     phase("serving graphs", check_serving_graphs)
     phase("serving graphs bf16", check_serving_graphs, BF16_SERVE_PRESETS, True)
     phase("serve CLI", run_serve_cli)
+    phase("serve CLI warm-up", run_serve_warmup)
     serve_vtrace = phase("serve while training", run_serve_while_training,
                          host_envs["ppo_halfcheetah"], ASYNC_RATES[("device", "fp32")])
     report = phase("telemetry a2c_cartpole", run_telemetry_a2c)

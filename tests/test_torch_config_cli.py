@@ -325,6 +325,65 @@ def test_flags_still_to_port_are_refused(flag, capsys):
     assert f"{flag} is not ported yet" in err and train.UNPORTED_FLAGS[flag] in err
 
 
+HOST_TINY = ["--preset", "ppo_halfcheetah", "--env", "native:Pendulum-v1", "--set", "num_envs=2",
+             "--set", "rollout_steps=8", "--set", "epochs=1", "--set", "num_minibatches=1",
+             "--iterations", "1"]
+
+
+@pytest.mark.parametrize("flags,path", [
+    (["--warmup"], "fused"), (["--no-warmup"], "fused"), (["--warmup"], "host"),
+    (["--no-warmup"], "host"),
+])
+def test_warmup_flags_reach_the_run(flags, path, capsys, tmp_path):
+    """JAX's `--warmup/--no-warmup` (default on): the plan is printed and its
+    entries' capture parts run as `warmup_compile` events, or no plan at
+    all."""
+    from actor_critic_tpu_torch import telemetry
+
+    argv = SMALL + ["--iterations", "2"] if path == "fused" else list(HOST_TINY)
+    tel = tmp_path / "tel"
+    _, summary, notes = _cli(argv + flags + ["--telemetry-dir", str(tel)], capsys, tmp_path)
+    assert summary["iterations"] in (1, 2) and telemetry.current() is None
+    plans = [x for x in notes if x.startswith("warmup: ")]
+    with open(tel / "events.jsonl") as f:
+        events = [json.loads(x) for x in f]
+    warm = [e for e in events if e["kind"] in ("warmup_compile", "warmup_done")]
+    if flags == ["--no-warmup"]:
+        assert plans == [] and warm == []
+        return
+    entry = "a2c.make_train_step" if path == "fused" else "ppo.make_host_update_step"
+    assert len(plans) == 1 and plans[0].endswith(f": {entry}"), plans
+    assert [e["kind"] for e in warm] == ["warmup_compile", "warmup_done"]
+    assert warm[0]["entry"] == entry and warm[0]["compile_s"] >= 0
+    assert warm[1]["entries"] == 1 and warm[1]["errors"] == 0
+
+
+@pytest.mark.parametrize("value", ["{tmp}/cc", "none", "auto"])
+def test_compile_cache_dir_reaches_the_run(value, capsys, tmp_path):
+    """`--compile-cache-dir`: the native engine of the run is built in (or
+    found in) the directory printed, `none` a fresh temporary one and `auto`
+    the checkout's build/; the process's cache is back to what it was after
+    the run."""
+    from actor_critic_tpu_torch import native
+    from actor_critic_tpu_torch.utils import compile_cache
+
+    before = compile_cache.cache_path("native")
+    arg = value.format(tmp=tmp_path)
+    _, _, notes = _cli(HOST_TINY + ["--compile-cache-dir", arg, "--quiet"], capsys, tmp_path)
+    cache = [x.removeprefix("compile cache: ") for x in notes if x.startswith("compile cache: ")]
+    assert len(cache) == 1
+    if value == "auto":
+        assert cache[0] == str(compile_cache.DEFAULT_DIR)
+    elif value == "none":
+        assert "actor_critic_build_cache-" in cache[0] and cache[0] != str(compile_cache.DEFAULT_DIR)
+    else:
+        assert cache[0] == arg
+        with compile_cache.temporary_cache(arg):
+            lib = native.library_path()
+        assert lib.exists() and lib.parent == tmp_path / "cc" / "native"
+    assert compile_cache.cache_path("native") == before
+
+
 @pytest.mark.parametrize("flags,expect", [
     (["--telemetry-dir", "{tmp}/tel"], "runs"),
     (["--telemetry-dir", "{tmp}/tel", "--telemetry-port", "0"], "runs"),

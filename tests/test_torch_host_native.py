@@ -13,6 +13,7 @@ import pytest
 from actor_critic_tpu.envs.native_pool import NativeVecEnv as JaxNative
 from actor_critic_tpu_torch import native
 from actor_critic_tpu_torch.envs.native_pool import Box, Discrete, NativeVecEnv
+from actor_critic_tpu_torch.utils import compile_cache
 
 ENVS = {
     "CartPole-v1": lambda rng, n: rng.integers(0, 2, n),
@@ -70,23 +71,23 @@ def test_spaces_equal_gymnasium():
 
 def test_library_is_built_into_build_dir():
     native.load()
-    assert native.LIB.exists() and native.LIB.parent.name == "native"
-    assert native.LIB.parent.parent.name == "build"
-    assert "actor_critic_tpu/" not in str(native.LIB)
+    lib = native.library_path()
+    assert lib.exists() and lib.parent.name == "native"
+    assert lib.parent.parent.name == "build"
+    assert "actor_critic_tpu/" not in str(lib)
     assert "-ffp-contract=off" in native.CXX_FLAGS
 
 
 def test_build_without_compiler_raises(tmp_path, monkeypatch):
-    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(native, "LIB", tmp_path / "_vecenv.so")
     monkeypatch.setenv("PATH", str(tmp_path))
-    with pytest.raises(ImportError, match="needs g\\+\\+"):
-        native.build()
-    assert list(tmp_path.iterdir()) == []
+    with compile_cache.temporary_cache(tmp_path):
+        with pytest.raises(ImportError, match="needs g\\+\\+"):
+            native.build()
+    assert list((tmp_path / "native").iterdir()) == []
 
 
-def test_build_renames_into_place(tmp_path, monkeypatch):
-    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "b")
-    monkeypatch.setattr(native, "LIB", tmp_path / "b" / "_vecenv.so")
-    out = native.build()
-    assert out.exists() and [p.name for p in (tmp_path / "b").iterdir()] == ["_vecenv.so"]
+def test_build_renames_into_place(tmp_path):
+    with compile_cache.temporary_cache(tmp_path / "b"):
+        out = native.build()
+    assert out.exists() and out == tmp_path / "b" / "native" / out.name
+    assert [p.name for p in (tmp_path / "b" / "native").iterdir()] == [out.name]

@@ -33,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-from actor_critic_tpu_torch import serve, serving, train
+from actor_critic_tpu_torch import native, serve, serving, train
 from actor_critic_tpu_torch.algos import ppo, sac
 from actor_critic_tpu_torch.envs import make_cartpole
 
@@ -67,6 +67,43 @@ def test_later_paths_are_refused(flag, capsys):
         serve.parse_args(["--preset", "ppo_cartpole", flag, "1"])
     err = capsys.readouterr().err
     assert f"{flag} is not ported yet" in err and serve.UNPORTED_FLAGS[flag] in err
+
+
+def test_no_warmup_leaves_the_captures_to_the_first_flushes(capsys):
+    """`--no-warmup`: nothing runs the buckets before traffic (on the card
+    each bucket's first flush captures); the default warms them."""
+    engine, store, _ = serve.build(_args("--random-init", "--no-warmup"))
+    assert "warm: skipped (--no-warmup)" in capsys.readouterr().out
+    assert engine._lanes == [] and engine.graphs_captured == 0
+    out = engine.act(store.get().params, np.zeros((1, 4), np.float32))
+    assert out.shape == (1,) and len(engine._lanes) == 1
+    engine, _, _ = serve.build(_args("--random-init"))
+    assert "warm: 2 act buckets captured" in capsys.readouterr().out
+    assert len(engine._lanes) == 1
+
+
+@pytest.mark.parametrize("value", ["{tmp}/cc", "none", None])
+def test_compile_cache_dir_reaches_the_process(value, tmp_path):
+    """`--compile-cache-dir` enables the build cache the native engine of a
+    `native:` env is built in: the path given, a fresh temporary directory
+    for 'none', the checkout's build/ by default."""
+    from actor_critic_tpu_torch.utils import compile_cache
+
+    extra = [] if value is None else ["--compile-cache-dir", value.format(tmp=tmp_path)]
+    args = serve.parse_args(["--algo", "ppo", "--env", "native:CartPole-v1", "--random-init",
+                             "--buckets", "1", "--device", "cpu", *extra])
+    with compile_cache.temporary_cache(compile_cache.DEFAULT_DIR):
+        got = serve.apply_cache_dir(args)
+        assert compile_cache.enabled_dir() == got
+        serve.build(args)
+        lib = native.library_path()
+    if value is None:
+        assert got == str(compile_cache.DEFAULT_DIR)
+    elif value == "none":
+        assert "actor_critic_build_cache-" in got
+    else:
+        assert got == str(tmp_path / "cc") and lib.parent == tmp_path / "cc" / "native"
+    assert lib.exists()
 
 
 def test_telemetry_dir_attaches_a_session(tmp_path):

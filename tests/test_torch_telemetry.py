@@ -565,10 +565,13 @@ def test_cli_trace_matches_jax(argv, tmp_path, capsys):
     """The same command line through JAX's `train.py` and the port's
     `train.main --device cpu`, each with `--telemetry-dir`: the same span
     names with the same argument keys in the same order, the same event
-    kinds apart from `compile`, and `scripts/run_report.py` renders both."""
+    kinds apart from `compile`, and `scripts/run_report.py` renders both.
+    Both runs are unwarmed: JAX's CLI skips its warm-up without a cache
+    directory, which the port's warm-up does not need, so the port's is
+    turned off with the flag both CLIs take."""
     import train as jtrain
 
-    common = argv + ["--quiet", "--telemetry-sample-s", "0.05"]
+    common = argv + ["--quiet", "--telemetry-sample-s", "0.05", "--no-warmup"]
     assert jtrain.main(common + ["--telemetry-dir", str(tmp_path / "jax"),
                                  "--metrics", str(tmp_path / "jax.jsonl")]) == 0
     assert train.main(common + ["--telemetry-dir", str(tmp_path / "port"),
