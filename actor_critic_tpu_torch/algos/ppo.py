@@ -58,6 +58,7 @@ from actor_critic_tpu_torch.envs.env import EnvSpec, TorchEnv
 from actor_critic_tpu_torch.models.networks import ActorCriticDiscrete, ActorCriticGaussian
 from actor_critic_tpu_torch.ops.returns import LOG_RATIO_CAP, normalize_advantages
 from actor_critic_tpu_torch.optim import AdamState, ClippedAdam, linear_schedule
+from actor_critic_tpu_torch.parallel.mesh import FlatGradients, Group, pmean_tree
 
 # `algos/loop.py` runs this trainer's step as one CUDA graph on the card.
 CAPTURABLE = True
@@ -175,10 +176,12 @@ def ppo_loss(
     cfg: PPOConfig,
     clip_eps: Optional[Scalar] = None,
     entropy_coef: Optional[Scalar] = None,
+    group: Group = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Clipped-surrogate + clipped-value + entropy loss on a minibatch, with
     float32 means. `clip_eps` / `entropy_coef` (floats or 0-dim tensors)
-    override the config's constants."""
+    override the config's constants. With a process `group` the advantage
+    normalization uses the global batch's statistics (JAX's `axis_name`)."""
     if clip_eps is None:
         clip_eps = cfg.clip_eps
     if entropy_coef is None:
@@ -189,7 +192,7 @@ def ppo_loss(
 
     adv = batch.advantage
     if cfg.normalize_adv:
-        adv = normalize_advantages(adv)
+        adv = normalize_advantages(adv, group)
 
     log_ratio = log_prob - batch.log_prob_old
     # The cap keeps exp from overflowing to inf under policy drift (and
@@ -243,10 +246,18 @@ def ppo_update(
     opt_table: torch.Tensor,
     clip_eps: Optional[Scalar] = None,
     entropy_coef: Optional[Scalar] = None,
+    grad_sync: Optional[FlatGradients] = None,
 ) -> dict[str, torch.Tensor]:
     """E epochs × M shuffled minibatches of PPO updates, applied in place to
     `net`'s parameters and `opt_state`; returns the metrics' mean over the
-    [E, M] nest.
+    [E, M] nest (this rank's: the caller pmeans them).
+
+    With `grad_sync`, a `parallel.mesh.FlatGradients` of a process group
+    (a data-parallel update: every rank holds its own shard of the batch
+    and the same parameters), each minibatch's advantages are normalized
+    with the group's global statistics and its gradients are pmean'd
+    through `grad_sync`'s one flat all-reduce before the global-norm clip
+    and Adam, optax's order.
 
     The batch size B must be divisible by num_minibatches. Epoch e's
     minibatch j is `perms[e, j·mb:(j+1)·mb]` (JAX reshapes its permutation
@@ -258,14 +269,17 @@ def ppo_update(
         raise ValueError(f"batch {B} % minibatches {M} != 0")
     mb = B // M
     params = dict(net.named_parameters())
+    group = None if grad_sync is None else grad_sync.group
     history = []
     for e in range(cfg.epochs):
         for j in range(M):
             idx = perms[e, j * mb:(j + 1) * mb]
             loss, metrics = ppo_loss(
-                net, PPOBatch(*(x[idx] for x in batch)), cfg, clip_eps, entropy_coef
+                net, PPOBatch(*(x[idx] for x in batch)), cfg, clip_eps, entropy_coef, group
             )
             grads = torch.autograd.grad(loss, list(params.values()))
+            if grad_sync is not None:
+                grads = grad_sync(grads)
             opt.step(params, dict(zip(params, grads)), opt_state, opt_table)
             history.append(metrics)
     return {k: torch.mean(torch.stack([m[k] for m in history])) for k in history[0]}
@@ -657,7 +671,8 @@ def host_block_spec(spec: EnvSpec, cfg: PPOConfig, mirror: bool) -> dict:
 
 
 def make_async_update_fn(env_spec: EnvSpec, cfg: PPOConfig, can_truncate: bool = True,
-                         correction: str = "vtrace", rho_bar: float = 1.0, c_bar: float = 1.0):
+                         correction: str = "vtrace", rho_bar: float = 1.0, c_bar: float = 1.0,
+                         group: Group = None):
     """The staleness-corrected update of the async learner:
     `update(net, opt_state, schedule, obs, action, log_prob, value, reward,
     done, terminated, final_obs, last_obs, perms, iteration=None) ->
@@ -672,10 +687,20 @@ def make_async_update_fn(env_spec: EnvSpec, cfg: PPOConfig, can_truncate: bool =
     policy-gradient advantages, and `ppo_update` runs the epochs on the
     corrected batch (IMPACT-style reuse; the recorded behaviour value stays
     the value-clip anchor). The metrics add `mean_rho`, the mean clipped
-    ratio. Coefficients as `make_host_update_fn`'s."""
+    ratio. Coefficients as `make_host_update_fn`'s.
+
+    With a process `group` this is the multi-process sync learner's update
+    (`parallel/multihost.py`, JAX's `axis_name=DP_AXIS`): each rank passes
+    its own [T, E_a] block, V-trace stays local (its columns are
+    independent), the advantage statistics and every minibatch's gradients
+    are pmean'd (one flat all-reduce, its buffer allocated at the first
+    call) and so are the returned metrics; every rank must draw the same
+    permutations. On the card the all-reduces are NCCL's, captured in the
+    update's CUDA graph."""
     if correction != "vtrace":
         raise ValueError(f"unknown correction: {correction!r}")
     opt = make_optimizer(cfg)
+    grad_sync = None if group is None else FlatGradients(group)
 
     def async_update(net, opt_state, schedule, obs, action, log_prob, value, reward, done,
                      terminated, final_obs, last_obs, perms, iteration=None):
@@ -708,25 +733,31 @@ def make_async_update_fn(env_spec: EnvSpec, cfg: PPOConfig, can_truncate: bool =
                         else schedule.coefficients_at(iteration))
         clip_eps, entropy_coef = coefficients.unbind()
         metrics = ppo_update(net, opt, opt_state, batch, perms, cfg, schedule.optimizer,
-                             clip_eps, entropy_coef)
-        return dict(metrics, mean_rho=mean_rho)
+                             clip_eps, entropy_coef, grad_sync)
+        # Each rank saw its own minibatches: the fleet's metrics are the mean.
+        return pmean_tree(dict(metrics, mean_rho=mean_rho), group)
 
     return async_update
 
 
 def make_async_update_step(env_spec: EnvSpec, cfg: PPOConfig, can_truncate: bool = True,
                            correction: str = "vtrace", rho_bar: float = 1.0,
-                           c_bar: float = 1.0):
+                           c_bar: float = 1.0, group: Group = None):
     """`step(net, opt_state, schedule, generator, block, iteration) ->
     metrics` of the async learner, on a [T, E_a] block by field, its
     permutations drawn from `generator` (`make_host_update_step`'s
     signature). `correction="vtrace"`: `make_async_update_fn`'s update.
     `correction="none"` returns `make_host_update_step` itself, the
     synchronous host path's update (the lockstep-equivalence tests rely on
-    it)."""
+    it), which takes no `group`: only V-trace has a data-parallel update
+    (the sync learner refuses "none")."""
     if correction == "none":
+        if group is not None:
+            raise ValueError("the data-parallel update is V-trace's: correction='none' has "
+                             "no group variant")
         return make_host_update_step(env_spec, cfg, can_truncate)
-    update = make_async_update_fn(env_spec, cfg, can_truncate, correction, rho_bar, c_bar)
+    update = make_async_update_fn(env_spec, cfg, can_truncate, correction, rho_bar, c_bar,
+                                  group)
 
     def step(net, opt_state, schedule, generator, block, iteration) -> dict[str, torch.Tensor]:
         T, E = block["reward"].shape

@@ -22,6 +22,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from actor_critic_tpu_torch.parallel.mesh import pmean
+
 # Cap on log importance ratios before the exp, the JAX package's
 # `ops.returns.LOG_RATIO_CAP`: exp(20) ≈ 4.9e8 is far above any ratio the
 # clips keep and far below float32 overflow, so a drifted behaviour policy
@@ -170,10 +172,15 @@ def n_step_returns(
     return g + boot_disc.reshape(shape) * alive * vals_ext[boot_idx]
 
 
-def normalize_advantages(advantages: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
-    """Standard advantage normalization over all elements (single device;
-    the data-parallel variant comes with the multi-GPU slice)."""
+def normalize_advantages(advantages: torch.Tensor, group=None, eps: float = 1e-8) -> torch.Tensor:
+    """Standard advantage normalization over all elements. With a process
+    `group` (a data-parallel update's ranks) the statistics are the GLOBAL
+    batch's: the pmean of the mean and of the second moment, one
+    all-reduce of both, as JAX's `axis_name` variant computes them; None is
+    the single device."""
     mean = torch.mean(advantages)
     sq = torch.mean(advantages**2)
+    if group is not None:
+        mean, sq = pmean(torch.stack([mean, sq]), group).unbind()
     var = torch.clamp(sq - mean**2, min=0.0)
     return (advantages - mean) / (torch.sqrt(var) + eps)

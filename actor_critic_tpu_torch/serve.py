@@ -30,11 +30,21 @@ the session's full exposition (the card's memory, the recompile count,
 the serving gauge), every request's hops are spans in `DIR/spans.jsonl`
 (`serve_parse`, `serve_queue_wait`, `serve_dispatch`, `serve_respond`,
 `serve_request`, linked by flows), and the session's own exporter binds
-an OS-assigned port on `--telemetry-bind` (loopback only: the port has no
+an OS-assigned port on `--telemetry-bind` (loopback only, unless
 `--distributed`).
 
-Not ported yet, refused with the ROADMAP item each belongs to: the
-fleet's flags (`--distributed`, `--rank`, `--world`, the mailbox flags).
+The serving fleet (JAX's flags): `--distributed --mailbox-dir DIR --rank R
+--world N` makes this gateway one rank of a fleet: `/healthz` adds the
+fleet's membership read from the mailbox (`multihost.FleetMonitor`; 503
+when a peer's last publish is older than `--stale-after-s`), the rank's
+telemetry exporter is announced into the mailbox, and `/fleetz` and
+`/fleetz/metrics` serve every announced rank's `/metrics` merged
+(`telemetry/fleet.py`). `--sync-mailbox DIR` (with `--sync-policy`,
+`--sync-rank`, `--sync-poll-s`) polls a training rank's mailbox snapshots
+and hot-swaps each newer version into the policy (`MailboxPolicySyncer`:
+no act graph is captured again; a torn file, a version regression or a
+non-finite snapshot is dropped with the old version serving). `python -m
+actor_critic_tpu_torch.serve_fleet` fronts the replicas.
 """
 
 from __future__ import annotations
@@ -44,18 +54,8 @@ import sys
 import time
 
 # The JAX CLI's flags whose paths are not ported yet, with the ROADMAP
-# Queue 1 item each belongs to.
-UNPORTED_FLAGS = {
-    "--distributed": "item 8, multi-GPU",
-    "--rank": "item 8, multi-GPU",
-    "--world": "item 8, multi-GPU",
-    "--mailbox-dir": "item 8, multi-GPU",
-    "--stale-after-s": "item 8, multi-GPU",
-    "--sync-mailbox": "item 8, multi-GPU",
-    "--sync-policy": "item 8, multi-GPU",
-    "--sync-rank": "item 8, multi-GPU",
-    "--sync-poll-s": "item 8, multi-GPU",
-}
+# Queue 1 item each belongs to: none is left.
+UNPORTED_FLAGS: dict[str, str] = {}
 # The JAX CLI's backend names that the engine calls otherwise.
 BACKEND_ALIASES = {"xla": "device"}
 
@@ -104,12 +104,6 @@ def parse_classed(items: list[str], flag: str, unit: str):
         except ValueError:
             raise SystemExit(f"{flag} wants [ID=]{unit}, got {item!r}") from None
     return default, by_id
-
-
-class _NotPorted(argparse.Action):
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} is not ported yet (ROADMAP Queue 1 "
-                     f"{UNPORTED_FLAGS[option_string]})")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -174,15 +168,43 @@ def parse_args(argv=None) -> argparse.Namespace:
                    "and the serving gauge is sampled to disk")
     p.add_argument("--telemetry-bind", default="127.0.0.1", metavar="HOST",
                    help="bind address for the session's telemetry exporter (default 127.0.0.1; "
-                   "non-loopback refused: /metrics has no auth)")
+                   "non-loopback refused unless --distributed: /metrics has no auth)")
+    p.add_argument(
+        "--distributed", action="store_true",
+        help="this gateway serves one rank of a fleet: /healthz surfaces fleet membership "
+        "(rank, world, per-peer mailbox age) read from --mailbox-dir and answers 503 when a "
+        "peer's last publish is older than --stale-after-s; /fleetz merges the announced "
+        "ranks' /metrics")
+    p.add_argument("--mailbox-dir", default=None,
+                   help="the fleet's shared mailbox directory (train --mailbox-dir, the "
+                   "launcher's --mailbox-dir)")
+    p.add_argument("--rank", type=int, default=0, help="this rank in the fleet (default 0)")
+    p.add_argument("--world", type=int, default=None,
+                   help="fleet size (required with --distributed)")
+    p.add_argument("--stale-after-s", type=float, default=30.0,
+                   help="peer mailbox age bound before /healthz degrades to 503 (default 30)")
+    p.add_argument(
+        "--sync-mailbox", default=None, metavar="DIR",
+        help="replica-to-replica policy propagation: poll this mailbox directory for published "
+        "(version, params) snapshots and hot-swap them into --sync-policy, so version updates "
+        "reach every replica without a restart. Independent of --distributed/--mailbox-dir "
+        "(that one is fleet health; this one is the params feed)")
+    p.add_argument("--sync-policy", default=None, metavar="ID",
+                   help="--sync-mailbox: resident policy the snapshots swap into (default: the "
+                   "default policy)")
+    p.add_argument("--sync-rank", type=int, default=0, metavar="R",
+                   help="--sync-mailbox: the publisher's mailbox rank to read (default 0)")
+    p.add_argument("--sync-poll-s", type=float, default=0.25, metavar="S",
+                   help="--sync-mailbox: poll interval in seconds (default 0.25)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    for flag in UNPORTED_FLAGS:
-        p.add_argument(flag, nargs="?", action=_NotPorted, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
+    if args.distributed and (args.mailbox_dir is None or args.world is None):
+        raise SystemExit("--distributed wants --mailbox-dir and --world (the fleet this gateway "
+                         "is a member of)")
     from actor_critic_tpu_torch.telemetry.exporter import validate_bind
 
     try:
-        validate_bind(args.telemetry_bind)
+        validate_bind(args.telemetry_bind, distributed=args.distributed)
     except ValueError as e:
         raise SystemExit(str(e)) from e
     # A JAX command line that spells out its default backend serves here too.
@@ -302,32 +324,101 @@ def apply_cache_dir(args: argparse.Namespace) -> str:
     return compile_cache.enable_persistent_cache(cache_dir or compile_cache.fresh_cache_dir())
 
 
-def main(argv=None) -> int:
+def start_fleet(args: argparse.Namespace, session):
+    """`--distributed`: the fleet's membership monitor and metrics
+    aggregator over `--mailbox-dir`, this rank's exporter announced there
+    first (`(monitor, aggregator)`, or `(None, None)`)."""
+    if not args.distributed:
+        return None, None
+    from actor_critic_tpu_torch.parallel.multihost import FleetMonitor
+    from actor_critic_tpu_torch.telemetry.fleet import FleetAggregator, announce_endpoint
+
+    monitor = FleetMonitor(args.mailbox_dir, args.rank, args.world,
+                           stale_after_s=args.stale_after_s)
+    if session is not None and session.exporter_port is not None:
+        announce_endpoint(args.mailbox_dir, args.rank,
+                          f"http://{args.telemetry_bind}:{session.exporter_port}")
+    return monitor, FleetAggregator(mailbox_dir=args.mailbox_dir)
+
+
+def start_syncer(args: argparse.Namespace, store):
+    """`--sync-mailbox`: the policy syncer, started (None without the
+    flag)."""
+    if not args.sync_mailbox:
+        return None
     from actor_critic_tpu_torch import serving
 
+    sync_pid = args.sync_policy or store.default_id
+    if sync_pid not in store.ids():
+        raise SystemExit(f"--sync-policy {sync_pid!r} names no resident policy; resident: "
+                         f"{sorted(store.ids())}")
+    syncer = serving.MailboxPolicySyncer(store, sync_pid, args.sync_mailbox, rank=args.sync_rank,
+                                         poll_s=args.sync_poll_s).start()
+    print(f"policy sync: {sync_pid!r} <- {args.sync_mailbox} (rank {args.sync_rank}, every "
+          f"{args.sync_poll_s:g}s)", flush=True)
+    return syncer
+
+
+class Running:
+    """What `main` serves: the engine, the store, the gateway, and the
+    policy syncer (None without `--sync-mailbox`)."""
+
+    def __init__(self, engine, store, gateway, syncer):
+        self.engine, self.store, self.gateway, self.syncer = engine, store, gateway, syncer
+
+    def close(self) -> None:
+        self.gateway.close()
+        if self.syncer is not None:
+            self.syncer.close()
+
+
+def start(args: argparse.Namespace, session=None) -> Running:
+    """Build and bind everything the flags ask for (`main`'s body before its
+    wait): the engine and the store, the fleet's monitor and aggregator,
+    the syncer, then the gateway, whose URL is printed."""
+    from actor_critic_tpu_torch import serving
+
+    engine, store, wait_default = build(args)
+    monitor, aggregator = start_fleet(args, session)
+    syncer = start_syncer(args, store)
+    try:
+        gateway = serving.ServeGateway(
+            store, port=args.port, host=args.host, session=session, max_wait_us=wait_default,
+            queue_limit=args.queue_limit, fleet=monitor, aggregator=aggregator,
+            max_inflight=args.max_inflight, shed_burn_threshold=args.shed_burn_threshold)
+    except BaseException:
+        if syncer is not None:
+            syncer.close()
+        raise
+    routes = "/v1/swap /v1/policies /metrics /healthz" + (
+        " /fleetz /fleetz/metrics" if aggregator is not None else "")
+    # The ACTUAL bound port: with --port 0 the OS-assigned one.
+    print(f"serving gateway: {gateway.url}/v1/act (policies: {sorted(store.ids())}, "
+          f"default {store.default_id!r}; also {routes})", flush=True)
+    if session is not None:
+        print(f"telemetry exporter: {session.exporter.url}/metrics /healthz", flush=True)
+    return Running(engine, store, gateway, syncer)
+
+
+def wait_for_interrupt(running: Running) -> None:
+    """Serve until SIGINT (KeyboardInterrupt)."""
+    while True:
+        time.sleep(3600)
+
+
+def main(argv=None) -> int:
     args = parse_args(argv)
     print(f"compile cache: {apply_cache_dir(args)}", flush=True)
     session = start_session(args)
-    gateway = None
+    running = None
     try:
-        engine, store, wait_default = build(args)
-        gateway = serving.ServeGateway(
-            store, port=args.port, host=args.host, session=session, max_wait_us=wait_default,
-            queue_limit=args.queue_limit, max_inflight=args.max_inflight,
-            shed_burn_threshold=args.shed_burn_threshold)
-        # The ACTUAL bound port: with --port 0 the OS-assigned one.
-        print(f"serving gateway: {gateway.url}/v1/act (policies: {sorted(store.ids())}, "
-              f"default {store.default_id!r}; also /v1/swap /v1/policies /metrics /healthz)",
-              flush=True)
-        if session is not None:
-            print(f"telemetry exporter: {session.exporter.url}/metrics /healthz", flush=True)
-        while True:
-            time.sleep(3600)
+        running = start(args, session)
+        wait_for_interrupt(running)
     except KeyboardInterrupt:
         print("shutting down", flush=True)
     finally:
-        if gateway is not None:
-            gateway.close()
+        if running is not None:
+            running.close()
         if session is not None:
             session.close()
     return 0

@@ -6,8 +6,9 @@ multi-policy hot swap, serving metrics on /metrics.
 `python -m actor_critic_tpu_torch.train ... --async-actors N --serve-port
 P` serves the learner while it trains.
 
-The fleet proxy and its mailbox syncer (JAX `serving/fleet_proxy.py`) are
-not ported yet (ROADMAP Queue 1 item 8).
+`FleetProxy` fronts N replicas (`python -m actor_critic_tpu_torch.serve_fleet`),
+and `MailboxPolicySyncer` swaps a rank's mailbox snapshots into a replica
+(`serve --sync-mailbox`).
 """
 
 from actor_critic_tpu_torch.serving.batcher import (
@@ -23,6 +24,11 @@ from actor_critic_tpu_torch.serving.engine import (
     init_params,
     make_act_program,
 )
+from actor_critic_tpu_torch.serving.fleet_proxy import (
+    FleetProxy,
+    MailboxPolicySyncer,
+    NoHealthyReplica,
+)
 from actor_critic_tpu_torch.serving.gateway import ServeGateway, standalone_metrics
 from actor_critic_tpu_torch.serving.policy_store import (
     PolicyHandle,
@@ -35,6 +41,9 @@ from actor_critic_tpu_torch.serving.policy_store import (
 __all__ = [
     "DEFAULT_BUCKETS",
     "DispatcherDown",
+    "FleetProxy",
+    "MailboxPolicySyncer",
+    "NoHealthyReplica",
     "MicroBatcher",
     "Overloaded",
     "PolicyEngine",

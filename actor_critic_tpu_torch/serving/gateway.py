@@ -21,7 +21,15 @@
                         card's memory, recompiles, every gauge).
     GET  /healthz       Dispatcher liveness; 503 when the dispatcher
                         thread is dead or visibly stalled (non-empty
-                        queue, no flush for `stall_after_s`).
+                        queue, no flush for `stall_after_s`). With a
+                        `fleet` (`multihost.FleetMonitor`: one rank of a
+                        `--distributed` fleet) the body adds the fleet's
+                        membership, and a stale peer answers 503.
+    GET  /fleetz        With an `aggregator` (`telemetry.fleet.
+                        FleetAggregator`): every rank's scrape merged
+                        into one JSON view (exact sums, merged-bucket
+                        quantiles).
+    GET  /fleetz/metrics  The same merge as Prometheus text.
 
 A caller's `x-trace-id` header is kept (capped at 64 characters), else
 one is minted; it is echoed as a header and in the body. The server is a
@@ -35,9 +43,6 @@ each /v1/act request emits its hops as spans, linked by one Chrome-trace
 flow per trace id: `serve_parse` and `serve_request` on the handler
 thread, `serve_queue_wait` and `serve_dispatch` on the dispatcher
 (`batcher._emit_flush_trace`), `serve_respond` after the socket write.
-
-Not ported yet: the fleet health and aggregation routes (ROADMAP Queue 1
-item 8).
 """
 
 from __future__ import annotations
@@ -168,9 +173,16 @@ class _Handler(BaseHTTPRequestHandler):
             elif path == "/v1/policies":
                 self._respond_json(200, {"policies": gw.store.ids(),
                                          "default": gw.store.default_id})
+            elif path == "/fleetz" and gw.aggregator is not None:
+                self._respond_json(200, gw.aggregator.fleetz())
+            elif path == "/fleetz/metrics" and gw.aggregator is not None:
+                self._respond(200, "text/plain; version=0.0.4; charset=utf-8",
+                              gw.aggregator.merged_metrics())
             else:
                 routes = ["/v1/act (POST)", "/v1/swap (POST)", "/v1/policies", "/metrics",
                           "/healthz"]
+                if gw.aggregator is not None:
+                    routes += ["/fleetz", "/fleetz/metrics"]
                 self._respond_json(404, {"error": f"no route {path!r}", "routes": routes})
         except Exception as e:
             try:
@@ -222,12 +234,18 @@ class ServeGateway:
         stall_after_s: float = 5.0,
         batcher: Optional[MicroBatcher] = None,
         threaded: bool = True,
+        fleet=None,
+        aggregator=None,
         max_inflight: int = 1,
         shed_burn_threshold: Optional[float] = None,
         shed_queue_frac: float = 0.5,
     ):
         self.store = store
         self.session = session
+        # The fleet's merged views (/fleetz) and its membership (/healthz)
+        # when this gateway is one rank of a --distributed fleet.
+        self.aggregator = aggregator
+        self.fleet = fleet
         self.threaded = bool(threaded)
         self.request_timeout_s = float(request_timeout_s)
         self.stall_after_s = float(stall_after_s)
@@ -391,6 +409,13 @@ class ServeGateway:
                 "default": self.store.default_id}
         stalled = (not h["alive"]) or (
             h["queue_depth"] > 0 and h["last_flush_age_s"] > self.stall_after_s)
+        if self.fleet is not None:
+            snap = self.fleet.snapshot()
+            body["fleet"] = snap
+            if not snap["ok"]:
+                # A quiet peer degrades this rank's health: the proxy in front
+                # sees which members report a late mailbox, not only who died.
+                stalled = True
         if stalled:
             body["status"] = "stalled"
             return 503, body

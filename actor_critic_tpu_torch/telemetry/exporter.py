@@ -50,17 +50,20 @@ _LABEL_ESC = {"\\": "\\\\", '"': '\\"', "\n": "\\n"}
 LOOPBACK_HOSTS = frozenset({"127.0.0.1", "localhost", "::1"})
 
 
-def validate_bind(host: str) -> str:
-    """Refuse a non-loopback telemetry bind: the exporter serves process
-    internals with no auth. Raises ValueError for any host outside
-    LOOPBACK_HOSTS; returns the host unchanged otherwise. (JAX's also lets
-    a `--distributed` fleet bind wider; the port has no distributed CLI.)"""
-    if host not in LOOPBACK_HOSTS:
+def validate_bind(host: str, distributed: bool = False) -> str:
+    """Gate non-loopback telemetry binds: the exporter serves process
+    internals with no auth, so exposing it beyond the host must be an
+    explicit fleet decision, a distributed run whose ranks scrape each
+    other (`/fleetz`), stated by the caller passing `distributed=True`.
+    Raises ValueError otherwise; returns the host unchanged when
+    acceptable."""
+    if host not in LOOPBACK_HOSTS and not distributed:
         raise ValueError(
-            f"refusing non-loopback telemetry bind {host!r}: /metrics "
-            "exposes process internals with no auth — bind a loopback "
-            f"host ({', '.join(sorted(LOOPBACK_HOSTS))}) and scrape "
-            "through an SSH tunnel"
+            f"refusing non-loopback telemetry bind {host!r} without "
+            "--distributed: /metrics exposes process internals with no "
+            "auth — bind 127.0.0.1 and scrape through an SSH tunnel, "
+            "or pass --distributed for a fleet whose ranks scrape "
+            "each other"
         )
     return host
 

@@ -113,9 +113,24 @@ libraries are built and found (`auto`, the default: the checkout's
 `build/`; `none`: a fresh temporary directory, removed at exit, for a cold
 start); the directory is printed.
 
+The multi-process actor-learner (`--distributed`, with `--async-actors`
+and PPO on a host or native env; `parallel/multihost.py`): this process is
+one rank of a fleet. Sync mode (`--coordinator HOST:PORT --num-processes N
+--process-id R`, correction vtrace) joins the ranks' process group (NCCL on
+the card, one card a rank; gloo with `--device cpu`) and runs the
+data-parallel V-trace update, its all-reduces inside the update's CUDA
+graph, with a per-block consistency check of the version counter and the
+parameters' fingerprint (rows add `version_sum`, `version_ok`,
+`fingerprint_ok`). `--gossip` runs independent learners that mix
+parameters with a ring-scheduled peer through `--mailbox-dir` every
+`--gossip-every` blocks at `--gossip-weight` (rows add `gossip_peer`,
+`gossip_lag`). Every rank writes its own `--metrics` (`<root>.host<R><ext>`)
+and `--telemetry-dir` (`<dir>/host<R>/`), and its trace lane is
+`host<R>`. `python -m actor_critic_tpu_torch.parallel.launch` spawns a
+local fleet.
+
 Not ported yet, and refused with a message that says so: `--workers` (the
-sharded host pool) and the flags of the other paths that come later
-(`UNPORTED_FLAGS`).
+sharded host pool, `UNPORTED_FLAGS`).
 """
 
 from __future__ import annotations
@@ -173,14 +188,6 @@ ALGOS = {"a2c": a2c, "ppo": ppo, "ddpg": ddpg, "td3": ddpg, "sac": sac,
 # belongs to (ROADMAP.md Queue 1). Each is refused with that message.
 UNPORTED_FLAGS = {
     "--workers": "the sharded host pool",
-    "--distributed": "multi-GPU",
-    "--coordinator": "multi-GPU",
-    "--num-processes": "multi-GPU",
-    "--process-id": "multi-GPU",
-    "--gossip": "multi-GPU",
-    "--gossip-every": "multi-GPU",
-    "--gossip-weight": "multi-GPU",
-    "--mailbox-dir": "multi-GPU",
 }
 
 
@@ -429,6 +436,36 @@ def parse_args(argv=None) -> argparse.Namespace:
         "standardizes obs and rewards to calibrated int8 and packs the flags; actions, "
         "log-probs and values always stay raw")
     p.add_argument(
+        "--distributed", action="store_true",
+        help="multi-process learner (parallel/multihost.py): this process is one rank of a "
+        "fleet: its actor fleet (--async-actors, host PPO only) feeds a local queue and the "
+        "learner all-reduces each minibatch's gradients across the ranks' process group (NCCL "
+        "on the card, one card a rank; gloo with --device cpu), or gossips parameters with "
+        "--gossip. Requires --coordinator + --num-processes + --process-id (or --gossip with a "
+        "shared --mailbox-dir). For a local fleet use python -m "
+        "actor_critic_tpu_torch.parallel.launch")
+    p.add_argument(
+        "--coordinator", metavar="HOST:PORT", default="",
+        help="the process group's coordinator address (rank 0's host, any free port). Needed "
+        "for the sync all-reduce mode; optional under --gossip (peer-to-peer exchange never "
+        "enters a collective)")
+    p.add_argument("--num-processes", type=int, default=1,
+                   help="fleet size under --distributed")
+    p.add_argument("--process-id", type=int, default=0,
+                   help="this process's rank under --distributed")
+    p.add_argument(
+        "--gossip", action="store_true",
+        help="distributed mode: exchange parameters peer-to-peer on a rotating ring schedule "
+        "(no global barrier: a straggler degrades fleet throughput instead of stalling it) "
+        "instead of the synchronous all-reduce learner")
+    p.add_argument("--gossip-every", type=int, default=1, metavar="N",
+                   help="consumed blocks between gossip exchanges")
+    p.add_argument("--gossip-weight", type=float, default=0.5, metavar="W",
+                   help="peer mixing weight in [0, 1]: params <- (1-W) own + W peer")
+    p.add_argument("--mailbox-dir", default="",
+                   help="shared directory for the gossip param mailbox (required for --gossip "
+                   "with more than one process)")
+    p.add_argument(
         "--serve-port", type=int, default=None, metavar="PORT",
         help="async mode: serve-while-training — bind a policy-serving gateway (serving/) on "
         "PORT (0 = OS-assigned, printed) whose 'learner' policy hot-swaps to every published "
@@ -455,7 +492,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument(
         "--telemetry-bind", default="127.0.0.1", metavar="HOST",
         help="bind address for the --telemetry-port exporter (default 127.0.0.1). "
-        "Non-loopback binds expose unauthenticated run internals and are refused")
+        "Non-loopback binds expose unauthenticated run internals, so they are refused unless "
+        "--distributed (where the fleet aggregator scrapes peers over the network)")
     p.add_argument(
         "--telemetry-sample-s", type=float, default=5.0, metavar="SECS",
         help="cadence of the telemetry resource sampler thread (resources.jsonl rows; "
@@ -478,7 +516,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     from actor_critic_tpu_torch.telemetry.exporter import validate_bind
 
     try:
-        validate_bind(args.telemetry_bind)
+        validate_bind(args.telemetry_bind, distributed=args.distributed)
     except ValueError as e:
         raise SystemExit(str(e)) from e
     return args
@@ -661,9 +699,11 @@ def run_host(pool: HostEnvPool, preset, args: argparse.Namespace, logger: JsonlL
 
 def build_actor_pools(preset, args: argparse.Namespace, actors: int) -> list[HostEnvPool]:
     """One host pool per async actor (the JAX CLI's): num_envs / A envs
-    each, seeds strided by 100003 (a pool seeds its envs seed..seed+E, so
-    adjacent offsets would repeat trajectories), PPO's pools normalizing
-    obs and reward, the off-policy ones neither."""
+    each, seeds strided by (rank·A + i)·100003 (a pool seeds its envs
+    seed..seed+E, so adjacent offsets would repeat trajectories; under
+    `--distributed` every rank builds its fleet from the same `--seed`, and
+    without the rank's stride two ranks would replay the same trajectories),
+    PPO's pools normalizing obs and reward, the off-policy ones neither."""
     kind, _, name = preset.env.partition(":")
     if not is_host_spec(preset.env):
         raise SystemExit(
@@ -678,7 +718,8 @@ def build_actor_pools(preset, args: argparse.Namespace, actors: int) -> list[Hos
             f"num_envs={cfg.num_envs} must split evenly across --async-actors={actors} (one "
             "fixed [K, E/A] block shape keeps the learner on one update graph)")
     sub = dataclasses.replace(cfg, num_envs=cfg.num_envs // actors)
-    return [make_host_pool(preset.env, preset.algo, sub, args.seed + i * 100003,
+    rank = args.process_id if getattr(args, "distributed", False) else 0
+    return [make_host_pool(preset.env, preset.algo, sub, args.seed + (rank * actors + i) * 100003,
                            args.scale_actions, preset.env_kwargs)
             for i in range(actors)]
 
@@ -790,6 +831,105 @@ def _run_host_async(pools, preset, args, logger, device) -> dict:
     return last
 
 
+def run_multihost(pools: list[HostEnvPool], preset, args: argparse.Namespace,
+                  logger: JsonlLogger, device: torch.device) -> dict:
+    """One rank of the multi-process actor-learner (JAX's `run_multihost`):
+    the local actor fleet feeds the local queue; the learner joins the
+    fleet's all-reduce (sync) or gossips parameters (`--gossip`). Returns
+    the last row with the run's summary as `multihost_<key>` entries. On
+    the CPU the learner's ops run on one intra-op thread, as
+    `run_host_async`'s, under a 0.1 ms GIL switch interval: at the default
+    5 ms every learner op and gloo collective waits up to that long for an
+    actor's numpy loop (three blocks took minutes)."""
+    from actor_critic_tpu_torch.parallel import multihost
+
+    rank = args.process_id
+    multihost.host_lane(rank)
+    last: dict = {}
+    t0 = time.perf_counter()
+
+    def log_fn(it: int, metrics: dict) -> None:
+        row = {**metrics, "wall_s": time.perf_counter() - t0}
+        telemetry.observe(it, row)
+        last.clear()
+        last.update(row)
+        logger.log(it, row)
+
+    threads, interval = torch.get_num_threads(), sys.getswitchinterval()
+    if device.type == "cpu":
+        torch.set_num_threads(1)
+        sys.setswitchinterval(1e-4)
+    try:
+        _, _, summary = multihost.train_multihost(
+            pools, preset.config, args.iterations, rank=rank, world=args.num_processes,
+            mode="gossip" if args.gossip else "sync", seed=args.seed, log_every=args.log_every,
+            log_fn=log_fn, queue_depth=args.queue_depth,
+            max_staleness=resolve_staleness(args, "ppo"),
+            updates_per_block=args.updates_per_block, correction=args.async_correction,
+            gossip=multihost.GossipConfig(every=args.gossip_every, weight=args.gossip_weight),
+            mailbox_dir=args.mailbox_dir or None, device=device)
+    finally:
+        torch.set_num_threads(threads)
+        sys.setswitchinterval(interval)
+    last.update({f"multihost_{k}": v for k, v in summary.items()
+                 if isinstance(v, (int, float, bool))})
+    return last
+
+
+def check_distributed_flags(args: argparse.Namespace, algo: str) -> None:
+    """The JAX CLI's refusals of `--distributed`, in JAX's words (the
+    data-plane and sidecar ones name the port's own tools), before the
+    coordinator handshake and any env or device work: a misconfigured fleet
+    member waiting in the process group's rendezvous is far worse than an
+    exit."""
+    if not args.distributed:
+        return
+    if args.data_plane == "device":
+        raise SystemExit(
+            "--data-plane device is single-host for now: the --distributed learners stage "
+            "their blocks from the host queue — drop --distributed or use --data-plane host")
+    if args.serve_port is not None:
+        raise SystemExit(
+            "--serve-port is single-host (the resident gateway swaps from THIS process's "
+            "publish hook); a fleet serves through python -m actor_critic_tpu_torch.serve "
+            "--distributed + python -m actor_critic_tpu_torch.serve_fleet instead")
+    if args.async_actors <= 0:
+        raise SystemExit(
+            "--distributed drives the async actor–learner stack: each host runs its own actor "
+            "fleet — pass --async-actors N (host PPO)")
+    if algo != "ppo":
+        raise SystemExit(
+            "--distributed drives the PPO multi-host learner (parallel/multihost.py); the "
+            "off-policy async drivers are single-host — drop --distributed or use --algo ppo")
+    if not args.gossip and not args.coordinator:
+        raise SystemExit(
+            "--distributed sync mode needs --coordinator HOST:PORT (+ --num-processes/"
+            "--process-id); or pass --gossip for the peer-to-peer mode")
+    if not args.gossip and args.async_correction != "vtrace":
+        raise SystemExit(
+            "--distributed sync mode shard_maps the V-trace-corrected update; "
+            "--async-correction none is not supported there (gossip mode and single-host async "
+            "accept it)")
+    if args.gossip and args.num_processes > 1 and not args.mailbox_dir:
+        raise SystemExit("--gossip with more than one host needs a shared --mailbox-dir")
+    if args.ckpt_dir or args.resume:
+        raise SystemExit(
+            "--async-actors checkpointing is wired for single-host PPO only (the save tree "
+            "carries every actor pool's normalizer state — ppo.train_host_async); off-policy "
+            "async and --distributed runs don't support --ckpt-dir/--resume yet")
+
+
+def rank_paths(args: argparse.Namespace) -> None:
+    """Every rank of a fleet runs the same command line: its `--metrics`
+    becomes `<root>.host<rank><ext>` and its `--telemetry-dir`
+    `<dir>/host<rank>`, so N ranks never append into one file."""
+    rank = args.process_id
+    if args.telemetry_dir:
+        args.telemetry_dir = os.path.join(args.telemetry_dir, f"host{rank}")
+    root, ext = os.path.splitext(args.metrics)
+    args.metrics = f"{root}.host{rank}{ext}"
+
+
 def check_async_flags(args: argparse.Namespace, algo: str) -> None:
     """The JAX CLI's refusals of the async flags, before any env or device
     work."""
@@ -814,8 +954,7 @@ def check_async_flags(args: argparse.Namespace, algo: str) -> None:
                   "the numpy mirror); ignored", flush=True)
     if args.serve_port is not None and args.async_actors <= 0:
         # Serve-while-training rides the async publish cadence: the lockstep
-        # and fused paths have no PolicyPublisher to hook. (JAX's other
-        # refusal, --distributed, is refused above as not ported.)
+        # and fused paths have no PolicyPublisher to hook.
         raise SystemExit("--serve-port hooks the async learner's per-block publish "
                          "(PolicyPublisher) — pass --async-actors N")
 
@@ -913,8 +1052,33 @@ def main(argv=None) -> int:
         # The weights act on type redraws; an explicit
         # --env-set redraw_types=false wins.
         preset.env_kwargs.setdefault("redraw_types", True)
+    check_distributed_flags(args, preset.algo)
     check_async_flags(args, preset.algo)
-    device = resolve_device(args.device)
+    if args.distributed:
+        rank_paths(args)
+    # Only the sync learner joins a process group: gossip ranks never enter
+    # a collective (their rank is --process-id, a --coordinator is unused),
+    # so they may share one card.
+    grouped = args.distributed and not args.gossip
+    if grouped:
+        from actor_critic_tpu_torch.parallel.multihost import distributed_init
+
+        # Before the warm-up's thread or any pool touches the card: the rank's
+        # card is made current first.
+        device = distributed_init(args.coordinator, args.num_processes, args.process_id,
+                                  args.device)
+    else:
+        device = resolve_device(args.device)
+    try:
+        return _main(args, preset, device)
+    finally:
+        if grouped:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _main(args: argparse.Namespace, preset, device: torch.device) -> int:
     print(f"algo={preset.algo} env={preset.env} iterations={args.iterations} "
           f"config={dataclasses.asdict(preset.config)} env_kwargs={preset.env_kwargs}",
           flush=True)
@@ -968,7 +1132,9 @@ def _run(preset, args: argparse.Namespace, host: bool, fused_env, device: torch.
             watchdog = start_watchdog(args)
             try:
                 with JsonlLogger(args.metrics, echo=not args.quiet) as logger:
-                    if pools is not None:
+                    if pools is not None and args.distributed:
+                        final = run_multihost(pools, preset, args, logger, device)
+                    elif pools is not None:
                         final = run_host_async(pools, preset, args, logger, device)
                     elif host:
                         final = run_host(env, preset, args, logger, device)

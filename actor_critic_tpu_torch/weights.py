@@ -57,15 +57,17 @@ def from_flax(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     return state
 
 
-def to_flax(module: torch.nn.Module) -> dict[str, Any]:
-    """The inverse of `from_flax`: `module`'s parameters as a flax tree of
-    numpy arrays, `{"params": {<module path>: {"kernel", "bias"}, ...}}`
-    (a Linear weight transposed to [in, out] and a Conv2d weight permuted to
-    [kh, kw, in, out], C-contiguous float32, as flax stores them)."""
+def flax_tree(named: Mapping[str, Any]) -> dict[str, Any]:
+    """Parameters by their port name (`named_parameters()` order and
+    layout, numpy or tensors) as a flax tree of numpy arrays,
+    `{"params": {<module path>: {"kernel", "bias"}, ...}}`: a Linear weight
+    transposed to [in, out] and a Conv2d weight permuted to [kh, kw, in,
+    out], C-contiguous float32, as flax stores them (the inverse of
+    `from_flax`)."""
     tree: dict[str, Any] = {}
-    for name, p in module.named_parameters():
+    for name, value in named.items():
         *path, leaf = name.split(".")
-        arr = p.detach().cpu().numpy()
+        arr = value.detach().cpu().numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
         if leaf == "weight":
             leaf = "kernel"
             arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
@@ -74,6 +76,11 @@ def to_flax(module: torch.nn.Module) -> dict[str, Any]:
             node = node.setdefault(part, {})
         node[leaf] = np.array(arr, dtype=np.float32, order="C")
     return {"params": tree}
+
+
+def to_flax(module: torch.nn.Module) -> dict[str, Any]:
+    """`module`'s parameters as a flax tree (`flax_tree`)."""
+    return flax_tree(dict(module.named_parameters()))
 
 
 def _find_state(opt_state: Any, match) -> Any:

@@ -150,6 +150,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      served action = the learner's greedy act at 0.0, latency during
      training against the idle gateway, consumed env-steps/s against the
      async phase's run without the sidecar;
+   - the multi-process actor-learner and the serving fleet
+     (`parallel/`, `ppo_halfcheetah` at full width on the same env, two
+     epochs): the sync learner at world 1 over NCCL through `train.main
+     --distributed --coordinator 127.0.0.1:<port> --async-actors 2`
+     (warmed: every all-reduce of the update counted inside its capture;
+     `version_sum` and `fingerprint_ok` at every block, V-trace once a
+     block), then through `multihost.train_multihost`: one capture, a
+     replay equal to the single-host async update at 0.0, the replay's ms
+     with and without the group, the consistency check's ms; gossip at
+     world 2, both ranks on the one card, through `python -m
+     actor_critic_tpu_torch.parallel.launch` with `--async-correction
+     none` (both exit 0, mixes and lags on each, GAE once a block counted
+     in each rank's process); sync at world 2 over NCCL where the machine
+     has two cards, else one line saying it was not run and why; two
+     `serve --distributed` replicas behind `serve_fleet`, replica 0 syncing
+     the gossip run's mailbox (a newer version swapped in with the
+     recompile counter unchanged), `/fleetz` listing both, and the proxy
+     failing over when replica 1 is killed;
    - telemetry and the stall watchdog: `a2c_cartpole`'s graph-vs-eager
      check and its resume run with the resource sampler reading the card
      every 20 ms through their "global"-mode captures (still 0.0);
@@ -3153,6 +3171,421 @@ def consumed_rate(logged: list[dict], summary: dict) -> float:
     return logged[-1]["consumed_env_steps"] / logged[-1]["iter"] / per_block
 
 
+# -- the multi-process actor-learner and the serving fleet -------------------
+
+MULTIHOST_BLOCKS = 6            # world-1 sync: 2 eager blocks, a capture, replays
+MULTIHOST_CHECK_AT = 4          # the block whose replay is held against the single host's
+MULTIHOST_TIMED_REPLAYS = 5     # each way, from one restored state
+MULTIHOST_TIMED_CHECKS = 20     # consistency checks timed with the actors held
+GOSSIP_BLOCKS = 8               # each rank's consumed blocks in the world-2 gossip run
+FLEET_ACTS = 6                  # requests through the proxy before and after the kill
+
+
+class AllReduceCounter:
+    """Counts `torch.distributed.all_reduce` calls while installed, and how
+    many of them were issued on a stream that was capturing (so were
+    recorded into a CUDA graph)."""
+
+    def __init__(self):
+        self.calls = self.captured = 0
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+
+        self._orig = dist.all_reduce
+
+        def counted(tensor, *args, **kwargs):
+            self.calls += 1
+            if torch.cuda.is_current_stream_capturing():
+                self.captured += 1
+            return self._orig(tensor, *args, **kwargs)
+
+        dist.all_reduce = counted
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.all_reduce = self._orig
+
+
+class SyncContract:
+    """An `iteration_hook` for the multi-process sync learner at world 1 over
+    NCCL: the update's capture object never changes after it exists (one
+    capture), and at block MULTIHOST_CHECK_AT (a replay) the sync graph is
+    held against the single-host update (`ppo.make_async_update_step`
+    without a group, eager, built here on the run's parameters, optimizer
+    state, generator and staged block) on the same block from the same
+    state at 0.0; then the sync replay and a captured single-host update
+    are timed in turns, and the sync replay's kernels are read under
+    torch.profiler (NCCL's among them). `cfg` and `spec` are the run's."""
+
+    def __init__(self, cfg, spec):
+        self.cfg, self.spec = cfg, spec
+        self.captures: set[int] = set()
+        self.out: dict = {}
+
+    def __call__(self, it, run) -> None:
+        if run.update.captured is not None:
+            self.captures.add(id(run.update.captured))
+        if it == MULTIHOST_CHECK_AT:
+            run.gate.clear()
+            try:
+                self.out = sync_against_single(run, it, self.cfg, self.spec)
+            finally:
+                run.gate.set()
+
+
+def single_host_update(run, it: int, cfg, spec):
+    """The single-host async update (no group) on the sync learner's own
+    tensors: its parameters and optimizer state, its generator and its
+    staged block, with the schedule and the iteration (block `it` ran at
+    iteration `it - 1`) made as `train_multihost` makes them."""
+    import torch
+
+    from actor_critic_tpu_torch.algos import ppo
+
+    device = run.update.generator.device
+    step = ppo.make_async_update_step(spec, cfg, True)
+    schedule = ppo.make_schedule(cfg, device)
+    iteration = torch.full((1,), it - 1, dtype=torch.int64, device=device)
+    net, opt_state = run.device_state["params"], run.device_state["opt_state"]
+
+    def update() -> dict:
+        return step(net, opt_state, schedule, run.update.generator, run.buffers.static,
+                    iteration)
+
+    return update
+
+
+def sync_against_single(run, it: int, cfg, spec) -> dict:
+    import torch
+
+    from actor_critic_tpu_torch.algos import host_loop
+    from actor_critic_tpu_torch.parallel import mesh, multihost
+
+    assert run.update.captured is not None
+    torch.cuda.synchronize()
+    carried = run.carried()
+    start = {k: t.clone() for k, t in carried.items()}
+    gen = run.update.generator
+    gen_start = gen.get_state()
+
+    def restore():
+        with torch.no_grad():
+            for k, t in carried.items():
+                t.copy_(start[k])
+        gen.set_state(gen_start)
+
+    reference = single_host_update(run, it, cfg, spec)
+    ref_metrics = reference()
+    ref = {k: t.clone() for k, t in carried.items()}
+    ref.update({f"metric {k}": v.clone() for k, v in ref_metrics.items()})
+    ref_gen = gen.get_state()
+    restore()
+    graph_metrics = run.update.captured.replay()
+    torch.cuda.synchronize()
+    diffs = {k: float((t.double() - ref[k].double()).abs().max()) for k, t in carried.items()}
+    diffs.update({f"metric {k}": float((v.double() - ref[f'metric {k}'].double()).abs().max())
+                  for k, v in graph_metrics.items()})
+    out = dict(worst=max(diffs.values()), tensors=len(diffs),
+               generator_equal=bool(torch.equal(gen.get_state(), ref_gen)))
+    restore()
+    single = host_loop.HostUpdate(reference, gen, capture_error_mode="thread_local",
+                                  name="multihost.single_reference")
+    single.warm()  # eager calls from a snapshot put back, then the capture
+    times: dict[str, list[float]] = {"sync": [], "single": []}
+    for _ in range(MULTIHOST_TIMED_REPLAYS):
+        for label, graph in (("sync", run.update.captured), ("single", single.captured)):
+            restore()
+            torch.cuda.synchronize()
+            start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            start_ev.record()
+            graph.replay()
+            end_ev.record()
+            end_ev.synchronize()
+            times[label].append(start_ev.elapsed_time(end_ev))
+    restore()
+    kernels, _ = profile_kernels(run.update.captured.replay, iters=1)
+    restore()
+    # The consistency check's own cost, the actors held (the caller cleared
+    # their gate): in the run its host time also waits on their GIL.
+    check = multihost.make_consistency_check(mesh.world_group(), torch.device("cuda"))
+    walls = []
+    for i in range(MULTIHOST_TIMED_CHECKS):
+        t0 = time.perf_counter()
+        check(float(i), 0.5, 0.0)
+        walls.append(time.perf_counter() - t0)
+    nccl = {k: v for k, v in kernels.items() if "nccl" in k.lower()}
+    out.update(sync_ms=sorted(times["sync"])[len(times["sync"]) // 2],
+               single_ms=sorted(times["single"])[len(times["single"]) // 2],
+               launches=sum(c for c, _ in kernels.values()),
+               nccl_kernels=sum(c for c, _ in nccl.values()), nccl_names=sorted(nccl),
+               check_alone_ms=1e3 * sorted(walls)[len(walls) // 2])
+    del single
+    return out
+
+
+def run_multihost_sync(env: str) -> int:
+    """The multi-process sync learner at world 1 over NCCL on the card,
+    `ppo_halfcheetah` at full width (E=8 as 2 actors of 4, T=256, 32
+    minibatches, CHECK_EPOCHS epochs):
+
+    - through `train.main --distributed --coordinator 127.0.0.1:<port>
+      --async-actors 2` (warmed: the update captured before the actors
+      start, its all-reduces counted inside the capture): `version_sum` and
+      `fingerprint_ok` at every block, V-trace launched once a consumed
+      block;
+    - through `multihost.train_multihost` with `SyncContract`: one capture,
+      the sync replay equal to the single-host async update at 0.0, the
+      replay's ms with the group against the single-host learner's, the
+      consistency check's ms.
+    Returns V-trace's launches on the train.main run."""
+    import torch
+    import torch.distributed as dist
+
+    from actor_critic_tpu_torch.parallel import launch, multihost
+
+    n = MULTIHOST_BLOCKS
+    with AllReduceCounter() as counter:
+        logged, summary, launches = drive(
+            ["--preset", "ppo_halfcheetah", "--env", env, "--async-actors", str(ASYNC_ACTORS),
+             "--iterations", str(n), "--log-every", "1", "--seed", "0",
+             "--set", f"epochs={CHECK_EPOCHS}", "--distributed",
+             "--coordinator", f"127.0.0.1:{launch.free_port()}"], show_every=n)
+    assert not dist.is_initialized(), "train.main left its process group behind"
+    check_rows(logged, n)
+    check_async_kernel_launches(logged, launches, n, 1)
+    assert [r["version_sum"] for r in logged] == [float(i) for i in range(1, n + 1)], logged
+    assert all(r["fingerprint_ok"] and r["version_ok"] for r in logged), logged
+    # The warm-up's two eager calls and its capture issue the all-reduces
+    # (2 a minibatch and 1 for the metrics); the replays issue none from
+    # Python; the consistency check adds 2 a block, outside any graph.
+    per_update = 2 * CHECK_EPOCHS * 32 + 1
+    assert counter.captured == per_update, (counter.captured, per_update)
+    assert counter.calls == 3 * per_update + 2 * n, (counter.calls, per_update, n)
+    print(f"multihost sync world 1 (NCCL) through train.main: {n} consumed blocks, "
+          f"version_sum {[int(r['version_sum']) for r in logged]}, fingerprint_ok at every "
+          f"block; V-trace launches {launches['vtrace']} (= blocks); all-reduces issued "
+          f"{counter.calls}, of them {counter.captured} inside the update's capture (= 2 × "
+          f"{CHECK_EPOCHS} epochs × 32 minibatches + 1 for the metrics); consistency check "
+          f"{summary['multihost_check_ms']:.3f} ms a block (host clock, median: 2 all-reduces "
+          f"and their read)", flush=True)
+
+    pools, cfg = host_pools("ppo_halfcheetah", env, ASYNC_ACTORS)
+    cfg = dataclasses.replace(cfg, epochs=CHECK_EPOCHS)
+    hook = SyncContract(cfg, pools[0].spec)
+    multihost.distributed_init(f"127.0.0.1:{launch.free_port()}", 1, 0, "cuda")
+    try:
+        _, history, summary = multihost.train_multihost(
+            pools, cfg, n, rank=0, world=1, mode="sync", seed=1, log_every=1,
+            device="cuda", iteration_hook=hook)
+    finally:
+        dist.destroy_process_group()
+        for p in pools:
+            p.close()
+    out = hook.out
+    assert len(hook.captures) == 1, hook.captures
+    assert summary["version_consistent"] and summary["fingerprint_consistent"], summary
+    print(f"multihost sync world 1 (NCCL) against the single-host async update on one block "
+          f"(block {MULTIHOST_CHECK_AT}, a replay): max abs difference {out['worst']:.3e} over "
+          f"{out['tensors']} tensors and metrics, the generator's state "
+          f"{'equal' if out['generator_equal'] else 'DIFFERENT'}; one capture; a replay "
+          f"{out['sync_ms']:.3f} ms with the group against {out['single_ms']:.3f} ms for the "
+          f"single-host learner's graph (CUDA events, medians of {MULTIHOST_TIMED_REPLAYS} in "
+          f"turns; +{out['sync_ms'] - out['single_ms']:.3f} ms); the sync replay ran "
+          f"{out['launches']} kernels, {out['nccl_kernels']} of them NCCL's "
+          f"{out['nccl_names']} (a one-rank in-place all-reduce launches nothing); consistency "
+          f"check {summary['check_ms']:.3f} ms a block in the run (host clock, median, the "
+          f"actors' GIL included), {out['check_alone_ms']:.3f} ms with the actors held "
+          f"(median of {MULTIHOST_TIMED_CHECKS})", flush=True)
+    assert out["worst"] == 0.0 and out["generator_equal"], out
+    MULTIHOST_TIMES.update(out, check_ms=summary["check_ms"])
+    return launches["vtrace"]
+
+
+MULTIHOST_TIMES: dict = {}
+
+
+def run_multihost_gossip(env: str) -> dict[int, int]:
+    """Gossip at world 2, both ranks on the one card, through `python -m
+    actor_critic_tpu_torch.parallel.launch` (its own processes): each rank
+    `ppo_halfcheetah` at full width (E=8 as 2 actors of 4, T=256, 32
+    minibatches, CHECK_EPOCHS epochs) with `--async-correction none`, for
+    GOSSIP_BLOCKS blocks; both ranks exit 0, each mixes (> 0) with the lag
+    reported, and each rank's GAE launches (counted on the card in its own
+    process) equal its consumed blocks, V-trace none. The mailbox is kept
+    under SCRATCH for the serving fleet. Returns GAE's launches by rank."""
+    import os
+    import shutil
+
+    from actor_critic_tpu_torch.parallel import launch
+
+    mailbox = os.path.abspath(f"{SCRATCH}/mailbox")
+    shutil.rmtree(mailbox, ignore_errors=True)
+    os.makedirs(mailbox)
+    rec = launch.run_cluster(
+        2, "gossip", iterations=GOSSIP_BLOCKS, rollout_steps=256, num_envs=8,
+        actors=ASYNC_ACTORS, device="cuda", mailbox_dir=mailbox, timeout_s=300.0,
+        extra_args=("--preset", "ppo_halfcheetah", "--env", env, "--epochs", str(CHECK_EPOCHS),
+                    "--async-correction", "none", "--log-every", "1"))
+    gae = {}
+    for r in rec["ranks"]:
+        lags = [row["gossip_lag"] for row in r["rows"] if "gossip_lag" in row]
+        assert r["consumed_blocks"] == GOSSIP_BLOCKS and r["gossip_mixes"] > 0 and lags, r
+        assert r["launches"] == {"gae": GOSSIP_BLOCKS, "vtrace": 0}, r["launches"]
+        assert not any("version_sum" in row for row in r["rows"])
+        gae[r["rank"]] = r["launches"]["gae"]
+        print(f"multihost gossip world 2 rank {r['rank']} (one card): {r['consumed_blocks']} "
+              f"blocks, {r['gossip_mixes']} mixes, {r['gossip_skips']} skips, lags {lags} "
+              f"(max {r['gossip_lag_max']}); GAE launches {r['launches']['gae']} (= blocks), "
+              f"V-trace {r['launches']['vtrace']}; {r['consumed_steps_per_s']:.1f} consumed "
+              f"env-steps/s over {r['wall_s']:.2f} s", flush=True)
+    print(f"multihost gossip world 2: {rec['aggregate_steps_per_s']:.1f} consumed env-steps/s "
+          f"in all, the launcher's wall {rec['launcher_wall_s']:.2f} s (two processes, each "
+          f"starting torch and the card)", flush=True)
+    return gae
+
+
+def run_multihost_sync_world2(env: str) -> None:
+    """Sync at world 2 over NCCL, one card a rank, where the machine has two
+    cards; on one card the fleet refuses two ranks (NCCL's limit), and the
+    run is reported as not run."""
+    import torch
+
+    from actor_critic_tpu_torch.parallel import launch, multihost
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        try:
+            multihost.nccl_ranks_fit(2, cards)
+        except RuntimeError as e:
+            print(f"multihost sync world 2 over NCCL: not run, this machine has {cards} card "
+                  f"(the fleet refuses: {e})", flush=True)
+            return
+        raise AssertionError("two NCCL ranks on one card were not refused")
+    rec = launch.run_cluster(
+        2, "sync", iterations=4, rollout_steps=256, num_envs=8, actors=ASYNC_ACTORS,
+        device="cuda", timeout_s=300.0,
+        extra_args=("--preset", "ppo_halfcheetah", "--env", env, "--epochs", str(CHECK_EPOCHS),
+                    "--log-every", "1"))
+    assert rec["version_consistent"] and rec["fingerprint_consistent"], rec
+    for r in rec["ranks"]:
+        assert r["launches"]["vtrace"] == 4 and all(row["fingerprint_ok"] for row in r["rows"])
+    print(f"multihost sync world 2 over NCCL ({cards} cards): consistent at every block, "
+          f"V-trace launches {[r['launches']['vtrace'] for r in rec['ranks']]}, "
+          f"{rec['aggregate_steps_per_s']:.1f} consumed env-steps/s", flush=True)
+
+
+def metric_value(text: str, name: str) -> float:
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    raise AssertionError(f"{name} not in /metrics")
+
+
+def run_serving_fleet(env: str) -> None:
+    """Two `serve --distributed` replicas on the card behind `serve_fleet`:
+    replica 0 syncs the gossip run's mailbox (rank 0), and a newer snapshot
+    published there is swapped in with no new capture (the recompile
+    counter unchanged); `/fleetz` lists both replicas; the proxy relays and
+    fails over when replica 1 is killed."""
+    import os
+
+    from actor_critic_tpu_torch.parallel import multihost
+
+    mailbox = os.path.abspath(f"{SCRATCH}/mailbox")
+    base = ["--preset", "ppo_halfcheetah", "--env", env, "--random-init", "--port", "0",
+            "--buckets", "1,4", "--distributed", "--mailbox-dir", mailbox, "--world", "2",
+            "--stale-after-s", "3600"]
+    replicas, proxy = [], None
+    try:
+        for rank in range(2):
+            extra = (["--sync-mailbox", mailbox, "--sync-rank", "0", "--sync-poll-s", "0.1"]
+                     if rank == 0 else [])
+            replicas.append(ServeProcess(base + [
+                "--rank", str(rank), "--telemetry-dir",
+                os.path.abspath(f"{SCRATCH}/fleet_tel{rank}"), *extra]))
+        url0 = replicas[0].url
+        trained = multihost.read_version(mailbox, 0)
+        deadline = time.monotonic() + 30
+        while http_json(url0 + "/v1/policies")[1]["policies"]["default"] != trained:
+            assert time.monotonic() < deadline, "the syncer never swapped the mailbox's version"
+            time.sleep(0.1)
+        obs = {"obs": [[0.1, 0.2, 0.3]]}
+        status, before = http_json(url0 + "/v1/act", obs)
+        assert status == 200 and before["version"] == trained, before
+        captures = metric_value(http_json(url0 + "/metrics")[1], "actor_critic_recompiles_total")
+        names = [n for n, _ in engine_names("ppo_halfcheetah", env)]
+        _, named = multihost.read_params(mailbox, 0, names)
+        multihost.write_params(mailbox, 0, trained + 1,
+                               [v + 0.01 for v in named.values()])
+        while http_json(url0 + "/v1/policies")[1]["policies"]["default"] != trained + 1:
+            assert time.monotonic() < deadline, "the newer version was never swapped in"
+            time.sleep(0.05)
+        status, after = http_json(url0 + "/v1/act", obs)
+        assert status == 200 and after["version"] == trained + 1, after
+        after_captures = metric_value(http_json(url0 + "/metrics")[1],
+                                      "actor_critic_recompiles_total")
+        assert after_captures == captures, (captures, after_captures)
+        status, z = http_json(url0 + "/fleetz")
+        assert status == 200 and z["reachable"] == [0, 1], z
+        status, health = http_json(url0 + "/healthz")
+        assert status == 200 and health["fleet"]["ok"], health
+        proxy = subprocess.Popen(
+            [sys.executable, "-m", "actor_critic_tpu_torch.serve_fleet", "--replica", url0,
+             "--replica", replicas[1].url, "--port", "0", "--policy", "round_robin",
+             "--health-interval", "0.2"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env={**os.environ, "PYTHONPATH": os.getcwd()})
+        line = proxy.stdout.readline()
+        assert line.startswith("fleet proxy on http://"), line
+        purl = line.split()[3]
+        walls = []
+        for _ in range(FLEET_ACTS):
+            t0 = time.perf_counter()
+            status, body = http_json(purl + "/v1/act", obs)
+            walls.append(time.perf_counter() - t0)
+            assert status == 200, body
+        forwards = sorted(r["forwards"] for r in http_json(purl + "/proxyz")[1]["replicas"])
+        replicas[1].kill()
+        for _ in range(FLEET_ACTS):
+            status, body = http_json(purl + "/v1/act", obs)
+            assert status == 200 and body["version"] == trained + 1, body
+        stats = http_json(purl + "/proxyz")[1]
+        assert stats["healthy"] == 1 and stats["relayed"] == 2 * FLEET_ACTS, stats
+        print(f"serving fleet: replica 0 swapped the gossip run's version {trained} from the "
+              f"mailbox, then {trained + 1} published while it served (recompiles "
+              f"{captures:.0f} -> {after_captures:.0f}: no new capture); /fleetz reachable "
+              f"{z['reachable']}, /healthz fleet ok; through the proxy {FLEET_ACTS} acts "
+              f"(forwards {forwards}; {percentiles_ms(walls)}), replica 1 killed, "
+              f"{FLEET_ACTS} more answered by replica 0 (failovers {stats['failovers']}, "
+              f"healthy {stats['healthy']})", flush=True)
+    finally:
+        if proxy is not None:
+            proxy.send_signal(__import__("signal").SIGINT)
+            try:
+                proxy.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                proxy.kill()
+        for r in replicas:
+            if r.proc.poll() is None:
+                r.stop()
+
+
+def engine_names(preset_name: str, env: str):
+    """The PPO network's `named_parameters()` for `preset_name` on `env`."""
+    from actor_critic_tpu_torch import serve
+    from actor_critic_tpu_torch.algos import ppo
+    from actor_critic_tpu_torch.config import PRESETS
+
+    preset = PRESETS[preset_name]
+    spec = serve.spec_for(env, {})
+    return list(ppo.make_network(spec, preset.config).named_parameters())
+
+
 def run_serve_while_training(env: str, without: float | None = None) -> int:
     """Serve-while-training on the card through `train.main`:
     `ppo_halfcheetah --async-actors 2 --data-plane device --async-correction
@@ -4162,6 +4595,12 @@ def main() -> int:
     phase("serve CLI warm-up", run_serve_warmup)
     serve_vtrace = phase("serve while training", run_serve_while_training,
                          host_envs["ppo_halfcheetah"], ASYNC_RATES[("device", "fp32")])
+    sync_vtrace = phase("multihost sync world 1", run_multihost_sync,
+                        host_envs["ppo_halfcheetah"])
+    gossip_gae = phase("multihost gossip world 2", run_multihost_gossip,
+                       host_envs["ppo_halfcheetah"])
+    phase("multihost sync world 2", run_multihost_sync_world2, host_envs["ppo_halfcheetah"])
+    phase("serving fleet", run_serving_fleet, host_envs["ppo_halfcheetah"])
     report = phase("telemetry a2c_cartpole", run_telemetry_a2c)
     phase("telemetry host and async", run_telemetry_host_async, host_envs["ppo_halfcheetah"])
     phase("stall on the card, telemetry serve beside it", run_stall_on_card, run_telemetry_serve)
@@ -4180,10 +4619,13 @@ def main() -> int:
         replays[preset_name] = replays_in_turns(graphs)
     compare_profiles(profiles, replays)
     by_path = {"gae": {"a2c_cartpole": launches["gae"], "host ppo_halfcheetah": host_gae,
+                       **{f"multihost gossip ppo_halfcheetah (world 2, rank {r}, correction "
+                          f"none)": n for r, n in gossip_gae.items()},
                        **bf16_by_path["gae"]},
                "vtrace": {"impala_pong": launches["vtrace"],
                           "async ppo_halfcheetah (host plane)": async_vtrace,
                           "serve-while-training ppo_halfcheetah (device plane)": serve_vtrace,
+                          "multihost sync ppo_halfcheetah (world 1, NCCL)": sync_vtrace,
                           **bf16_by_path["vtrace"]}}
     for e in entries:
         e["launches"] = launches[e["name"]]

@@ -319,14 +319,31 @@ def test_actor_death_surfaces_while_queue_is_fed():
 def test_backpressure_drops_oldest_through_the_learner(data_plane):
     cfg = ppo.PPOConfig(num_envs=2, rollout_steps=4, epochs=2, num_minibatches=2, hidden=(16,))
     pool = HostEnvPool("CartPole-v1", 2, seed=0)
+    # Two slots: on the device plane the learner's block holds one slot's
+    # lease until after the hook, and with one slot the actor could put
+    # nothing meanwhile.
+    depth = 2
+
+    def actor_runs_ahead(it, run):
+        # A learner slower than the actor by construction, whatever the load
+        # on the host: after each block's updates the learner waits (with a
+        # deadline) until the actor has offered one block more past the
+        # consumed ones than the queue can hold while the learner leases
+        # (depth - leased: the device plane's block is still leased here,
+        # the host plane's was released at staging), so a block was dropped.
+        deadline = time.monotonic() + 60.0
+        while time.monotonic() < deadline:
+            stats = run.queue.stats()
+            if stats["puts"] - stats["gets"] >= depth - stats["leased"] + 1:
+                return
+            time.sleep(0.001)
+
     try:
-        # A learner slower than the actor whatever the load on the host: each
-        # block's updates are followed by a 50 ms pause.
         _, _, hist = ppo.train_host_async([pool], cfg, 6, seed=0, log_every=1,
-                                          updates_per_block=4, queue_depth=1,
+                                          updates_per_block=4, queue_depth=depth,
                                           max_staleness=None, correction="vtrace",
                                           data_plane=data_plane, device="cpu",
-                                          iteration_hook=lambda it, run: time.sleep(0.05))
+                                          iteration_hook=actor_runs_ahead)
     finally:
         pool.close()
     last = hist[-1][1]

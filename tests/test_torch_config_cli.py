@@ -41,6 +41,7 @@ import torch
 from actor_critic_tpu import config as jconfig
 from actor_critic_tpu_torch import config as tconfig
 from actor_critic_tpu_torch import train
+from torch_threads import one_intra_op_thread  # noqa: F401 (an autouse fixture)
 
 SET_CASES = [
     ["lr=1e-4"],
@@ -568,11 +569,18 @@ def test_async_selections_that_exit_as_jax(argv, match):
 @pytest.mark.parametrize("flag,path", [("--workers", "the sharded host pool"),
                                        ("--distributed", "multi-GPU")])
 def test_later_paths_stay_refused_beside_async(flag, path, capsys):
-    with pytest.raises(SystemExit):
+    """Beside the async flags, `--workers` is still refused as not ported;
+    `--distributed` (the multi-GPU path, ported since) without a
+    coordinator or `--gossip` exits with JAX's sync-mode refusal."""
+    value = ["2"] if flag in train.UNPORTED_FLAGS else []
+    with pytest.raises(SystemExit) as exit_:
         train.main(["--preset", "ppo_halfcheetah", "--env", "native:Pendulum-v1",
-                    "--async-actors", "2", flag, "2", "--device", "cpu"])
-    err = capsys.readouterr().err
-    assert f"{flag} is not ported yet" in err and path in err
+                    "--async-actors", "2", flag, *value, "--device", "cpu"])
+    if value:
+        err = capsys.readouterr().err
+        assert f"{flag} is not ported yet" in err and path in err
+    else:
+        assert "--distributed sync mode needs --coordinator HOST:PORT" in str(exit_.value)
 
 
 def test_serve_port_without_async_actors_exits_as_jax():

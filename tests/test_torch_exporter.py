@@ -454,16 +454,22 @@ def test_concurrent_scrape_during_hot_swap_and_sampler_tick(tmp_path):
 
 
 def test_validate_bind_refuses_non_loopback_without_distributed():
-    """Every non-loopback host is refused (the port has no --distributed
-    fleet switch), with a message naming the loopback hosts."""
+    """JAX's gate: a non-loopback host is refused unless the caller states
+    a `--distributed` fleet (whose ranks scrape each other), with JAX's
+    message; loopback hosts always pass."""
+    from actor_critic_tpu.telemetry.exporter import validate_bind as jax_validate_bind
     from actor_critic_tpu_torch.telemetry.exporter import validate_bind
 
     for host in ("127.0.0.1", "localhost", "::1"):
         assert validate_bind(host) == host
-    with pytest.raises(ValueError, match="loopback host .*127.0.0.1"):
-        validate_bind("0.0.0.0")
-    with pytest.raises(ValueError, match="non-loopback"):
-        validate_bind("10.0.0.7")
+        assert validate_bind(host, distributed=True) == host
+    for host in ("0.0.0.0", "10.0.0.7"):
+        with pytest.raises(ValueError, match="non-loopback.*--distributed") as port_err:
+            validate_bind(host)
+        with pytest.raises(ValueError) as jax_err:
+            jax_validate_bind(host)
+        assert str(port_err.value) == str(jax_err.value)
+        assert validate_bind(host, distributed=True) == host  # the fleet's scrape path
 
 
 def test_cli_telemetry_bind_refused_without_distributed():

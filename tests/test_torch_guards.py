@@ -19,6 +19,7 @@ from actor_critic_tpu_torch.algos import a2c as ta2c
 from actor_critic_tpu_torch.algos import impala as timpala
 from actor_critic_tpu_torch.algos import ppo as tppo
 from actor_critic_tpu_torch.envs import make_cartpole, make_pong
+from torch_threads import one_intra_op_thread  # noqa: F401 (an autouse fixture)
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "actor_critic_tpu"}

@@ -30,6 +30,7 @@ from actor_critic_tpu_torch import weights
 from actor_critic_tpu_torch.algos import common as tcommon
 from actor_critic_tpu_torch.algos import impala as timpala
 from actor_critic_tpu_torch.envs import make_pong, make_two_state_mdp
+from torch_threads import one_intra_op_thread  # noqa: F401 (an autouse fixture)
 
 GRAD_TOL = dict(rtol=1e-5, atol=1e-5)
 ELEM_TOL = dict(rtol=1e-6, atol=1e-6)

@@ -27,6 +27,7 @@ from actor_critic_tpu_torch import weights
 from actor_critic_tpu_torch.algos import common as tcommon
 from actor_critic_tpu_torch.algos import ppo as tppo
 from actor_critic_tpu_torch.envs import EnvSpec, make_cartpole, make_point_mass, make_two_state_mdp
+from torch_threads import one_intra_op_thread  # noqa: F401 (an autouse fixture)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 OBS_DIM, NUM_ACTIONS, ACTION_DIM = 4, 3, 2

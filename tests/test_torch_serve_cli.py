@@ -4,7 +4,8 @@ the async learners) on the CPU:
 
 - the CLI's flags build JAX's stores (random init, checkpoints, the default
   route, per-policy SLO classes and windows) and refuse what JAX refuses;
-  the flags of later paths exit "not ported yet" with their ROADMAP item;
+  the flags of later paths would exit "not ported yet" with their ROADMAP
+  item (none is left since the fleet's flags came, `tests/test_torch_fleet.py`);
   `--telemetry-dir` attaches a session whose exposition /metrics serves
   and whose spans hold each request's hops, and `--telemetry-bind` refuses
   a non-loopback host, as JAX's does;
@@ -134,7 +135,7 @@ def test_telemetry_dir_attaches_a_session(tmp_path):
 
 
 def test_telemetry_bind_refuses_non_loopback():
-    """JAX's refusal (without --distributed, which the port does not have)."""
+    """JAX's refusal without --distributed."""
     assert _args("--telemetry-bind", "localhost").telemetry_bind == "localhost"
     with pytest.raises(SystemExit, match="non-loopback"):
         _args("--telemetry-dir", "/tmp/x", "--telemetry-bind", "0.0.0.0")
