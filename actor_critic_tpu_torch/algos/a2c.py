@@ -46,6 +46,7 @@ from actor_critic_tpu_torch.envs.env import TorchEnv
 from actor_critic_tpu_torch.models.networks import ActorCriticDiscrete, ActorCriticGaussian
 from actor_critic_tpu_torch.ops.returns import normalize_advantages
 from actor_critic_tpu_torch.optim import ClippedAdam, linear_schedule
+from actor_critic_tpu_torch.parallel.mesh import FlatGradients, Group
 
 # `algos/loop.py` runs this trainer's step as one CUDA graph on the card.
 CAPTURABLE = True
@@ -140,11 +141,13 @@ def a2c_loss(
     returns: torch.Tensor,
     cfg: A2CConfig,
     entropy_coef: Union[float, torch.Tensor, None] = None,
+    group: Group = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Policy-gradient + value-MSE (or Huber) + entropy-bonus loss on a
     [T, E] batch, float32 reductions; advantages and returns are
     gradient constants. `entropy_coef` (a float or a 0-dim tensor)
-    overrides the config's."""
+    overrides the config's. `group` (a data-parallel update's ranks)
+    keeps the advantage normalization's statistics global."""
     if entropy_coef is None:
         entropy_coef = cfg.entropy_coef
     obs = traj.obs.reshape(-1, *traj.obs.shape[2:])
@@ -152,7 +155,7 @@ def a2c_loss(
     adv = advantages.detach().reshape(-1)
     ret = returns.detach().reshape(-1)
     if cfg.normalize_adv:
-        adv = normalize_advantages(adv)
+        adv = normalize_advantages(adv, group)
 
     dist, value = net(obs)
     log_prob = dist.log_prob(actions)
@@ -178,35 +181,49 @@ def update(
     opt: ClippedAdam,
     state: TrainState,
     traj: Transition,
+    grad_sync: Optional[FlatGradients] = None,
 ) -> dict[str, torch.Tensor]:
     """Targets, one clipped-Adam step on `a2c_loss`, and episode accounting
     for a rollout `traj` whose next obs is `state.rollout.obs`. Updates
-    `state` in place; returns the metrics as device tensors."""
+    `state` in place; returns the metrics as device tensors. With
+    `grad_sync` (the `FlatGradients` of a data-parallel group) the
+    advantage statistics are global, the gradients pmean'd through one
+    all-reduce before the clip and Adam, the return EMA pmean'd and the
+    metrics aggregated over the group, as JAX's step does over its
+    `axis_name`."""
+    group = None if grad_sync is None else grad_sync.group
     net = state.net
     advantages, returns = rollout_targets(
         env, net, traj, state.rollout.obs, cfg.gamma, cfg.gae_lambda
     )
     params = dict(net.named_parameters())
     entropy_coef = state.schedule.coefficients_at(state.step_counter)[0]
-    loss, metrics = a2c_loss(net, traj, advantages, returns, cfg, entropy_coef)
-    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
-    opt.step(params, grads, state.opt_state, state.schedule.optimizer)
+    loss, metrics = a2c_loss(net, traj, advantages, returns, cfg, entropy_coef, group)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    if grad_sync is not None:
+        grads = grad_sync(grads)
+    opt.step(params, dict(zip(params, grads)), state.opt_state, state.schedule.optimizer)
 
-    ep_metrics = fold_episodes(state, traj)
+    ep_metrics = fold_episodes(state, traj, group)
     advance(state)
-    return aggregate_metrics(metrics, ep_metrics)
+    return aggregate_metrics(metrics, ep_metrics, group)
 
 
 def make_train_step(
-    env: TorchEnv, cfg: A2CConfig
+    env: TorchEnv, cfg: A2CConfig, group: Group = None
 ) -> Callable[[TrainState], tuple[TrainState, dict[str, torch.Tensor]]]:
-    """`train_step(state) -> (state, metrics)`: rollout then update."""
+    """`train_step(state) -> (state, metrics)`: rollout then update. `group`
+    is the data-parallel ranks' process group (JAX's `axis_name`; each
+    rank's state its shard, `parallel.dp.distribute_state`), None for one
+    device; the step carries it as `train_step.group`."""
     opt = make_optimizer(cfg)
+    grad_sync = None if group is None else FlatGradients(group)
 
     def train_step(state: TrainState) -> tuple[TrainState, dict[str, torch.Tensor]]:
         traj = rollout(env, cfg, state)
-        return state, update(env, cfg, opt, state, traj)
+        return state, update(env, cfg, opt, state, traj, grad_sync)
 
+    train_step.group = group
     return train_step
 
 

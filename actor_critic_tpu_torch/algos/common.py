@@ -40,6 +40,7 @@ from actor_critic_tpu_torch.models.networks import (
 )
 from actor_critic_tpu_torch.ops import gae_cuda, vtrace_cuda
 from actor_critic_tpu_torch.optim import AdamState, ClippedAdam, RMSPropState
+from actor_critic_tpu_torch.parallel.mesh import Group, pmean
 from actor_critic_tpu_torch.tree import named_leaves, tree_leaves, tree_map
 
 
@@ -394,9 +395,17 @@ def gae_targets(
     bootstrap_value: torch.Tensor,
     gamma: float,
     lam: float,
+    time_group: Group = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """THE on-policy advantage seam: (advantages, returns) through the GAE
-    kernel on CUDA tensors, through its plain version on CPU tensors."""
+    kernel on CUDA tensors, through its plain version on CPU tensors. With
+    `time_group` the [T, E] inputs are this rank's time segment and the
+    scan runs sequence-parallel over the group (`parallel.seqpar.seqpar_gae`,
+    whose local scan is the same kernel)."""
+    if time_group is not None:
+        from actor_critic_tpu_torch.parallel.seqpar import seqpar_gae
+
+        return seqpar_gae(rewards, values, dones, bootstrap_value, gamma, lam, group=time_group)
     return gae_cuda.gae(rewards, values, dones, bootstrap_value, gamma, lam)
 
 
@@ -412,6 +421,7 @@ def corrected_advantages(
     rho_bar: float = 1.0,
     c_bar: float = 1.0,
     correction: str = "vtrace",
+    time_group: Group = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The staleness correction of the decoupled actor-learner trainer:
     (pg_advantages, value_targets, mean_clipped_rho).
@@ -420,16 +430,28 @@ def corrected_advantages(
     the behaviour log-probs recorded at rollout time correcting the actors'
     lag. `"none"`: plain λ-return GAE under the learner's critic through
     `gae_targets`, with no importance weighting (the A3C rule), and a mean
-    ρ of 1. Inputs are gradient constants."""
+    ρ of 1. Inputs are gradient constants. With `time_group` the inputs are
+    this rank's time segment and the recurrence runs sequence-parallel
+    (`parallel.seqpar`: `seqpar_vtrace` or `seqpar_gae`); the mean ρ is then
+    the segment's."""
     if correction == "vtrace":
-        vt = vtrace_cuda.vtrace(
-            target_log_probs, behavior_log_probs, rewards, values, dones,
-            bootstrap_value, gamma, rho_bar=rho_bar, c_bar=c_bar, lam=lam,
-        )
+        if time_group is not None:
+            from actor_critic_tpu_torch.parallel.seqpar import seqpar_vtrace
+
+            vt = seqpar_vtrace(
+                target_log_probs, behavior_log_probs, rewards, values, dones,
+                bootstrap_value, gamma, rho_bar=rho_bar, c_bar=c_bar, lam=lam,
+                group=time_group,
+            )
+        else:
+            vt = vtrace_cuda.vtrace(
+                target_log_probs, behavior_log_probs, rewards, values, dones,
+                bootstrap_value, gamma, rho_bar=rho_bar, c_bar=c_bar, lam=lam,
+            )
         return vt.pg_advantages, vt.vs, torch.mean(vt.clipped_rhos)
     if correction == "none":
         pg_advantages, value_targets = gae_targets(
-            rewards, values, dones, bootstrap_value, gamma, lam
+            rewards, values, dones, bootstrap_value, gamma, lam, time_group
         )
         return pg_advantages, value_targets, torch.ones((), device=rewards.device)
     raise ValueError(f"unknown correction: {correction!r}")
@@ -770,13 +792,18 @@ def episode_metrics_update(
 
 
 def fold_episodes(
-    state: Union[TrainState, OffPolicyState], traj: Union[Transition, OffPolicyTransition]
+    state: Union[TrainState, OffPolicyState], traj: Union[Transition, OffPolicyTransition],
+    group: Group = None,
 ) -> dict[str, torch.Tensor]:
     """`episode_metrics_update` on `state`'s accounting, written back in
-    place; returns the episode metrics."""
+    place; returns the episode metrics. With a data-parallel `group` the
+    return EMA, replicated state, is pmean'd over its ranks first (each
+    rank folds its own envs' episodes)."""
     ep_return, ep_length, avg_return, metrics = episode_metrics_update(
         state.ep_return, state.ep_length, state.avg_return, traj
     )
+    avg_return = pmean(avg_return, group)
+    metrics["avg_return_ema"] = avg_return
     state.ep_return.copy_(ep_return)
     state.ep_length.copy_(ep_length)
     state.avg_return.copy_(avg_return)

@@ -58,6 +58,7 @@ from actor_critic_tpu_torch.envs.env import DeviceTable, TorchEnv
 from actor_critic_tpu_torch.models.networks import DeterministicActor, QFunction, TwinQ
 from actor_critic_tpu_torch.ops.polyak import polyak_update
 from actor_critic_tpu_torch.optim import Adam, AdamState
+from actor_critic_tpu_torch.parallel.mesh import FlatGradients, Group
 
 # `algos/loop.py` runs this trainer's step as one CUDA graph on the card.
 CAPTURABLE = True
@@ -275,18 +276,31 @@ def params_of(module: nn.Module) -> dict[str, torch.Tensor]:
     return dict(module.named_parameters())
 
 
-def grads_of(loss: torch.Tensor, module: nn.Module) -> dict[str, torch.Tensor]:
+def grads_of(loss: torch.Tensor, module: nn.Module,
+             sync: Optional[FlatGradients] = None) -> dict[str, torch.Tensor]:
     """d loss / d (each parameter of `module`), by name: the gradient of
-    one net's loss over that net's own parameters only."""
+    one net's loss over that net's own parameters only; pmean'd over a
+    data-parallel group through `sync` (its `FlatGradients`) when given."""
     params = params_of(module)
-    return dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return dict(zip(params, grads if sync is None else sync(grads)))
 
 
-def make_update_loop(action_dim: int, cfg: DDPGConfig):
+def grad_syncs(group: Group, *names: str) -> dict[str, Optional[FlatGradients]]:
+    """One `FlatGradients` per net under a data-parallel `group` (each
+    holds a buffer shaped after its net's gradients), None without one."""
+    return {n: None if group is None else FlatGradients(group) for n in names}
+
+
+def make_update_loop(action_dim: int, cfg: DDPGConfig, group: Group = None):
     """The learner's half of a step: returns `update_loop(learner,
     do_update, generator) -> metrics`, `cfg.updates_per_iter` sample → TD →
     (delayed) actor steps, each `draw_update` then `apply_update`, the
-    learner written in place; the metrics are the last update's.
+    learner written in place; the metrics are the last update's. With a
+    data-parallel `group` each rank samples its own sub-ring and the
+    critic's and the actor's gradients are pmean'd over the group (one
+    all-reduce each, every update, whatever the gates say, so that every
+    rank issues the same collectives).
     `update_loop.draw_update(learner, generator)` and
     `update_loop.apply_update(learner, do_update, draws)` are one update's
     halves."""
@@ -301,6 +315,7 @@ def make_update_loop(action_dim: int, cfg: DDPGConfig):
     codecs = replay.offpolicy_codecs(cfg.replay_dtype)
     actor_opt, critic_opt = Adam(cfg.actor_lr), Adam(cfg.critic_lr)
     actor_table, critic_table = (DeviceTable(o.scalar_table()) for o in (actor_opt, critic_opt))
+    syncs = grad_syncs(group, "critic", "actor")
 
     def draw_update(ls: LearnerState, generator: torch.Generator) -> UpdateDraws:
         if cfg.nstep > 1:
@@ -341,8 +356,8 @@ def make_update_loop(action_dim: int, cfg: DDPGConfig):
         if q2 is not None:
             closs = closs + torch.mean((q2 - target_q) ** 2)
         device = q1.device
-        critic_opt.step(params_of(ls.critic), grads_of(closs, ls.critic), ls.critic_opt,
-                        critic_table.on(device), mask=do_update)
+        critic_opt.step(params_of(ls.critic), grads_of(closs, ls.critic, syncs["critic"]),
+                        ls.critic_opt, critic_table.on(device), mask=do_update)
 
         # Actor step and Polyak targets, every policy_delay-th update; the
         # actor's loss reads the critic after its step.
@@ -350,8 +365,8 @@ def make_update_loop(action_dim: int, cfg: DDPGConfig):
         a = ls.actor(batch.obs)
         aq1, _ = _critic_q(ls.critic, batch.obs, a, cfg)
         aloss = -torch.mean(aq1)
-        actor_opt.step(params_of(ls.actor), grads_of(aloss, ls.actor), ls.actor_opt,
-                       actor_table.on(device), mask=do_actor)
+        actor_opt.step(params_of(ls.actor), grads_of(aloss, ls.actor, syncs["actor"]),
+                       ls.actor_opt, actor_table.on(device), mask=do_actor)
         polyak_update(params_of(ls.actor), params_of(ls.target_actor), cfg.tau, mask=do_actor)
         polyak_update(params_of(ls.critic), params_of(ls.target_critic), cfg.tau, mask=do_actor)
         ls.update_count.add_(do_update)
@@ -377,42 +392,49 @@ def update_gate(env_steps: torch.Tensor, ring: replay.ReplayState, min_size: int
 
 
 def collect_and_insert(env: TorchEnv, explore, state: OffPolicyState, steps: int,
-                       codecs) -> OffPolicyTransition:
+                       codecs, group: Group = None) -> OffPolicyTransition:
     """The step's first half: `steps` exploration steps of the env batch,
-    then their [K·E] transitions into the ring; returns the [K, E] ones."""
+    then their [K·E] transitions into the ring (its codecs' stats synced
+    over a data-parallel `group`); returns the [K, E] ones."""
     traj = offpolicy_rollout(env, explore, state.learner.actor, state.rollout,
                              state.generator, steps, state.env_steps)
     flat = OffPolicyTransition(*(x.reshape(-1, *x.shape[2:]) for x in traj))
-    replay.add_batch(state.learner.replay, flat, codecs)
+    replay.add_batch(state.learner.replay, flat, codecs, group)
     return traj
 
 
 def finish_step(state: OffPolicyState, traj: OffPolicyTransition,
-                metrics: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """The step's accounting: the episode fold and the step count."""
-    ep_metrics = fold_episodes(state, traj)
+                metrics: dict[str, torch.Tensor], group: Group = None) -> dict[str, torch.Tensor]:
+    """The step's accounting: the episode fold (the return EMA pmean'd
+    over a data-parallel `group`), the step count, the metrics aggregated
+    over the group."""
+    ep_metrics = fold_episodes(state, traj, group)
     advance(state)
-    return aggregate_metrics(metrics, ep_metrics)
+    return aggregate_metrics(metrics, ep_metrics, group)
 
 
 def make_train_step(
-    env: TorchEnv, cfg: DDPGConfig
+    env: TorchEnv, cfg: DDPGConfig, group: Group = None
 ) -> Callable[[OffPolicyState], tuple[OffPolicyState, dict[str, torch.Tensor]]]:
     """The fused collect → insert → update step; `train_step(state) ->
-    (state, metrics)` writes `state` in place."""
+    (state, metrics)` writes `state` in place. `group` is the data-parallel
+    ranks' process group (JAX's `axis_name`; the state distributed by
+    `parallel.dp.distribute_state(..., offpolicy_state_specs())`), None
+    for one device; the step carries it as `train_step.group`."""
     explore = make_explore_fn(cfg)
-    update_loop = make_update_loop(env.spec.action_dim, cfg)
+    update_loop = make_update_loop(env.spec.action_dim, cfg, group)
     codecs = replay.offpolicy_codecs(cfg.replay_dtype)
     # The floor is max(batch_size, nstep): a ring holding fewer than n
     # inserts would clamp windows into zero-initialised slots.
     min_size = max(cfg.batch_size, cfg.nstep)
 
     def train_step(state: OffPolicyState) -> tuple[OffPolicyState, dict[str, torch.Tensor]]:
-        traj = collect_and_insert(env, explore, state, cfg.steps_per_iter, codecs)
+        traj = collect_and_insert(env, explore, state, cfg.steps_per_iter, codecs, group)
         do_update = update_gate(state.env_steps, state.learner.replay, min_size, cfg.warmup_steps)
         metrics = update_loop(state.learner, do_update, state.generator)
-        return state, finish_step(state, traj, metrics)
+        return state, finish_step(state, traj, metrics, group)
 
+    train_step.group = group
     return train_step
 
 

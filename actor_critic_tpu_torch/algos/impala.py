@@ -16,8 +16,10 @@ re-evaluates π and V at the stored observations, so one train step is
 
 `correction="vtrace"` is IMPALA; `"none"` is the A3C rule, λ-return GAE
 under the learner's critic with no importance weighting. The
-sequence-parallel learner (`make_sp_update`, `make_sp_train_step`) comes
-with the multi-GPU slice.
+sequence-parallel learner (`make_sp_update`, `make_sp_train_step`) splits
+a long trajectory's time axis over a process group (`parallel/seqpar.py`),
+and `make_train_step(group=...)` is the data-parallel step
+(`parallel/dp.py`).
 
 The step is capturable (`CAPTURABLE`): the actor refresh is a select on
 the device at the state's step counter, not a host branch, and writes the
@@ -53,6 +55,8 @@ from actor_critic_tpu_torch.algos.metrics import aggregate_metrics
 from actor_critic_tpu_torch.envs.env import TorchEnv
 from actor_critic_tpu_torch.models.networks import ActorCriticDiscrete, ActorCriticGaussian
 from actor_critic_tpu_torch.optim import ClippedRMSProp
+from actor_critic_tpu_torch.parallel.mesh import FlatGradients, Group, Mesh, pmean_tree
+from actor_critic_tpu_torch.parallel.seqpar import SP_AXIS, time_segment
 
 # `algos/loop.py` runs this trainer's step as one CUDA graph on the card.
 CAPTURABLE = True
@@ -141,6 +145,7 @@ def impala_loss(
     bootstrap_obs: torch.Tensor,
     cfg: ImpalaConfig,
     can_truncate: bool = True,
+    time_group: Group = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """V-trace (or A3C λ-return) actor-critic loss on a [T, E] trajectory.
 
@@ -150,7 +155,14 @@ def impala_loss(
     values, the bootstrap from the learner at `bootstrap_obs`, and the
     truncation bootstrap from the learner's critic at `final_obs`; those
     two forwards need no gradient (their values only reach the loss as
-    gradient constants) and run without one."""
+    gradient constants) and run without one.
+
+    With `time_group` the trajectory is this rank's TIME segment of a
+    longer one (sequence parallelism): V-trace (or GAE) runs through
+    `parallel.seqpar` over the group (halo, the kernel on the segment,
+    boundary chain), and the loss and metrics are the segment's means,
+    whose gradients the caller pmeans over the group (equal segments make
+    that the whole trajectory's gradient)."""
     T, E = traj.reward.shape
     obs = traj.obs.reshape(T * E, *traj.obs.shape[2:])
     actions = traj.action.reshape(T * E, *traj.action.shape[2:])
@@ -172,6 +184,7 @@ def impala_loss(
         target_log_probs.detach(), traj.log_prob, rewards, values.detach(), traj.done,
         bootstrap_value, cfg.gamma, cfg.lam,
         rho_bar=cfg.rho_bar, c_bar=cfg.c_bar, correction=cfg.correction,
+        time_group=time_group,
     )
 
     pg_loss = -torch.mean(pg_advantages * target_log_probs, dtype=torch.float32)
@@ -194,40 +207,204 @@ def update(
     opt: ClippedRMSProp,
     state: ImpalaTrainState,
     traj: Transition,
+    grad_sync: Optional[FlatGradients] = None,
 ) -> dict[str, torch.Tensor]:
     """One clipped-RMSProp step on `impala_loss` for a rollout `traj` whose
     next obs is `state.rollout.obs`, the actor refresh at its boundary, and
     episode accounting. Updates `state` in place; returns the metrics as
-    device tensors."""
+    device tensors. With `grad_sync` (a data-parallel group's
+    `FlatGradients`) the gradients are pmean'd through one all-reduce
+    before the clip and RMSProp, and the return EMA and the metrics are
+    pmean'd / aggregated over the group."""
     net = state.net
+    group = None if grad_sync is None else grad_sync.group
     params = dict(net.named_parameters())
     loss, metrics = impala_loss(net, traj, state.rollout.obs, cfg, env.spec.can_truncate)
-    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
-    opt.step(params, grads, state.opt_state)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    if grad_sync is not None:
+        grads = grad_sync(grads)
+    opt.step(params, dict(zip(params, grads)), state.opt_state)
+    _refresh_actors(cfg, state)
+    return aggregate_metrics(metrics, fold_episodes(state, traj, group), group)
 
-    # k-step policy lag: the actors pick up the learner's parameters only at
-    # refresh boundaries (k=1 is on-policy: every ρ is exactly 1), selected
-    # on the device.
+
+def _refresh_actors(cfg: ImpalaConfig, state: ImpalaTrainState) -> None:
+    """Count the step; then the k-step policy lag: the actors pick up the
+    learner's parameters only at refresh boundaries (k=1 is on-policy:
+    every ρ is exactly 1), selected on the device."""
     advance(state)
     refresh = state.step_counter % cfg.actor_refresh_every == 0
     with torch.no_grad():
-        for a, p in zip(state.actor_net.parameters(), net.parameters()):
+        for a, p in zip(state.actor_net.parameters(), state.net.parameters()):
             a.copy_(torch.where(refresh, p, a))
-
-    return aggregate_metrics(metrics, fold_episodes(state, traj))
 
 
 def make_train_step(
-    env: TorchEnv, cfg: ImpalaConfig
+    env: TorchEnv, cfg: ImpalaConfig, group: Group = None
 ) -> Callable[[ImpalaTrainState], tuple[ImpalaTrainState, dict[str, torch.Tensor]]]:
     """`train_step(state) -> (state, metrics)`: stale-actor rollout, then
-    the learner's update."""
+    the learner's update. `group` is the data-parallel ranks' process
+    group (JAX's `axis_name`), None for one device; the step carries it as
+    `train_step.group`."""
     opt = make_optimizer(cfg)
+    grad_sync = None if group is None else FlatGradients(group)
 
     def train_step(state: ImpalaTrainState) -> tuple[ImpalaTrainState, dict[str, torch.Tensor]]:
         traj = rollout(env, cfg, state)
-        return state, update(env, cfg, opt, state, traj)
+        return state, update(env, cfg, opt, state, traj, grad_sync)
 
+    train_step.group = group
+    return train_step
+
+
+def _sp_layout(mesh: Mesh, axis_name: Optional[str], dp_axis_name: Optional[str]):
+    """(time axis, time group, reduce group, dp group) of an sp layout: the
+    gradients and metrics reduce over every axis of the layout, which is
+    the mesh's whole grid."""
+    axis_name = axis_name or SP_AXIS
+    axes = (axis_name,) if dp_axis_name is None else (axis_name, dp_axis_name)
+    if set(axes) != set(mesh.axis_names):
+        raise ValueError(f"an sp layout over {axes} on a mesh of {mesh.axis_names}")
+    dp_group = None if dp_axis_name is None else mesh.group(dp_axis_name)
+    return axis_name, mesh.group(axis_name), mesh.group(*axes), dp_group
+
+
+def _sp_local_update(env: TorchEnv, cfg: ImpalaConfig, time_group: Group, reduce_group: Group):
+    """`local(net, opt_state, segment, bootstrap_obs) -> metrics`: one
+    clipped-RMSProp step on this rank's time segment (and env shard), the
+    gradients and metrics pmean'd over `reduce_group`."""
+    opt = make_optimizer(cfg)
+    grad_sync = FlatGradients(reduce_group)
+
+    def local(net: nn.Module, opt_state, traj: Transition,
+              bootstrap_obs: torch.Tensor) -> dict[str, torch.Tensor]:
+        params = dict(net.named_parameters())
+        loss, metrics = impala_loss(net, traj, bootstrap_obs, cfg, env.spec.can_truncate,
+                                    time_group)
+        grads = grad_sync(torch.autograd.grad(loss, list(params.values())))
+        opt.step(params, dict(zip(params, grads)), opt_state)
+        return pmean_tree(metrics, reduce_group)
+
+    return local
+
+
+def make_sp_update(env: TorchEnv, cfg: ImpalaConfig, mesh: Mesh, axis_name: Optional[str] = None,
+                   dp_axis_name: Optional[str] = None):
+    """The sequence-parallel learner update for LONG trajectories: the
+    [T, E] trajectory's time axis split over the mesh's "sp" axis, so each
+    rank forwards π/V on its T/W slice and runs V-trace (or GAE) through
+    `parallel.seqpar` (the kernel on its segment, one halo, one boundary
+    chain), the gradients pmean'd over the axis. With `dp_axis_name` the
+    layout is 2-D, sp × dp: the env axis is split over dp too and the
+    gradients and metrics reduce over both axes (the mesh's whole grid).
+
+    Returns `update(net, opt_state, traj, bootstrap_obs) -> metrics` on
+    GLOBAL [T, E] arrays (T divisible by the sp size, E by the dp size):
+    it cuts this rank's segment and shard, and writes the step into `net`
+    and `opt_state` in place. On the card its first
+    `loop.WARMUP_ITERATIONS` calls run eagerly on a side stream; the next
+    captures it (collectives inside, "thread_local" mode) over static
+    copies of the inputs, and every later call copies its inputs there and
+    replays; the graph serves the `net` and `opt_state` it captured.
+    `update.eager` is the step without the graph."""
+    from actor_critic_tpu_torch.algos import loop
+
+    axis_name, time_group, reduce_group, _ = _sp_layout(mesh, axis_name, dp_axis_name)
+    local = _sp_local_update(env, cfg, time_group, reduce_group)
+
+    def segment(traj: Transition, bootstrap_obs: torch.Tensor):
+        if dp_axis_name is not None:
+            n, j = mesh.shape[dp_axis_name], mesh.index(dp_axis_name)
+            E = bootstrap_obs.shape[0]
+            if E % n:
+                raise ValueError(f"env axis {E} not divisible by {dp_axis_name}={n}")
+            cols = slice(j * (E // n), (j + 1) * (E // n))
+            traj = Transition(*(x[:, cols] for x in traj))
+            bootstrap_obs = bootstrap_obs[cols].contiguous()
+        return Transition(*(time_segment(x, mesh, axis_name) for x in traj)), bootstrap_obs
+
+    def eager(net, opt_state, traj, bootstrap_obs):
+        return local(net, opt_state, *segment(traj, bootstrap_obs))
+
+    graphed: dict = {"calls": 0}
+
+    def update(net, opt_state, traj, bootstrap_obs):
+        seg, boot = segment(traj, bootstrap_obs)
+        if not boot.is_cuda:
+            return local(net, opt_state, seg, boot)
+        if "graph" in graphed:
+            if graphed["owner"] != (id(net), id(opt_state)):
+                raise ValueError("make_sp_update's graph replays the net and optimizer state "
+                                 "it captured")
+            for buf, x in zip(graphed["static"], (*seg, boot), strict=True):
+                buf.copy_(x)
+            graphed["graph"].replay()
+            return graphed["metrics"]
+        if graphed["calls"] < loop.WARMUP_ITERATIONS:
+            graphed["calls"] += 1
+            return loop.eager_step(lambda _: local(net, opt_state, seg, boot), None,
+                                   torch.cuda.Stream(boot.device))
+        static = [x.clone() for x in (*seg, boot)]
+        graph = torch.cuda.CUDAGraph()
+        with loop.capture(graph, capture_error_mode="thread_local"):
+            metrics = local(net, opt_state, Transition(*static[:-1]), static[-1])
+        graphed.update(graph=graph, static=static, metrics=metrics,
+                       owner=(id(net), id(opt_state)))
+        return update(net, opt_state, traj, bootstrap_obs)
+
+    update.eager = eager
+    return update
+
+
+def make_sp_train_step(env: TorchEnv, cfg: ImpalaConfig, mesh: Mesh,
+                       axis_name: Optional[str] = None, dp_axis_name: Optional[str] = None):
+    """ONE step: rollout (stale actors) → this rank's time segment →
+    sequence-parallel update → actor refresh, over the mesh's "sp" axis
+    (and its "dp" axis with `dp_axis_name`). The rollout is sequential in
+    time, so it runs env-parallel: rank (i, j) rolls out env shard j's
+    whole [T, E/dp] trajectory, the same on every sp index i (the state
+    distributed over dp only, `parallel.dp.distribute_state`, so its
+    generator is shard j's), folds its episodes (aggregated over dp) and
+    keeps time segment i for the learner: JAX's all-to-all between the two
+    layouts is a slice here. The update's metrics are reduced over the
+    whole grid. Equal to `make_train_step` (with the dp group) up to the
+    sharded scans' rounding.
+
+    Returns `train_step(state) -> (state, metrics)`, writing `state` in
+    place. On the card its first `loop.WARMUP_ITERATIONS` calls run
+    eagerly on a side stream and the next captures the step ("thread_local"
+    mode) for the `state` it is given, replayed from then on;
+    `train_step.eager` is the step without the graph."""
+    from actor_critic_tpu_torch.algos import loop
+
+    axis_name, time_group, reduce_group, dp_group = _sp_layout(mesh, axis_name, dp_axis_name)
+    local = _sp_local_update(env, cfg, time_group, reduce_group)
+
+    def eager(state: ImpalaTrainState) -> tuple[ImpalaTrainState, dict[str, torch.Tensor]]:
+        traj = rollout(env, cfg, state)
+        ep_metrics = fold_episodes(state, traj, dp_group)
+        segment = Transition(*(time_segment(x, mesh, axis_name) for x in traj))
+        metrics = local(state.net, state.opt_state, segment, state.rollout.obs)
+        _refresh_actors(cfg, state)
+        return state, {**metrics, **aggregate_metrics({}, ep_metrics, dp_group)}
+
+    graphed: dict = {"calls": 0}
+
+    def train_step(state: ImpalaTrainState) -> tuple[ImpalaTrainState, dict[str, torch.Tensor]]:
+        if not state.ep_return.is_cuda:
+            return eager(state)
+        if "step" in graphed:
+            if graphed["state"] is not state:
+                raise ValueError("make_sp_train_step's graph replays the state it captured")
+            return state, graphed["step"].replay()
+        if graphed["calls"] < loop.WARMUP_ITERATIONS:
+            graphed["calls"] += 1
+            return loop.eager_step(eager, state, torch.cuda.Stream(state.ep_return.device))
+        graphed.update(state=state, step=loop.CapturedStep(eager, state,
+                                                           capture_error_mode="thread_local"))
+        return train_step(state)
+
+    train_step.eager = eager
     return train_step
 
 

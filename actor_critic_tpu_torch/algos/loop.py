@@ -181,6 +181,14 @@ def restored(tensors: dict[str, torch.Tensor], generator: torch.Generator):
         saved.clear()
 
 
+def capture_mode(step: Callable) -> str:
+    """The capture mode of a train step: "thread_local" for a step with a
+    process group (`step.group`, a data-parallel step: NCCL's watchdog
+    thread polls the communicator's events during the capture, a CUDA call
+    that would invalidate a "global"-mode one), "global" otherwise."""
+    return "thread_local" if getattr(step, "group", None) is not None else "global"
+
+
 def warm_up(step: Callable, state, graphs: tuple[int, ...] = (),
             stream: Optional[torch.cuda.Stream] = None,
             name: str = "train_step") -> dict[int, CapturedStep]:
@@ -200,7 +208,7 @@ def warm_up(step: Callable, state, graphs: tuple[int, ...] = (),
     for n in graphs:
         with profiler.record_compile(f"{name}[x{n}]",
                                      profiler.signature_of(carried_tensors(state))):
-            captured[n] = CapturedStep(step, state, n)
+            captured[n] = CapturedStep(step, state, n, capture_mode(step))
     return captured
 
 
@@ -236,13 +244,21 @@ def fused_train_loop(
     ckpt=None,
     save_every: int = 0,
     resume: bool = False,
+    train_step: Optional[Callable] = None,
 ):
     """Run train steps up to `num_iterations` (from the latest checkpoint in
     `ckpt` when `resume`); returns (state, last metrics). `capturable` (the
     trainer's `CAPTURABLE`) lets the loop replay the step as a CUDA graph
     where the state lives on the card, `chunk` steps per graph; the log,
     eval and save cadences fire at chunk boundaries, so the caller makes
-    them multiples of `chunk`. `state_hook`: see the module's docstring."""
+    them multiples of `chunk`. `state_hook`: see the module's docstring.
+
+    `train_step` replaces `make_train_step(env, cfg)` with a step the
+    caller built: a data-parallel one (`parallel.dp.make_dp_train_step`
+    over a state from `distribute_state`), run on every rank of its group.
+    Its collectives are first issued eagerly (the warm-up iterations make
+    NCCL's communicator before any capture), and it is captured in
+    "thread_local" mode (`capture_mode`)."""
     if num_iterations < 1:
         raise ValueError("num_iterations must be >= 1")
     if chunk < 1:
@@ -257,7 +273,7 @@ def fused_train_loop(
         done = ckpt.restore(state)
         if done >= num_iterations:
             metrics = ckpt.restore_metrics(done)
-    step = make_train_step(env, cfg)
+    step = make_train_step(env, cfg) if train_step is None else train_step
     graph = capturable and state.ep_return.is_cuda
     warmup_stream = torch.cuda.Stream(state.ep_return.device) if graph else None
     eager_left = WARMUP_ITERATIONS if graph else 0
@@ -324,7 +340,7 @@ def fused_train_loop(
                     with profiler.record_compile(
                             f"{name}.train_step[x{n}]",
                             profiler.signature_of(carried_tensors(state))):
-                        captured[n] = CapturedStep(step, state, n)
+                        captured[n] = CapturedStep(step, state, n, capture_mode(step))
                 first_replay = n not in replayed
                 replayed.add(n)
                 for _ in range(k // n):

@@ -297,12 +297,16 @@ def update(
     state: TrainState,
     traj: Transition,
     perms: Optional[torch.Tensor] = None,
+    grad_sync: Optional[FlatGradients] = None,
 ) -> dict[str, torch.Tensor]:
     """Targets, `ppo_update` and episode accounting for a rollout `traj`
     whose next obs is `state.rollout.obs`, with the schedule's values at
     `state.step_counter`. Draws the permutations from `state.generator`
-    unless `perms` is given. Updates `state` in place; returns the
-    metrics as device tensors."""
+    unless `perms` is given (each rank its own, over its own shard, under
+    dp). Updates `state` in place; returns the metrics as device tensors.
+    With `grad_sync` (a data-parallel group's `FlatGradients`) each
+    minibatch's advantage statistics and gradients are the group's, and
+    the return EMA and the metrics are pmean'd / aggregated over it."""
     net = state.net
     advantages, returns = rollout_targets(
         env, net, traj, state.rollout.obs, cfg.gamma, cfg.gae_lambda
@@ -320,22 +324,27 @@ def update(
         perms = draw_permutations(state.generator, cfg.epochs, T * E)
     clip_eps, entropy_coef = state.schedule.coefficients_at(state.step_counter).unbind()
     metrics = ppo_update(net, opt, state.opt_state, batch, perms, cfg, state.schedule.optimizer,
-                         clip_eps, entropy_coef)
-    ep_metrics = fold_episodes(state, traj)
+                         clip_eps, entropy_coef, grad_sync)
+    group = None if grad_sync is None else grad_sync.group
+    ep_metrics = fold_episodes(state, traj, group)
     advance(state)
-    return aggregate_metrics(metrics, ep_metrics)
+    return aggregate_metrics(metrics, ep_metrics, group)
 
 
 def make_train_step(
-    env: TorchEnv, cfg: PPOConfig
+    env: TorchEnv, cfg: PPOConfig, group: Group = None
 ) -> Callable[[TrainState], tuple[TrainState, dict[str, torch.Tensor]]]:
-    """`train_step(state) -> (state, metrics)`: rollout then update."""
+    """`train_step(state) -> (state, metrics)`: rollout then update. `group`
+    is the data-parallel ranks' process group (JAX's `axis_name`), None for
+    one device; the step carries it as `train_step.group`."""
     opt = make_optimizer(cfg)
+    grad_sync = None if group is None else FlatGradients(group)
 
     def train_step(state: TrainState) -> tuple[TrainState, dict[str, torch.Tensor]]:
         traj = rollout(env, cfg, state)
-        return state, update(env, cfg, opt, state, traj)
+        return state, update(env, cfg, opt, state, traj, grad_sync=grad_sync)
 
+    train_step.group = group
     return train_step
 
 

@@ -38,6 +38,7 @@ from actor_critic_tpu_torch.algos.ddpg import (
     collect_and_insert,
     example_transition,
     finish_step,
+    grad_syncs,
     grads_of,
     ingest_update_of,
     init_offpolicy_state,
@@ -48,6 +49,7 @@ from actor_critic_tpu_torch.envs.env import DeviceTable, TorchEnv
 from actor_critic_tpu_torch.models.networks import SquashedGaussianActor, TwinQ
 from actor_critic_tpu_torch.ops.polyak import polyak_update
 from actor_critic_tpu_torch.optim import Adam, AdamState
+from actor_critic_tpu_torch.parallel.mesh import Group, pmean
 
 # `algos/loop.py` runs this trainer's step as one CUDA graph on the card.
 CAPTURABLE = True
@@ -186,16 +188,18 @@ def make_explore_fn(cfg: SACConfig):
     return act
 
 
-def make_update_loop(action_dim: int, cfg: SACConfig):
+def make_update_loop(action_dim: int, cfg: SACConfig, group: Group = None):
     """`update_loop(learner, do_update, generator) -> metrics`:
     `cfg.updates_per_iter` soft policy-iteration steps, the learner written
     in place, the metrics the last update's; `update_loop.draw_update` and
     `update_loop.apply_update` are one update's halves (see
-    `ddpg.make_update_loop`)."""
+    `ddpg.make_update_loop`). With a data-parallel `group` the critic's
+    and the actor's gradients and α's are pmean'd over it."""
     h_target = _target_entropy(action_dim, cfg)
     codecs = replay.offpolicy_codecs(cfg.replay_dtype)
     opts = {"actor": Adam(cfg.actor_lr), "critic": Adam(cfg.critic_lr), "alpha": Adam(cfg.alpha_lr)}
     tables = {k: DeviceTable(o.scalar_table()) for k, o in opts.items()}
+    syncs = grad_syncs(group, "critic", "actor")
 
     def draw_update(ls: SACLearnerState, generator: torch.Generator) -> SACDraws:
         idx = replay.draw_indices(generator, cfg.batch_size, ls.replay.size)
@@ -219,21 +223,21 @@ def make_update_loop(action_dim: int, cfg: SACConfig):
         # Critic step.
         q1, q2 = ls.critic(batch.obs, batch.action)
         closs = torch.mean((q1 - target_q) ** 2) + torch.mean((q2 - target_q) ** 2)
-        opts["critic"].step(params_of(ls.critic), grads_of(closs, ls.critic), ls.critic_opt,
-                            tables["critic"].on(device), mask=do_update)
+        opts["critic"].step(params_of(ls.critic), grads_of(closs, ls.critic, syncs["critic"]),
+                            ls.critic_opt, tables["critic"].on(device), mask=do_update)
 
         # Actor step: a reparameterised sample through the updated critic.
         a, logp = ls.actor(batch.obs).sample_and_log_prob(eps=draws.actor_eps)
         aq1, aq2 = ls.critic(batch.obs, a)
         aloss = torch.mean(alpha * logp - torch.minimum(aq1, aq2))
-        opts["actor"].step(params_of(ls.actor), grads_of(aloss, ls.actor), ls.actor_opt,
-                           tables["actor"].on(device), mask=do_update)
+        opts["actor"].step(params_of(ls.actor), grads_of(aloss, ls.actor, syncs["actor"]),
+                           ls.actor_opt, tables["actor"].on(device), mask=do_update)
 
         # Temperature step on log α: the analytic gradient at the
         # pre-update α, with the actor loss's log π.
         logp = logp.detach()
         if cfg.fixed_alpha is None:
-            alpha_grad = torch.mean(-(logp + h_target)) * torch.exp(ls.log_alpha)
+            alpha_grad = pmean(torch.mean(-(logp + h_target)) * torch.exp(ls.log_alpha), group)
             opts["alpha"].step({"log_alpha": ls.log_alpha}, {"log_alpha": alpha_grad},
                                ls.alpha_opt, tables["alpha"].on(device), mask=do_update)
 
@@ -259,21 +263,23 @@ def make_update_loop(action_dim: int, cfg: SACConfig):
 
 
 def make_train_step(
-    env: TorchEnv, cfg: SACConfig
+    env: TorchEnv, cfg: SACConfig, group: Group = None
 ) -> Callable[[SACState], tuple[SACState, dict[str, torch.Tensor]]]:
     """The fused collect → insert → update step; `train_step(state) ->
-    (state, metrics)` writes `state` in place."""
+    (state, metrics)` writes `state` in place. `group`: the data-parallel
+    ranks' process group, as `ddpg.make_train_step`'s."""
     explore = make_explore_fn(cfg)
-    update_loop = make_update_loop(env.spec.action_dim, cfg)
+    update_loop = make_update_loop(env.spec.action_dim, cfg, group)
     codecs = replay.offpolicy_codecs(cfg.replay_dtype)
 
     def train_step(state: SACState) -> tuple[SACState, dict[str, torch.Tensor]]:
-        traj = collect_and_insert(env, explore, state, cfg.steps_per_iter, codecs)
+        traj = collect_and_insert(env, explore, state, cfg.steps_per_iter, codecs, group)
         do_update = update_gate(state.env_steps, state.learner.replay, cfg.batch_size,
                                 cfg.warmup_steps)
         metrics = update_loop(state.learner, do_update, state.generator)
-        return state, finish_step(state, traj, metrics)
+        return state, finish_step(state, traj, metrics, group)
 
+    train_step.group = group
     return train_step
 
 

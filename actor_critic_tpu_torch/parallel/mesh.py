@@ -17,18 +17,138 @@ kernel), one all-reduce, one divide by the world size, and the gradients
 handed back as views of the buffer, in the order optax applies a pmean'd
 gradient (before the global-norm clip and Adam).
 
-The mesh itself (`MeshConfig`, `make_mesh`) and the sharding helpers wait
-for the data-parallel slice of the fused trainers.
+The mesh (`MeshConfig`, `make_mesh`, `make_process_mesh`) is JAX's
+`jax.sharding.Mesh` for a fleet of processes: JAX's one process holds every
+device of its mesh and `shard_map` runs a function on each, where here each
+rank is one device of the mesh and runs the function itself. A `Mesh` is
+one rank's view: the axes' names and sizes, the rank's coordinate on each
+(rank r sits at the row-major coordinate of r, the device order of
+`jax.make_mesh`), and a process group per axis, the line of ranks through
+this one along that axis, which the trainers take where JAX names the
+axis. `group()` of every axis is the whole mesh. `PartitionSpec` is JAX's
+`P`, the marker `parallel/dp.py`'s layouts are written in.
+
+`all_gather` and `pmax` complete JAX's collectives: both go through one
+all-reduce (`all_gather` sums a zeroed [W, ...] buffer holding this rank's
+value in its own slot, which is exact, and runs on NCCL and gloo alike,
+inside a CUDA graph too).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 Group = Optional[dist.ProcessGroup]
+
+DP_AXIS = "dp"
+MODEL_AXIS = "model"
+
+
+@dataclasses.dataclass(frozen=True, init=False)
+class PartitionSpec:
+    """JAX's `PartitionSpec` for the port's layouts: `PartitionSpec()` is
+    replicated on every rank, `PartitionSpec("dp")` has its leading axis
+    split over the mesh's "dp" axis (`parallel/dp.py`)."""
+
+    axes: tuple[str, ...]
+
+    def __init__(self, *axes: str):
+        object.__setattr__(self, "axes", axes)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """How to lay the processes out as a mesh (JAX's `MeshConfig`)."""
+
+    dp: int = -1  # -1: every rank left
+    model: int = 1
+
+
+class Mesh:
+    """One rank's view of a mesh of processes: `shape` ({axis: size}, in
+    axis order), `rank` and `size` (this rank and the mesh's count of
+    ranks), `index(axis)` (this rank's coordinate), `group(*axes)` (the
+    process group of this rank's line along one axis, or of the whole mesh
+    for every axis; None where it holds this rank alone, so that every
+    collective over it is the identity)."""
+
+    def __init__(self, shape: dict[str, int], rank: int, groups: dict[tuple[str, ...], Group]):
+        self.shape = dict(shape)
+        self.axis_names = tuple(shape)
+        self.rank = rank
+        self.size = math.prod(shape.values())
+        self._groups = groups
+        coords, rest = [], rank
+        for n in reversed(list(shape.values())):
+            rest, c = divmod(rest, n)
+            coords.append(c)
+        self._coords = dict(zip(self.axis_names, reversed(coords)))
+
+    def index(self, axis: str) -> int:
+        return self._coords[axis]
+
+    def group(self, *axes: str) -> Group:
+        if len(set(axes)) != len(axes) or not set(axes) <= set(self.axis_names):
+            raise ValueError(f"no axes {axes} in the mesh {self.axis_names}")
+        if set(axes) == set(self.axis_names):
+            return self._groups[self.axis_names]
+        if len(axes) != 1:
+            raise ValueError(f"the mesh has a group for one axis or for all of them, not {axes}")
+        return self._groups[axes]
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, rank={self.rank})"
+
+
+def make_process_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> Mesh:
+    """The mesh of `shape` over the ranks of the default process group
+    (`jax.make_mesh`'s counterpart; one process without one, where every
+    size must be 1). Every rank calls it with the same arguments: it makes
+    each axis's line groups with `dist.new_group` on every rank, in one
+    order. A line of every rank is the default group; a line of one rank
+    has no group."""
+    shape = {name: int(n) for name, n in zip(axis_names, shape, strict=True)}
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if math.prod(shape.values()) != world:
+        raise ValueError(f"mesh {'x'.join(map(str, shape.values()))} != {world} devices")
+    if not dist.is_initialized():
+        return Mesh(shape, 0, {(a,): None for a in shape} | {tuple(shape): None})
+    rank = dist.get_rank()
+    sizes = list(shape.values())
+    groups: dict[tuple[str, ...], Group] = {tuple(shape): dist.group.WORLD}
+    for a, axis in enumerate(shape):
+        stride = math.prod(sizes[a + 1:])
+        if sizes[a] == world:
+            groups[(axis,)] = dist.group.WORLD
+            continue
+        mine = None
+        # The lines along `axis`: every rank whose coordinate on `axis` is 0
+        # starts one.
+        for start in range(world):
+            if (start // stride) % sizes[a]:
+                continue
+            line = [start + i * stride for i in range(sizes[a])]
+            g = dist.new_group(line) if sizes[a] > 1 else None
+            if rank in line:
+                mine = g
+        groups[(axis,)] = mine
+    return Mesh(shape, rank, groups)
+
+
+def make_mesh(cfg: MeshConfig = MeshConfig()) -> Mesh:
+    """The ("dp", "model") mesh of `cfg` over every rank (JAX's
+    `make_mesh`)."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    model = cfg.model
+    dp = n // model if cfg.dp == -1 else cfg.dp
+    if dp * model != n:
+        raise ValueError(f"mesh {dp}x{model} != {n} devices")
+    return make_process_mesh((dp, model), (DP_AXIS, MODEL_AXIS))
 
 
 def multihost_init(coordinator: str, num_processes: int, process_id: int,
@@ -60,6 +180,34 @@ def psum(x: torch.Tensor, group: Group) -> torch.Tensor:
     if group is None:
         return x
     out = x.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+def axis_index(group: Group) -> int:
+    """This rank's index in the group (JAX's `axis_index`); 0 without one."""
+    return 0 if group is None else dist.get_rank(group)
+
+
+def pmax(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """The elementwise maximum of `x` over the group's ranks (a new
+    tensor), or `x` itself without a group."""
+    if group is None:
+        return x
+    out = x.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
+def all_gather(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """[W, *x.shape]: every rank's `x` in rank order (JAX's `all_gather`),
+    through one all-reduce of a zeroed buffer holding `x` in this rank's
+    slot (exact: each slot sums one value and zeros); `x[None]` without a
+    group."""
+    if group is None:
+        return x[None]
+    out = torch.zeros((world_size(group), *x.shape), dtype=x.dtype, device=x.device)
+    out[axis_index(group)].copy_(x)
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out
 

@@ -25,6 +25,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from actor_critic_tpu_torch.parallel.mesh import Group
 from actor_critic_tpu_torch.replay import quantize
 from actor_critic_tpu_torch.tree import tree_leaves, tree_map
 
@@ -88,12 +89,15 @@ def init(example_item: Any, capacity: int, codecs: Optional[Any] = None) -> Repl
     )
 
 
-def add_batch(state: ReplayState, batch: Any, codecs: Optional[Any] = None) -> None:
+def add_batch(state: ReplayState, batch: Any, codecs: Optional[Any] = None,
+              group: Group = None) -> None:
     """Insert a [B, ...] batch at slots (insert_pos + arange(B)) % capacity,
     in place: the stats take the batch first, then each leaf is encoded
     and written by `index_copy_`. A batch larger than the ring keeps its
     newest `capacity` rows (the modulo would otherwise write one slot
-    twice, in no defined order)."""
+    twice, in no defined order). Under dp each rank's ring is its sub-ring
+    (capacity/W, `parallel.dp.replay_specs`) and `group` syncs the codecs'
+    stats across the ranks (`quantize.update_stats`)."""
     if codecs is None:
         _guard_defaulted_codecs(state)
     codecs = _codec_tree(codecs, batch)
@@ -102,7 +106,8 @@ def add_batch(state: ReplayState, batch: Any, codecs: Optional[Any] = None) -> N
     if b > capacity:
         batch = tree_map(lambda x: x[-capacity:], batch)
         b = capacity
-    quant = tree_map(quantize.update_stats, codecs, state.quant, batch)
+    quant = tree_map(lambda kind, stats, x: quantize.update_stats(kind, stats, x, group),
+                     codecs, state.quant, batch)
     idx = (state.insert_pos + torch.arange(b, device=state.size.device)) % capacity
     encoded = tree_map(lambda kind, stats, s, x: quantize.encode(kind, stats, x, s.dtype),
                        codecs, quant, state.storage, batch)

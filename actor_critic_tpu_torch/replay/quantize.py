@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from actor_critic_tpu_torch.algos.common import OffPolicyTransition
+from actor_critic_tpu_torch.parallel.mesh import Group, pmax, pmean
 from actor_critic_tpu_torch.tree import named_leaves, tree_leaves, tree_map
 
 # Leaves whose codec carries running stats.
@@ -109,21 +110,25 @@ def init_stats(kind: str, example_leaf: torch.Tensor) -> QuantStats:
     )
 
 
-def update_stats(kind: str, stats: QuantStats, batch: torch.Tensor) -> QuantStats:
+def update_stats(kind: str, stats: QuantStats, batch: torch.Tensor,
+                 group: Group = None) -> QuantStats:
     """Fold a `[B, ...]` batch into the stats (the same stats for a
     stat-free codec): the mean by cumulative average, the scale by the
     running max of |x − mean| with the floor; both kept once the count has
-    reached `CALIBRATION_TRANSITIONS`."""
+    reached `CALIBRATION_TRANSITIONS`. With a data-parallel `group` the
+    batch mean is pmean'd and the absmax pmax'd over its ranks, so the
+    stats, replicated, stay equal on every rank (each folds its own
+    envs' batch)."""
     if kind not in STAT_KINDS:
         return stats
     x = batch.to(torch.float32)
     axes = tuple(range(x.dim() - stats.mean.dim()))
     b = int(np.prod([x.shape[a] for a in axes]))
-    batch_mean = torch.mean(x, dim=axes)
+    batch_mean = pmean(torch.mean(x, dim=axes), group)
     w = torch.full((), float(b), device=x.device) / torch.clamp(stats.count + b, min=1).to(
         torch.float32)
     mean = stats.mean + (batch_mean - stats.mean) * w
-    absmax = torch.amax(torch.abs(x - mean), dim=axes)
+    absmax = pmax(torch.amax(torch.abs(x - mean), dim=axes), group)
     scale = torch.clamp(torch.maximum(stats.scale, absmax), min=_EPS)
     calibrating = stats.count < CALIBRATION_TRANSITIONS
     return QuantStats(

@@ -85,11 +85,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      float32); a bf16 served policy (`ppo_cartpole`, `ppo_halfcheetah`'s
      shapes), every bucket's graph = its eager act at 0.0;
    then IMPALA's learning check on the two-state MDP, and where a train
-   step's time goes for `a2c_cartpole`, `ppo_cartpole`, `a2c_mixture`,
-   `impala_pong` and `sac_humanoid` on `jax:pendulum` (eager and as graph
-   replays, in the same call; host clock and torch.profiler, V-trace's own
-   time inside the graph), each in float32 and then in bf16, with ms and
-   launches a step compared;
+   step's time goes for `a2c_cartpole`, `ppo_cartpole`, `a2c_mixture` and
+   `impala_pong` (eager and as graph replays in the same call, host clock;
+   torch.profiler on the graph, V-trace's own time inside it), each in
+   float32 and then in bf16, with ms and launches a step compared;
    - the host env path, on each preset's MuJoCo env or the engine's
      Pendulum (as the probe found): `ppo_halfcheetah` at full width (E=8,
      T=256, 10 × 32 minibatches) through `train.main`, the update one
@@ -168,6 +167,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      the gossip run's mailbox (a newer version swapped in with the
      recompile counter unchanged), `/fleetz` listing both, and the proxy
      failing over when replica 1 is killed;
+   - data and sequence parallelism of the fused trainers over a one-rank
+     NCCL group made through `parallel/mesh.py` (the card's machine has one
+     card): `distribute_state` → `make_dp_train_step` → `fused_train_loop`
+     for `a2c_cartpole` (E=4096, T=64) and `impala_pong` (E=64, T=20),
+     graph = eager and dp = the group-less step at 0.0, GAE / V-trace
+     launched once an iteration, the all-reduces inside the capture
+     counted; the dp learners of `td3_walker2d` (int8 ring) and
+     `sac_humanoid` on `jax:pendulum`, graph = eager at 0.0, the
+     quantizer's pmean and pmax counted inside the capture; IMPALA's
+     `make_sp_update` and `make_sp_train_step` at `impala_pong`'s width
+     against the unsharded update and step (tolerances stated, differing
+     elements counted) and their graphs against eager at 0.0, and
+     `seqpar_gae` / `seqpar_vtrace` at [4096, 64] against the kernels, one
+     launch of each a call, device times;
    - telemetry and the stall watchdog: `a2c_cartpole`'s graph-vs-eager
      check and its resume run with the resource sampler reading the card
      every 20 ms through their "global"-mode captures (still 0.0);
@@ -1557,13 +1570,15 @@ def profile_step(preset_name: str, n: int = 3, env_spec: str = "",
     on-policy trainer, host-clock rollout and update times of `n` eager
     steps; then the step run eagerly and, for a capturable trainer, as
     replays of the loop's CUDA graph, each with its host-clock time per
-    step over `n` steps (synchronised) and its device busy time, busy share
-    and kernel launches per step from torch.profiler over `n` more (top
-    kernels for the eager step). The busy share is the busy time over the
-    unprofiled host-clock time. With `bf16` the networks compute in bf16,
-    and for a capturable trainer only the graph is profiled. Returns
-    ({mode: (host-clock ms a step, kernel launches a step, device busy ms a
-    step)}, (state, step, its `CapturedStep`) or None): a graph reads its
+    step over `n` steps (synchronised), and the graph's device busy time,
+    busy share and kernel launches per step from torch.profiler over `n`
+    more (the eager step is not profiled: the profiler's bookkeeping of its
+    ~5,000–51,000 ops a step took longer than the steps). The busy share is
+    the busy time over the unprofiled host-clock time. With `bf16` the
+    networks compute in bf16, and for a capturable trainer only the graph
+    is timed. Returns ({mode: (host-clock ms a step, kernel launches a
+    step, device busy ms a step; None for the eager step's)}, (state,
+    step, its `CapturedStep`) or None): a graph reads its
     state's tensors and generator and the env's tables (which the step
     holds), so all three are kept together."""
     import torch
@@ -1615,6 +1630,11 @@ def profile_step(preset_name: str, n: int = 3, env_spec: str = "",
             fn()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) / n * 1e3
+        if label == "eager":
+            out[label] = (host_ms, None, None)
+            print(f"{name} {label}: {host_ms:.3f} ms/step (host clock, synchronised)",
+                  flush=True)
+            continue
         kernels, wall = profile_kernels(fn, iters=n)
         busy_us = sum(us for _, us in kernels.values())
         launches = sum(c for c, _ in kernels.values())
@@ -1636,10 +1656,6 @@ def profile_step(preset_name: str, n: int = 3, env_spec: str = "",
                 if kernel in key:
                     print(f"{name} {label}: {kernel} {us / count:.3f} us a launch on the "
                           f"device (torch.profiler, {count} launches)", flush=True)
-        if label == "eager":
-            for key, (count, us) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]:
-                print(f"  {us / n:10.1f} us/step {count // n:6d} launches/step  {key[:100]}",
-                      flush=True)
     return out, (state, step, captured) if captured is not None else None
 
 
@@ -2124,7 +2140,7 @@ ASYNC_LOCKSTEP_ITERATIONS = 5    # two eager, a capture, replays
 # outruns the learner, with the GIL deciding) and 250-380 on the device
 # plane, so the gate opens by block ~8 and ~8-13; each run needs it open
 # 5 blocks before its end (at least 167 and 111 env steps a block).
-ASYNC_OFFPOLICY_BLOCKS = {"host": 18, "device": 24}
+ASYNC_OFFPOLICY_BLOCKS = {"host": 12, "device": 24}
 ASYNC_RESUME_BLOCKS = 4
 # Consumed env-steps/s of the async PPO phase's runs, by (plane, codec): the
 # serve-while-training phase's run without --serve-port.
@@ -3893,7 +3909,7 @@ BF16_SAC_ITERATIONS = 6
 BF16_SERVE_PRESETS = ("ppo_cartpole", "ppo_halfcheetah")
 PROFILE_REPLAYS = 10         # graph replays a turn, float32 against bf16
 PROFILE_PRESETS = (("a2c_cartpole", 3, ""), ("ppo_cartpole", 1, ""), ("a2c_mixture", 1, ""),
-                   ("impala_pong", 3, ""), ("sac_humanoid", 1, OFFPOLICY_ENV))
+                   ("impala_pong", 3, ""))
 
 
 def check_tf32() -> None:
@@ -4083,7 +4099,7 @@ def compare_profiles(profiles: dict, replays: dict) -> None:
 
 TELEMETRY_ITERATIONS, TELEMETRY_CHUNK, TELEMETRY_SAVE = 24, 4, 8
 TELEMETRY_TIMING_ITERATIONS = 32  # 6 logged chunks of replays from iteration 8
-TELEMETRY_ROUNDS = 2          # the session's cost: each variant this many times, in turns
+TELEMETRY_ROUNDS = 1          # the session's cost: each variant this many times, in turns
 TELEMETRY_HOST_ITERATIONS = 4  # four replays (warmed)
 TELEMETRY_ASYNC_BLOCKS = 4     # two eager blocks, the capture, a replay
 TELEMETRY_ASYNC_SAMPLE_S = 0.5  # the run takes ~4 s: rows while blocks are consumed
@@ -4494,6 +4510,399 @@ def run_telemetry_serve() -> None:
           f"{', '.join(f'{e['name']} {e['compile_s']:.3f} s' for e in comps)}", flush=True)
 
 
+# -- data and sequence parallelism of the fused trainers (world 1, NCCL) ----
+
+DP_ITERATIONS = 5        # two eager, a capture, then replays
+DP_OFFPOLICY_ITERATIONS = 5  # the same; the gate opens at 4, a replay
+SP_ITERATIONS = 3        # make_sp_update / make_sp_train_step: two eager, a capture + replay
+SEQPAR_T, SEQPAR_E = 4096, 64
+# tests/test_seqpar.py's tolerances: the sharded scans against the plain
+# ones (1e-5), the sp learner update against the unsharded one (params
+# rtol 1e-4, atol 1e-5; loss and mean ρ rtol 1e-5) and the sp train step's
+# parameters (rtol 2e-4, atol 1e-5). At world 1 the sharded V-trace
+# rounds where the kernel does not (B = vs − v, then B + v).
+SEQPAR_TOL = dict(rtol=1e-5, atol=1e-5)
+SP_PARAM_TOL = dict(rtol=1e-4, atol=1e-5)
+SP_TRAIN_TOL = dict(rtol=2e-4, atol=1e-5)
+
+
+@contextlib.contextmanager
+def nccl_world1():
+    """A one-rank NCCL process group on the card for the dp and sp phases
+    (`multihost.distributed_init`), destroyed after them."""
+    import torch.distributed as dist
+
+    from actor_critic_tpu_torch.parallel import launch, multihost
+
+    multihost.distributed_init(f"127.0.0.1:{launch.free_port()}", 1, 0, "cuda")
+    try:
+        assert dist.get_backend() == "nccl", dist.get_backend()
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+class QuantizerCollectives:
+    """Counts the replay quantizer's `pmean` and `pmax` calls issued while a
+    CUDA graph was capturing (`replay/quantize.py` binds both from
+    `parallel/mesh.py`)."""
+
+    def __enter__(self):
+        import torch
+
+        from actor_critic_tpu_torch.replay import quantize
+
+        self.counts = {"pmean": 0, "pmax": 0}
+        self._orig = {k: getattr(quantize, k) for k in self.counts}
+
+        def counting(name):
+            def fn(x, group):
+                if torch.cuda.is_current_stream_capturing():
+                    self.counts[name] += 1
+                return self._orig[name](x, group)
+            return fn
+
+        for k in self.counts:
+            setattr(quantize, k, counting(k))
+        return self
+
+    def __exit__(self, *exc):
+        from actor_critic_tpu_torch.replay import quantize
+
+        for k, fn in self._orig.items():
+            setattr(quantize, k, fn)
+
+
+def run_record(state, metrics) -> dict:
+    """Every carried tensor of `state`, its generator's state and the
+    metrics, by name."""
+    from actor_critic_tpu_torch.algos.common import carried_tensors
+
+    out = dict(carried_tensors(state), generator=state.generator.get_state())
+    out.update({f"metric {k}": v for k, v in metrics.items()})
+    return out
+
+
+def record_diff(a: dict, b: dict) -> tuple[float, str, int, int]:
+    """(max abs difference, where, elements not bitwise equal, tensors) of
+    two records with the same names."""
+    assert sorted(a) == sorted(b), sorted(set(a) ^ set(b))
+    diffs = {k: float((a[k].double() - b[k].double()).abs().max()) for k in a}
+    mismatches = sum(int((a[k] != b[k]).sum()) for k in a)
+    worst = max(diffs, key=diffs.get)
+    return diffs[worst], worst, mismatches, len(a)
+
+
+def run_dp_fused(preset_name: str) -> int:
+    """The data-parallel fused step at a preset's full width over a one-rank
+    NCCL group (`parallel.mesh.make_mesh`): `distribute_state` →
+    `make_dp_train_step(make_train_step(group=...))` → `fused_train_loop`
+    for DP_ITERATIONS iterations (two eager, a capture in "thread_local"
+    mode, replays), three times from one seed: through the graph, eagerly,
+    and the group-less step through the graph, from the same distributed
+    state. Every carried tensor, the metrics and the generator's state:
+    graph = eager and dp = group-less at 0.0 (at world 1 the all-reduces
+    and the ÷1 are exact). The advantage kernel's launches N in N
+    iterations each run; the all-reduces: the first call's replicated-state
+    check (2), one step's worth inside the capture, none from the replays.
+    Returns the kernel's launches through the graph."""
+    import torch
+
+    from actor_critic_tpu_torch import train
+    from actor_critic_tpu_torch.algos import loop
+    from actor_critic_tpu_torch.config import PRESETS
+    from actor_critic_tpu_torch.ops import gae_cuda, vtrace_cuda
+    from actor_critic_tpu_torch.parallel import dp, mesh
+
+    preset = PRESETS[preset_name]
+    mod, cfg = train.ALGOS[preset.algo], preset.config
+    env = train.make_env(preset.env, preset.env_kwargs)
+    kernel = vtrace_cuda if getattr(cfg, "correction", "") == "vtrace" else gae_cuda
+    specs = dp.impala_state_specs() if preset.algo == "impala" else dp.train_state_specs()
+    m = mesh.make_mesh()
+    group = m.group(mesh.DP_AXIS)
+    n = DP_ITERATIONS
+    runs = {}
+    for label, grouped, capturable in (("graph", True, True), ("eager", True, False),
+                                       ("no group", False, True)):
+        state = dp.distribute_state(mod.init_state(env, cfg, seed=2, device="cuda"), m, specs)
+        step = mod.make_train_step(env, cfg, group=group if grouped else None)
+        if grouped:
+            step = dp.make_dp_train_step(step, m, specs)
+        kernel.reset_launch_count()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with AllReduceCounter() as counter:
+            state, metrics = loop.fused_train_loop(
+                mod.make_train_step, mod.init_state, env, cfg, n, state=state,
+                capturable=capturable, train_step=step)
+            torch.cuda.synchronize()
+        runs[label] = (run_record(state, metrics), kernel.launch_count(), counter,
+                       time.perf_counter() - t0, state.update_step)
+    graph, launches, counter, graph_s, steps = runs["graph"]
+    eager_diff = record_diff(graph, runs["eager"][0])
+    alone_diff = record_diff(graph, runs["no group"][0])
+    per_step = counter.captured
+    name = kernel.__name__.rsplit(".", 1)[-1].removesuffix("_cuda")
+    print(f"dp {preset_name} (world 1, NCCL; E={cfg.num_envs}, T={cfg.rollout_steps}), {n} "
+          f"iterations ({loop.WARMUP_ITERATIONS} eager, a capture, replays): graph vs eager max "
+          f"abs difference {eager_diff[0]:.3e} ({eager_diff[2]} elements differ over "
+          f"{eager_diff[3]} tensors), dp vs the group-less step {alone_diff[0]:.3e} "
+          f"({alone_diff[2]} differ); {name} launches {launches} in {n} iterations (eager "
+          f"{runs['eager'][1]}, group-less {runs['no group'][1]}); all-reduces {counter.calls}, "
+          f"{per_step} of them inside the capture (one step's), eager run "
+          f"{runs['eager'][2].calls}; {graph_s:.2f} s (eager {runs['eager'][3]:.2f} s, "
+          f"group-less {runs['no group'][3]:.2f} s)", flush=True)
+    assert eager_diff[0] == 0.0 and alone_diff[0] == 0.0, (eager_diff, alone_diff)
+    assert steps == n and launches == runs["eager"][1] == runs["no group"][1] == n, runs
+    assert per_step > 0 and counter.calls == 2 + (loop.WARMUP_ITERATIONS + 1) * per_step, \
+        (counter.calls, per_step)
+    assert runs["eager"][2].calls == 2 + n * per_step, (runs["eager"][2].calls, per_step)
+    assert runs["no group"][2].calls == 0
+    return launches
+
+
+def run_dp_offpolicy() -> None:
+    """The data-parallel off-policy learners at full width on Pendulum over
+    a one-rank NCCL group: `td3_walker2d`'s with the int8 ring and
+    `sac_humanoid`'s (float32 ring), distributed with their layouts,
+    DP_OFFPOLICY_ITERATIONS iterations through the graph and eagerly
+    from one seed (warm-up cut to OFFPOLICY_GRAPH_WARMUP: the gate opens
+    on a replay). Graph = eager at 0.0 (every carried tensor: the 1M ring
+    and its stats, nets, targets, Adam states, log α, counts; the metrics,
+    the generator); the quantizer's pmean and pmax captured in the step's
+    graph (one each per `i8` leaf: obs, reward, next_obs), none for the
+    float32 ring; the gradient all-reduces inside the capture."""
+    import torch
+
+    from actor_critic_tpu_torch.algos import loop
+    from actor_critic_tpu_torch.parallel import dp, mesh
+
+    m = mesh.make_mesh()
+    group = m.group(mesh.DP_AXIS)
+    n = DP_OFFPOLICY_ITERATIONS
+    for preset_name, overrides, specs, i8_leaves in (
+            ("td3_walker2d", {"replay_dtype": "int8"}, dp.offpolicy_state_specs(), 3),
+            ("sac_humanoid", {}, dp.sac_state_specs(), 0)):
+        mod, cfg, env = offpolicy_setup(preset_name, warmup_steps=OFFPOLICY_GRAPH_WARMUP,
+                                        **overrides)
+        runs = {}
+        for capturable in (True, False):
+            state = dp.distribute_state(mod.init_state(env, cfg, seed=5, device="cuda"), m, specs)
+            step = dp.make_dp_train_step(mod.make_train_step(env, cfg, group=group), m, specs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with AllReduceCounter() as counter, QuantizerCollectives() as quant:
+                state, metrics = loop.fused_train_loop(
+                    mod.make_train_step, mod.init_state, env, cfg, n, state=state,
+                    capturable=capturable, train_step=step)
+                torch.cuda.synchronize()
+            runs[capturable] = (run_record(state, metrics), counter, quant.counts,
+                                time.perf_counter() - t0, state)
+        graph, counter, quant, graph_s, state = runs[True]
+        diff = record_diff(graph, runs[False][0])
+        ring = state.learner.replay
+        print(f"dp {preset_name} learner on {OFFPOLICY_ENV} (world 1, NCCL; ring "
+              f"{cfg.replay_dtype}, {ring.storage.obs.shape[0]} rows, batch {cfg.batch_size}, "
+              f"{cfg.updates_per_iter} updates an iteration), {n} iterations: graph vs eager "
+              f"max abs difference {diff[0]:.3e} ({diff[2]} elements differ over {diff[3]} "
+              f"tensors); update_count {int(state.learner.update_count)}; quantizer collectives "
+              f"inside the capture: pmean {quant['pmean']}, pmax {quant['pmax']}; all-reduces "
+              f"{counter.calls}, {counter.captured} inside the capture; {graph_s:.2f} s (eager "
+              f"{runs[False][3]:.2f} s)", flush=True)
+        assert diff[0] == 0.0, diff
+        assert quant == {"pmean": i8_leaves, "pmax": i8_leaves}, quant
+        assert counter.captured >= 2 * cfg.updates_per_iter, counter.captured
+        assert int(state.learner.update_count) > 0
+
+
+def graph_replay_ms(fn, iters: int = 50) -> float:
+    """Device ms of one call of `fn` as a replay of a CUDA graph captured
+    from it ("thread_local" mode, beside NCCL's watchdog): its kernels back
+    to back with no host gap between them, CUDA events over `iters`
+    replays, after three eager calls on a side stream."""
+    import torch
+
+    from actor_critic_tpu_torch.algos import loop
+
+    side, current = torch.cuda.Stream(), torch.cuda.current_stream()
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    current.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with loop.capture(graph, capture_error_mode="thread_local"):
+        fn()
+    return cuda_ms(graph.replay, iters)
+
+
+def run_sp_impala() -> dict[str, int]:
+    """The sequence-parallel IMPALA learner at `impala_pong`'s full width
+    (E=64, T=20, the Nature CNN) over a one-rank NCCL sp group
+    (`seqpar.make_sp_mesh`), and `seqpar_gae` / `seqpar_vtrace` at a long
+    T:
+
+    - `make_sp_update` (eager) on a rollout against the unsharded
+      `impala_loss` + RMSProp step from the same parameters, within
+      SP_PARAM_TOL (elements that differ counted); V-trace launched once;
+    - `make_sp_update` SP_ITERATIONS calls through its graph against as
+      many eager: 0.0; V-trace SP_ITERATIONS in SP_ITERATIONS;
+    - `make_sp_train_step` SP_ITERATIONS iterations through its graph
+      against its eager step (0.0) and against `make_train_step`
+      (SP_TRAIN_TOL);
+    - `seqpar_gae` / `seqpar_vtrace` at [SEQPAR_T, SEQPAR_E] against the
+      kernels (SEQPAR_TOL, differing elements counted), one launch of each
+      kernel a call, and each call's device time against the kernel's
+      (`graph_replay_ms`; the suffix products along both axes too).
+    Returns the kernels' launches on these paths."""
+    import copy
+
+    import torch
+
+    from actor_critic_tpu_torch import train
+    from actor_critic_tpu_torch.algos import impala, loop
+    from actor_critic_tpu_torch.config import PRESETS
+    from actor_critic_tpu_torch.ops import gae_cuda, vtrace_cuda
+    from actor_critic_tpu_torch.parallel import seqpar
+
+    preset = PRESETS["impala_pong"]
+    cfg = preset.config
+    env = train.make_env(preset.env, preset.env_kwargs)
+    m = seqpar.make_sp_mesh()
+    group = m.group(seqpar.SP_AXIS)
+    state = impala.init_state(env, cfg, seed=3, device="cuda")
+    traj = impala.rollout(env, cfg, state)
+    boot = state.rollout.obs.clone()
+    opt = impala.make_optimizer(cfg)
+
+    def learner():
+        net = copy.deepcopy(state.net)
+        return net, opt.init(dict(net.named_parameters()))
+
+    def params(net):
+        return {k: p.detach().clone() for k, p in net.named_parameters()}
+
+    net_u, opt_u = learner()
+    loss, metrics_u = impala.impala_loss(net_u, traj, boot, cfg, env.spec.can_truncate)
+    pu = dict(net_u.named_parameters())
+    opt.step(pu, dict(zip(pu, torch.autograd.grad(loss, list(pu.values())))), opt_u)
+    update = impala.make_sp_update(env, cfg, m)
+    net_s, opt_s = learner()
+    vtrace_cuda.reset_launch_count()
+    metrics_s = update.eager(net_s, opt_s, traj, boot)
+    one_call = vtrace_cuda.launch_count()
+    want, got = params(net_u), params(net_s)
+    worst = max(float((got[k] - want[k]).abs().max()) for k in want)
+    differ = sum(int((got[k] != want[k]).sum()) for k in want)
+    total = sum(v.numel() for v in want.values())
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], **SP_PARAM_TOL, msg=k)
+    for k in ("loss", "mean_rho"):
+        torch.testing.assert_close(metrics_s[k], metrics_u[k], rtol=1e-5, atol=0.0, msg=k)
+
+    records = {}
+    for label in ("graph", "eager"):
+        net, opt_state = learner()
+        fn = update if label == "graph" else update.eager
+        vtrace_cuda.reset_launch_count()
+        for _ in range(SP_ITERATIONS):
+            metrics = fn(net, opt_state, traj, boot)
+        torch.cuda.synchronize()
+        records[label] = (dict(params(net), **{f"metric {k}": v.clone() for k, v in
+                                               metrics.items()}), vtrace_cuda.launch_count())
+    update_diff = record_diff(records["graph"][0], records["eager"][0])
+
+    train_runs = {}
+    for label, make in (("graph", lambda: impala.make_sp_train_step(env, cfg, m)),
+                        ("eager", lambda: impala.make_sp_train_step(env, cfg, m).eager),
+                        ("unsharded", lambda: impala.make_train_step(env, cfg))):
+        s = impala.init_state(env, cfg, seed=4, device="cuda")
+        step = make()
+        vtrace_cuda.reset_launch_count()
+        for _ in range(SP_ITERATIONS):
+            s, metrics = step(s)
+        torch.cuda.synchronize()
+        train_runs[label] = (run_record(s, metrics), vtrace_cuda.launch_count())
+    train_diff = record_diff(train_runs["graph"][0], train_runs["eager"][0])
+    sp_rec, ref_rec = train_runs["graph"][0], train_runs["unsharded"][0]
+    train_worst = max(float((sp_rec[k] - ref_rec[k]).abs().max()) for k in sp_rec
+                      if k.startswith(("param ", "actor_net ")))
+    train_differ = sum(int((sp_rec[k] != ref_rec[k]).sum()) for k in sp_rec
+                       if k.startswith(("param ", "actor_net ")))
+    for k in sp_rec:
+        if k.startswith(("param ", "actor_net ")):
+            torch.testing.assert_close(sp_rec[k], ref_rec[k], **SP_TRAIN_TOL, msg=k)
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    T, E = SEQPAR_T, SEQPAR_E
+    rand = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    r, v, b = rand(T, E), rand(T, E), rand(E)
+    d = (torch.rand((T, E), generator=gen, device="cuda") < 0.01).float()
+    tlp, blp = 0.3 * rand(T, E), 0.3 * rand(T, E)
+    gae_cuda.reset_launch_count()
+    vtrace_cuda.reset_launch_count()
+    sp_adv, sp_ret = seqpar.seqpar_gae(r, v, d, b, GAMMA, LAM, group=group)
+    sp_vt = seqpar.seqpar_vtrace(tlp, blp, r, v, d, b, GAMMA, 1.0, 1.0, 0.9, group=group)
+    torch.cuda.synchronize()
+    seqpar_launches = (gae_cuda.launch_count(), vtrace_cuda.launch_count())
+    k_adv, k_ret = gae_cuda.gae(r, v, d, b, GAMMA, LAM)
+    k_vt = vtrace_cuda.vtrace(tlp, blp, r, v, d, b, GAMMA, 1.0, 1.0, 0.9)
+    scan_pairs = {"gae advantages": (sp_adv, k_adv), "gae returns": (sp_ret, k_ret),
+                  "vtrace vs": (sp_vt.vs, k_vt.vs), "vtrace pg": (sp_vt.pg_advantages,
+                                                                  k_vt.pg_advantages),
+                  "vtrace rho": (sp_vt.clipped_rhos, k_vt.clipped_rhos)}
+    scan_report = []
+    for label, (a, k) in scan_pairs.items():
+        torch.testing.assert_close(a, k, **SEQPAR_TOL, msg=label)
+        scan_report.append(f"{label} {float((a - k).abs().max()):.3e} "
+                           f"({int((a != k).sum())} of {a.numel()} differ)")
+    timed = {
+        "seqpar_gae": lambda: seqpar.seqpar_gae(r, v, d, b, GAMMA, LAM, group=group),
+        "gae": lambda: gae_cuda.gae(r, v, d, b, GAMMA, LAM),
+        "seqpar_vtrace": lambda: seqpar.seqpar_vtrace(tlp, blp, r, v, d, b, GAMMA, 1.0, 1.0,
+                                                      0.9, group=group),
+        "vtrace": lambda: vtrace_cuda.vtrace(tlp, blp, r, v, d, b, GAMMA, 1.0, 1.0, 0.9),
+    }
+    # The suffix products along the leading axis, the layout seqpar does not use.
+    a = GAMMA * LAM * (1.0 - d)
+    timed["suffix products, leading axis"] = \
+        lambda: torch.flip(torch.cumprod(torch.flip(a, [0]), 0), [0])
+    timed["suffix products, seqpar's"] = lambda: seqpar._suffix_products(a)
+    torch.testing.assert_close(timed["suffix products, seqpar's"](),
+                               timed["suffix products, leading axis"](), rtol=1e-6, atol=1e-6)
+    replay_ms = {label: graph_replay_ms(fn) for label, fn in timed.items()}
+    sp_gae_ms, gae_ms, sp_vt_ms, vt_ms = (cuda_ms(timed[k], 20) for k in
+                                          ("seqpar_gae", "gae", "seqpar_vtrace", "vtrace"))
+
+    print(f"sp impala_pong (world 1, NCCL; E={cfg.num_envs}, T={cfg.rollout_steps}): "
+          f"make_sp_update against the unsharded update, one call: params max abs difference "
+          f"{worst:.3e} ({differ} of {total} elements differ; tolerance rtol "
+          f"{SP_PARAM_TOL['rtol']}, atol {SP_PARAM_TOL['atol']}), loss {float(metrics_s['loss']):.6f} "
+          f"against {float(metrics_u['loss']):.6f}, V-trace launches {one_call} in 1 call; "
+          f"{SP_ITERATIONS} calls through its graph against eager: {update_diff[0]:.3e} "
+          f"({update_diff[2]} differ), V-trace {records['graph'][1]} in {SP_ITERATIONS}; "
+          f"make_sp_train_step {SP_ITERATIONS} iterations through its graph against eager "
+          f"{train_diff[0]:.3e} ({train_diff[2]} differ over {train_diff[3]} tensors), against "
+          f"make_train_step params {train_worst:.3e} ({train_differ} differ; rtol "
+          f"{SP_TRAIN_TOL['rtol']}, atol {SP_TRAIN_TOL['atol']}), V-trace "
+          f"{train_runs['graph'][1]} in {SP_ITERATIONS}", flush=True)
+    print(f"seqpar at [{T}, {E}] (world 1, NCCL) against the kernels: {'; '.join(scan_report)} "
+          f"(tolerance rtol {SEQPAR_TOL['rtol']}, atol {SEQPAR_TOL['atol']}); launches in one "
+          f"call each: GAE {seqpar_launches[0]}, V-trace {seqpar_launches[1]}; a call as a "
+          f"CUDA graph replay (device time, CUDA events, mean of 50 replays): "
+          f"{'; '.join(f'{k} {ms * 1e3:.1f} us' for k, ms in replay_ms.items())}; back to "
+          f"back eagerly (CUDA events, mean of 20, the host's launches included): seqpar_gae "
+          f"{sp_gae_ms:.4f} ms, gae {gae_ms:.4f} ms, seqpar_vtrace {sp_vt_ms:.4f} ms, vtrace "
+          f"{vt_ms:.4f} ms", flush=True)
+    assert one_call == 1, one_call
+    assert update_diff[0] == 0.0 and records["graph"][1] == records["eager"][1] == SP_ITERATIONS
+    assert train_diff[0] == 0.0 and train_runs["graph"][1] == SP_ITERATIONS, train_runs["graph"][1]
+    assert seqpar_launches == (1, 1), seqpar_launches
+    return {"gae": seqpar_launches[0],
+            "vtrace": one_call + records["graph"][1] + train_runs["graph"][1] + seqpar_launches[1]}
+
+
 def phase(label: str, fn, *args, **kwargs):
     """`fn(*args, **kwargs)`, its host seconds printed after it as `phase
     <label>: <s> s` (the script's time budget is read off these lines)."""
@@ -4601,6 +5010,11 @@ def main() -> int:
                        host_envs["ppo_halfcheetah"])
     phase("multihost sync world 2", run_multihost_sync_world2, host_envs["ppo_halfcheetah"])
     phase("serving fleet", run_serving_fleet, host_envs["ppo_halfcheetah"])
+    with nccl_world1():
+        dp_gae = phase("dp a2c_cartpole", run_dp_fused, "a2c_cartpole")
+        dp_vtrace = phase("dp impala_pong", run_dp_fused, "impala_pong")
+        phase("dp off-policy", run_dp_offpolicy)
+        sp_launches = phase("sp impala_pong", run_sp_impala)
     report = phase("telemetry a2c_cartpole", run_telemetry_a2c)
     phase("telemetry host and async", run_telemetry_host_async, host_envs["ppo_halfcheetah"])
     phase("stall on the card, telemetry serve beside it", run_stall_on_card, run_telemetry_serve)
@@ -4621,12 +5035,17 @@ def main() -> int:
     by_path = {"gae": {"a2c_cartpole": launches["gae"], "host ppo_halfcheetah": host_gae,
                        **{f"multihost gossip ppo_halfcheetah (world 2, rank {r}, correction "
                           f"none)": n for r, n in gossip_gae.items()},
-                       **bf16_by_path["gae"]},
+                       **bf16_by_path["gae"],
+                       "dp a2c_cartpole (world 1, NCCL)": dp_gae,
+                       "sp seqpar_gae [4096, 64] (world 1, NCCL)": sp_launches["gae"]},
                "vtrace": {"impala_pong": launches["vtrace"],
                           "async ppo_halfcheetah (host plane)": async_vtrace,
                           "serve-while-training ppo_halfcheetah (device plane)": serve_vtrace,
                           "multihost sync ppo_halfcheetah (world 1, NCCL)": sync_vtrace,
-                          **bf16_by_path["vtrace"]}}
+                          **bf16_by_path["vtrace"],
+                          "dp impala_pong (world 1, NCCL)": dp_vtrace,
+                          "sp impala_pong update, train step and seqpar_vtrace (world 1, NCCL)":
+                              sp_launches["vtrace"]}}
     for e in entries:
         e["launches"] = launches[e["name"]]
         e["launches_by_path"] = by_path[e["name"]]

@@ -154,11 +154,15 @@ def test_registry_covers_every_capture_site(capsys):
     assert warmup_lint.main([]) == 0, capsys.readouterr().err
     sites = warmup_lint.collect_sites()
     # The sites the port has: the fused loop, the host update and its four
-    # trainers, the blocked evals, the serving engine's lanes.
+    # trainers, the blocked evals, the serving engine's lanes, and IMPALA's
+    # sequence-parallel learner (exempt, as JAX's).
     assert {"loop.fused_train_loop", "loop.warm_up", "host_loop.HostUpdate", "ppo.train_host",
             "ppo.train_host_async", "host_loop.off_policy_train_host",
             "host_loop.off_policy_train_host_async", "common.BlockedEval",
-            "common.make_net_eval", "engine._Lane"} == set(sites)
+            "common.make_net_eval", "engine._Lane", "impala.make_sp_update",
+            "impala.make_sp_train_step"} == set(sites)
+    assert set(compile_cache.EXEMPT) == {"impala.make_sp_update", "impala.make_sp_train_step"}
+    assert set(compile_cache.EXEMPT) <= set(jax_cc.EXEMPT)
 
 
 def test_lint_flags_unregistered_sites(tmp_path):
