@@ -226,6 +226,10 @@ def host_collect(
             f"buffers hold {buffers.num_steps}-step blocks, collect asked for {num_steps}")
     buffers.begin_block()
     record = buffers.record
+    # The sharded pool's workers buffer a span record a step; while a
+    # session is installed they are relayed after the block under the
+    # workers' own pids (0 records for a pool without workers).
+    drain_fn = getattr(pool, "drain_telemetry", None) if telemetry.current() is not None else None
     # One span per block, not per pool step: the breakdown needs the
     # block's total, not millions of micro-events.
     with telemetry.span("env_step", steps=num_steps):
@@ -243,6 +247,13 @@ def host_collect(
             record(t, "final_obs", out.final_obs)
             tracker.update(out.raw_reward, out.done)
             obs = out.obs
+    if drain_fn is not None:
+        try:
+            drain_fn()
+        except RuntimeError:
+            raise  # a dead worker: the same contract as a failed step
+        except Exception:
+            pass  # telemetry never takes the run down
     return obs, buffers.block()
 
 

@@ -282,10 +282,7 @@ class PolicyPublisher:
         self._version = int(version)
 
     def publish(self, params: Any, version: int) -> None:
-        bad = numguard.nonfinite_paths(params, "params")
-        if bad:
-            raise NonFiniteError(
-                f"behaviour-params publish refused: non-finite values at {', '.join(bad[:6])}")
+        numguard.check_finite(params, "behavior-params publish", name="params")
         snapshot = snapshot_frozen(params)  # copy OUTSIDE the lock
         with self._cv:
             self._params = snapshot

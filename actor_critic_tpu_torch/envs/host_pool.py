@@ -10,30 +10,22 @@ MuJoCo preprocessing: running mean/std observation normalization
 checkpointed through `get_state`/`set_state`. The pool is plain numpy, so
 its outputs are the JAX package's pool's to the bit.
 
-Not ported yet (Queue 1, "the sharded host pool"): `workers > 1` (the
-sharded multi-process pool) and `pixel_preprocess` (the Atari pixel
-wrappers); both raise.
+`workers=W > 1` shards the gym backend's E envs over W worker processes
+(`envs/shard_pool.py`: shared-memory step exchange, global per-env seeding,
+SAME_STEP auto-reset per shard), with trajectories and normalizer
+statistics equal to `workers=1` at fixed seeds; `pixel_preprocess` wraps
+every gym env in `envs/pixel_wrappers.PixelPreprocess`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 
 from actor_critic_tpu_torch.envs.env import EnvSpec
-
-NOT_PORTED = "not ported yet (it comes with the sharded host pool, a later slice)"
-
-
-def make_host_env(env_id: str, env_kwargs: dict, pixel_preprocess: bool = False):
-    """One gym env exactly as the pool's gym backend builds it."""
-    if pixel_preprocess:
-        raise NotImplementedError(f"pixel_preprocess is {NOT_PORTED}")
-    import gymnasium as gym
-
-    return gym.make(env_id, **env_kwargs)
+from actor_critic_tpu_torch.envs.shard_pool import make_host_env
 
 
 class RunningMeanStd:
@@ -99,7 +91,10 @@ class HostEnvPool:
     resumed run.
 
     `backend`: "gym" (a gymnasium SyncVectorEnv, SAME_STEP auto-reset) or
-    "native" (the C++ engine, `envs/native_pool.py`).
+    "native" (the C++ engine, `envs/native_pool.py`). `workers=W > 1`
+    shards the gym backend over W processes (`envs/shard_pool.py`), with
+    `worker_env_kwargs` (one dict or None a worker) merged over
+    `env_kwargs` in each; `workers=1` is the in-process SyncVectorEnv.
     """
 
     def __init__(
@@ -117,29 +112,45 @@ class HostEnvPool:
         scale_actions: bool = False,
         env_kwargs: dict | None = None,
         workers: int = 1,
+        worker_env_kwargs: list[dict | None] | None = None,
     ):
         self.env_id = env_id
         self.num_envs = num_envs
         env_kwargs = dict(env_kwargs or {})
-        if pixel_preprocess:
-            raise NotImplementedError(f"pixel_preprocess is {NOT_PORTED}")
-        if workers < 1:
-            raise ValueError(f"workers must be >= 1, got {workers}")
-        if workers > 1:
-            raise NotImplementedError(f"workers > 1 is {NOT_PORTED}")
+        if pixel_preprocess and backend != "gym":
+            raise ValueError("pixel_preprocess applies to the gym backend only")
+        if worker_env_kwargs is not None and workers <= 1:
+            raise ValueError(
+                "worker_env_kwargs needs the sharded gym backend "
+                "(workers > 1); with one process pass env_kwargs")
         if env_kwargs and backend != "gym":
             raise ValueError("env_kwargs go to gym.make; the native engine takes none")
+        if workers < 1:
+            raise ValueError(f"workers must be >= 1, got {workers}")
+        if workers > 1 and backend != "gym":
+            raise ValueError(
+                "workers applies to the gym backend only (the native "
+                "engine already steps the whole batch in one C call)")
+        self._workers = int(workers)
         if backend == "native":
             from actor_critic_tpu_torch.envs.native_pool import NativeVecEnv
 
             self._envs = NativeVecEnv(env_id, num_envs)
         elif backend == "gym":
-            from gymnasium.vector import AutoresetMode, SyncVectorEnv
+            if self._workers > 1:
+                from actor_critic_tpu_torch.envs.shard_pool import ShardedVecEnv
 
-            self._envs = SyncVectorEnv(
-                [(lambda: make_host_env(env_id, env_kwargs)) for _ in range(num_envs)],
-                autoreset_mode=AutoresetMode.SAME_STEP,
-            )
+                self._envs = ShardedVecEnv(
+                    env_id, num_envs, workers=self._workers, env_kwargs=env_kwargs,
+                    pixel_preprocess=pixel_preprocess, worker_env_kwargs=worker_env_kwargs)
+            else:
+                from gymnasium.vector import AutoresetMode, SyncVectorEnv
+
+                self._envs = SyncVectorEnv(
+                    [(lambda: make_host_env(env_id, env_kwargs, pixel_preprocess))
+                     for _ in range(num_envs)],
+                    autoreset_mode=AutoresetMode.SAME_STEP,
+                )
         else:
             raise ValueError(f"backend must be 'gym' or 'native', got {backend!r}")
         try:
@@ -156,13 +167,15 @@ class HostEnvPool:
             if scale_actions and not scalable_bounds(self._discrete, self._act_low, self._act_high):
                 raise ValueError("scale_actions needs a finite continuous action Box")
         except Exception:
+            # A sharded backend holds worker processes and a gauge.
             self._envs.close()
             raise
         self._scale_actions = scale_actions
         if scale_actions:
             self._act_mid = 0.5 * (self._act_high + self._act_low)
             self._act_half = 0.5 * (self._act_high - self._act_low)
-        # Observations reach the trainers as float32 (MuJoCo emits float64).
+        # Observations reach the trainers as float32 (MuJoCo emits float64),
+        # uint8 pixel frames as uint8 (the CNN scales them).
         self.spec = EnvSpec(
             obs_shape=tuple(obs_space.shape),
             action_dim=action_dim,
@@ -180,6 +193,7 @@ class HostEnvPool:
         self.ret_rms = RunningMeanStd(())
         self._returns = np.zeros(num_envs, np.float64)
         self._backend = backend
+        self._pixel_preprocess = pixel_preprocess
         self._env_kwargs = env_kwargs
 
     @property
@@ -198,13 +212,16 @@ class HostEnvPool:
         """A companion pool for greedy evaluation: the same env and backend,
         the SAME obs-normalization statistics (shared by reference, and
         frozen: eval sees the training policy's input distribution), raw
-        rewards, fresh episodes."""
+        rewards, fresh episodes. It inherits the sharding, capped by its
+        smaller E, but not `worker_env_kwargs`: an eval pool is uniform."""
         pool = HostEnvPool(
             self.env_id, num_envs, seed=seed,
             normalize_obs=self._normalize_obs, normalize_reward=False,
             clip_obs=self._clip_obs, gamma=self._gamma,
-            backend=self._backend, scale_actions=self._scale_actions,
+            backend=self._backend, pixel_preprocess=self._pixel_preprocess,
+            scale_actions=self._scale_actions,
             env_kwargs=self._env_kwargs,
+            workers=min(self._workers, num_envs),
         )
         pool.obs_rms = self.obs_rms  # aliased on purpose; frozen below
         pool._frozen_stats = True
@@ -252,8 +269,8 @@ class HostEnvPool:
         raw_obs = np.asarray(obs)
         fos = info.get("final_obs")
         if isinstance(fos, np.ndarray) and fos.dtype != object:
-            # The native engine: a dense [E, ...] array, right for the
-            # envs that did not end too.
+            # The native engine and the sharded pool: a dense [E, ...]
+            # array, right for the envs that did not end too.
             final_obs = fos.astype(raw_obs.dtype, copy=False)
         else:
             # gymnasium: an object array of optional rows (or none ended).
@@ -280,6 +297,19 @@ class HostEnvPool:
             terminated=term.astype(np.float32),
             final_obs=nfinal,
         )
+
+    # -- telemetry ---------------------------------------------------------
+    def drain_telemetry(self) -> int:
+        """Relay the sharded backend's buffered per-worker span records into
+        the installed telemetry session (`envs/shard_pool.py`); 0 for
+        backends without worker processes."""
+        fn = getattr(self._envs, "drain_telemetry", None)
+        return 0 if fn is None else fn()
+
+    def worker_stats(self) -> Optional[list[dict]]:
+        """Per-worker step accounting (the sharded backend only)."""
+        fn = getattr(self._envs, "worker_stats", None)
+        return None if fn is None else fn()
 
     # -- checkpointable state --------------------------------------------
     def get_state(self) -> dict[str, Any]:

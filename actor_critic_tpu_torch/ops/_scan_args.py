@@ -83,3 +83,21 @@ def check_scan_inputs(
     if first.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {first.device}")
     return T, E
+
+
+def scan_outputs(out, n: int, like: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The `n` [T, E] float32 output planes of a scan: the caller's `out`
+    (checked: contiguous, `like`'s shape and device; the kernel writes every
+    element and nothing beyond) or fresh ones when None."""
+    if out is None:
+        return tuple(torch.empty_like(like) for _ in range(n))
+    out = tuple(out)
+    if len(out) != n:
+        raise ValueError(f"out must hold {n} tensors, got {len(out)}")
+    for i, x in enumerate(out):
+        if x.shape != like.shape or x.dtype != torch.float32 or x.device != like.device:
+            raise ValueError(f"out[{i}] must be float32 {tuple(like.shape)} on {like.device}, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"out[{i}] must be contiguous")
+    return out

@@ -23,7 +23,7 @@ import ctypes
 import torch
 
 from actor_critic_tpu_torch.ops import returns as _returns
-from actor_critic_tpu_torch.ops._scan_args import check_scan_inputs, scan_geometry
+from actor_critic_tpu_torch.ops._scan_args import check_scan_inputs, scan_geometry, scan_outputs
 
 # The devices the wrapper launched the kernel on; the kernel counts its
 # launches there itself.
@@ -67,22 +67,28 @@ def gae(
     bootstrap_value: torch.Tensor,
     gamma: float,
     lam: float,
+    out: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(advantages, returns), each [T, E] float32, from [T, E] float32
-    rewards/values/dones and an [E] bootstrap value."""
+    rewards/values/dones and an [E] bootstrap value; written into `out`
+    (two [T, E] float32 tensors) when given."""
     rewards, values, dones, bootstrap_value = (
         x.detach() for x in (rewards, values, dones, bootstrap_value)
     )
     T, E = check_scan_inputs(
         {"rewards": rewards, "values": values, "dones": dones}, bootstrap_value
     )
+    adv, ret = scan_outputs(out, 2, rewards)
     if rewards.device.type == "cpu":
-        return _returns.gae(rewards, values, dones, bootstrap_value, gamma, lam)
+        plain = _returns.gae(rewards, values, dones, bootstrap_value, gamma, lam)
+        if out is None:
+            return plain
+        adv.copy_(plain[0])
+        ret.copy_(plain[1])
+        return adv, ret
 
     planes = (rewards, values, dones)
     geometry = scan_geometry(T, E, len(planes), aligned=all(x.data_ptr() % 16 == 0 for x in planes))
-    adv = torch.empty_like(rewards)
-    ret = torch.empty_like(rewards)
     launch = _bind()
     with torch.cuda.device(rewards.device):
         stream = torch.cuda.current_stream(rewards.device).cuda_stream

@@ -24,7 +24,7 @@ import ctypes
 import torch
 
 from actor_critic_tpu_torch.ops import returns as _returns
-from actor_critic_tpu_torch.ops._scan_args import check_scan_inputs, scan_geometry
+from actor_critic_tpu_torch.ops._scan_args import check_scan_inputs, scan_geometry, scan_outputs
 
 # The devices the wrapper launched the kernel on; the kernel counts its
 # launches there itself.
@@ -70,22 +70,29 @@ def vtrace(
     rho_bar: float = 1.0,
     c_bar: float = 1.0,
     lam: float = 1.0,
+    out: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
 ) -> _returns.VTraceOutput:
     """(vs, pg_advantages, clipped_rhos), each [T, E] float32, from [T, E]
-    float32 log-probs/rewards/values/dones and an [E] bootstrap value."""
+    float32 log-probs/rewards/values/dones and an [E] bootstrap value;
+    written into `out` (three [T, E] float32 tensors) when given."""
     args = [x.detach() for x in (target_log_probs, behaviour_log_probs, rewards, values, dones)]
     bootstrap_value = bootstrap_value.detach()
     T, E = check_scan_inputs(
         dict(zip(("target_log_probs", "behaviour_log_probs", "rewards", "values", "dones"), args)),
         bootstrap_value,
     )
+    vs, pg, rho = scan_outputs(out, 3, args[2])
     if rewards.device.type == "cpu":
-        return _returns.vtrace(*args, bootstrap_value, gamma, rho_bar, c_bar, lam)
+        plain = _returns.vtrace(*args, bootstrap_value, gamma, rho_bar, c_bar, lam)
+        if out is None:
+            return plain
+        for dst, src in zip((vs, pg, rho), plain):
+            dst.copy_(src)
+        return _returns.VTraceOutput(vs=vs, pg_advantages=pg, clipped_rhos=rho)
 
     # One scratch plane in shared memory: the chunk's δ.
     geometry = scan_geometry(T, E, len(args), scratch_planes=1,
                              aligned=all(x.data_ptr() % 16 == 0 for x in args))
-    vs, pg, rho = (torch.empty_like(args[2]) for _ in range(3))
     launch = _bind()
     with torch.cuda.device(rewards.device):
         stream = torch.cuda.current_stream(rewards.device).cuda_stream

@@ -28,10 +28,10 @@ this one along that axis, which the trainers take where JAX names the
 axis. `group()` of every axis is the whole mesh. `PartitionSpec` is JAX's
 `P`, the marker `parallel/dp.py`'s layouts are written in.
 
-`all_gather` and `pmax` complete JAX's collectives: both go through one
-all-reduce (`all_gather` sums a zeroed [W, ...] buffer holding this rank's
-value in its own slot, which is exact, and runs on NCCL and gloo alike,
-inside a CUDA graph too).
+`all_gather` and `pmax` complete JAX's collectives: `pmax` is one MAX
+all-reduce, `all_gather` a real gather that moves every rank's bits as they
+are (NCCL's `all_gather_into_tensor`, captured in a CUDA graph too; gloo's
+`all_gather`).
 """
 
 from __future__ import annotations
@@ -200,16 +200,21 @@ def pmax(x: torch.Tensor, group: Group) -> torch.Tensor:
 
 
 def all_gather(x: torch.Tensor, group: Group) -> torch.Tensor:
-    """[W, *x.shape]: every rank's `x` in rank order (JAX's `all_gather`),
-    through one all-reduce of a zeroed buffer holding `x` in this rank's
-    slot (exact: each slot sums one value and zeros); `x[None]` without a
-    group."""
+    """[W, *x.shape]: every rank's `x` in rank order, each bit as it was
+    sent (JAX's `all_gather`: a −0.0 keeps its sign, a NaN or an inf stays
+    in its own slot); `x[None]` without a group. NCCL gathers into one
+    [W, ...] tensor (`all_gather_into_tensor`, which a CUDA graph
+    captures); gloo into a tensor a rank, stacked after."""
     if group is None:
         return x[None]
-    out = torch.zeros((world_size(group), *x.shape), dtype=x.dtype, device=x.device)
-    out[axis_index(group)].copy_(x)
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-    return out
+    x = x.contiguous()
+    if dist.get_backend(group) == "nccl":
+        out = torch.empty((world_size(group), *x.shape), dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(out, x, group=group)
+        return out
+    parts = [torch.empty_like(x) for _ in range(world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.stack(parts)
 
 
 def pmean(x: torch.Tensor, group: Group) -> torch.Tensor:

@@ -129,8 +129,10 @@ and `--telemetry-dir` (`<dir>/host<R>/`), and its trace lane is
 `host<R>`. `python -m actor_critic_tpu_torch.parallel.launch` spawns a
 local fleet.
 
-Not ported yet, and refused with a message that says so: `--workers` (the
-sharded host pool, `UNPORTED_FLAGS`).
+`--workers W` shards a `host:<gym id>` pool's envs over W worker processes
+(`envs/shard_pool.py`; with `--async-actors A` each actor's pool takes
+W // A), with the trajectories of `--workers 1`; a fused env ignores it,
+`native:` refuses it.
 """
 
 from __future__ import annotations
@@ -184,11 +186,9 @@ ENVS = {
 }
 ALGOS = {"a2c": a2c, "ppo": ppo, "ddpg": ddpg, "td3": ddpg, "sac": sac,
          "impala": impala, "a3c": impala}
-# The JAX CLI's flags whose paths are not ported yet, with the path each
-# belongs to (ROADMAP.md Queue 1). Each is refused with that message.
-UNPORTED_FLAGS = {
-    "--workers": "the sharded host pool",
-}
+# The JAX CLI's flags whose paths are not ported yet, with the ROADMAP
+# Queue 1 item each belongs to: none is left.
+UNPORTED_FLAGS: dict[str, str] = {}
 
 
 def env_name(spec: str) -> str:
@@ -236,7 +236,7 @@ def is_host_spec(spec: str) -> bool:
 
 
 def make_host_pool(spec: str, algo: str, cfg, seed: int, scale_actions=None,
-                   env_kwargs=None) -> HostEnvPool:
+                   env_kwargs=None, workers: int = 1) -> HostEnvPool:
     """The pool `spec` names (the JAX CLI's `build_env`, host branch):
     `host:<gym id>` a gymnasium pool, `native:<id>` the C++ engine's. An
     on-policy trainer (PPO) gets obs and reward normalization; the
@@ -244,18 +244,21 @@ def make_host_pool(spec: str, algo: str, cfg, seed: int, scale_actions=None,
     and replayed transitions would be scaled differently as they drift,
     and TD targets want the raw reward scale. Host pools clip actions
     unless `scale_actions`. `env_kwargs` go to gym.make; the native engine
-    takes none."""
+    takes none. `workers > 1` shards a gym pool over that many processes."""
     kind, _, name = spec.partition(":")
     env_kwargs = dict(env_kwargs or {})
     if kind == "native" and env_kwargs:
         raise SystemExit(f"--env-set is not supported for native:{name} (the C++ engine "
                          "replicates gymnasium defaults exactly)")
+    if kind == "native" and workers > 1:
+        raise SystemExit("--workers applies to host:<id> pools only (the native engine "
+                         "already steps the whole batch in one C call)")
     on_policy = algo == "ppo"
     try:
         return HostEnvPool(
             name, num_envs=cfg.num_envs, seed=seed, normalize_obs=on_policy,
             normalize_reward=on_policy, backend="gym" if kind == "host" else "native",
-            scale_actions=bool(scale_actions), env_kwargs=env_kwargs)
+            scale_actions=bool(scale_actions), env_kwargs=env_kwargs, workers=workers)
     except TypeError as e:
         # gym.make raises TypeError on unknown constructor kwargs.
         if env_kwargs and "keyword" in str(e):
@@ -325,12 +328,6 @@ def check_env_convention(ckpt_dir, env_spec: str, scale_actions, resume: bool,
         json.dump({"env": env_spec, "scale_actions": resolved, "env_kwargs": env_kwargs}, f)
 
 
-class _NotPorted(argparse.Action):
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} is not ported yet (it belongs to "
-                     f"{UNPORTED_FLAGS[option_string]}, which comes in a later slice)")
-
-
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -398,6 +395,11 @@ def parse_args(argv=None) -> argparse.Namespace:
         "mean/scale standardization with fp32 actions, 'int8' also the bounded "
         "actions; default fp32. The same as --set replay_dtype=...; never change it "
         "on a resumed run")
+    p.add_argument(
+        "--workers", type=int, default=1,
+        help="host pools: worker processes the env batch shards across "
+        "(envs/shard_pool.py; shared-memory step exchange, per-shard seeding identical to "
+        "the in-process pool). 1 = in-process SyncVectorEnv")
     p.add_argument(
         "--async-actors", type=int, default=0, metavar="A",
         help="host trainers (ppo/ddpg/td3/sac): decouple collection from the learner "
@@ -504,8 +506,6 @@ def parse_args(argv=None) -> argparse.Namespace:
         "wedged) so a retry loop can --resume; 0 = off. Pair with --ckpt-dir/--save-every")
     p.add_argument("--list-presets", action="store_true")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    for flag in UNPORTED_FLAGS:
-        p.add_argument(flag, nargs="?", action=_NotPorted, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.telemetry_port is not None and not args.telemetry_dir:
         raise SystemExit(
@@ -719,8 +719,9 @@ def build_actor_pools(preset, args: argparse.Namespace, actors: int) -> list[Hos
             "fixed [K, E/A] block shape keeps the learner on one update graph)")
     sub = dataclasses.replace(cfg, num_envs=cfg.num_envs // actors)
     rank = args.process_id if getattr(args, "distributed", False) else 0
+    workers_each = max(1, getattr(args, "workers", 1) // actors)
     return [make_host_pool(preset.env, preset.algo, sub, args.seed + (rank * actors + i) * 100003,
-                           args.scale_actions, preset.env_kwargs)
+                           args.scale_actions, preset.env_kwargs, workers_each)
             for i in range(actors)]
 
 
@@ -1118,9 +1119,12 @@ def _run(preset, args: argparse.Namespace, host: bool, fused_env, device: torch.
             env = pools[0]
         elif host:
             env = make_host_pool(preset.env, preset.algo, preset.config, args.seed,
-                                 args.scale_actions, preset.env_kwargs)
+                                 args.scale_actions, preset.env_kwargs, args.workers)
         else:
             env = fused_env
+            if args.workers > 1:
+                print("--workers applies to host pools only; ignored for jax:* envs (their "
+                      "rollouts are fused on-device)", flush=True)
         try:
             check_env_convention(args.ckpt_dir, preset.env, args.scale_actions, args.resume,
                                  env_kwargs=preset.env_kwargs)

@@ -122,9 +122,7 @@ class Checkpointer:
         iteration `step`, replacing one already there. Reads the tensors to
         the host, so it waits for the device."""
         tensors = {k: t.detach().to("cpu", copy=True) for k, t in carried_tensors(state).items()}
-        bad = sorted(numguard.nonfinite_paths(tensors))
-        if bad:
-            raise NonFiniteError(f"refusing to save a non-finite state at iteration {step}: {bad}")
+        numguard.check_finite(tensors, "checkpoint commit", name="state")
         payload = {"tensors": tensors, "generator": state.generator.get_state(),
                    "rank": self.rank, "world": self.world}
         metrics = {k: finite_or_none(v) for k, v in (metrics or {}).items()}

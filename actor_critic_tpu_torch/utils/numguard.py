@@ -20,9 +20,11 @@ This module is the port's one home of the two counter-measures:
   offending key once per process on stderr.
 
 `nonfinite_leaves`, `check_finite` and `safe_json_row` give the JAX
-module's output on the same numpy trees. `nonfinite_paths` lists the
-poisoned leaves by dotted path (`params.w`), the form the port's
-checkpoint and publisher messages use.
+module's output on the same numpy trees. `check_finite` is the one seam
+every commit gate goes through (the publisher, the mailbox, the policy
+store, the checkpoint), as in JAX: `analysis/numsan.py`'s reverted-guard
+modes no-op this one attribute and every gate opens. `nonfinite_paths`
+lists the poisoned leaves by dotted path (`params.w`).
 """
 
 from __future__ import annotations
@@ -145,7 +147,8 @@ def check_finite(tree, what: str, name: str = "tree") -> None:
         raise NonFiniteError(
             f"{what} refused: non-finite values at {detail} — a "
             "nan/inf tree must never become durable or visible to "
-            "peers/clients (fix the producer)"
+            "peers/clients (fix the producer; see scripts/numsan.py "
+            "for the guard contract)"
         )
 
 

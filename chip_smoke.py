@@ -66,11 +66,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    - the off-policy trainers: the learners of `ddpg_walker2d`,
      `td3_walker2d` and `sac_humanoid` at their published width (E=1,
      K=J=64, batch 256, hidden (256, 256), a 1M-transition ring) on
-     `jax:pendulum`, each for 60 iterations across its preset's
+     `jax:pendulum`, each for 44 iterations across its preset's
      warm-up cut to 2,000 env steps (the gate opens at iteration 32,
      inside the replays), update count read back from the final
      checkpoint; SAC
-     learning Pendulum (best greedy eval >= -250 in 2,000 iterations) and
+     learning Pendulum (best greedy eval >= -250 in 1,000 iterations) and
      TD3 the point mass (> -1.0) through the graph; `td3_walker2d` with
      `--replay-dtype mixed` 8 straight against 4 + `--resume` 4, and
      `sac_humanoid` `--chunk 4` against `--chunk 1`, at 0.0; and SAC's 64
@@ -85,8 +85,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      float32); a bf16 served policy (`ppo_cartpole`, `ppo_halfcheetah`'s
      shapes), every bucket's graph = its eager act at 0.0;
    then IMPALA's learning check on the two-state MDP, and where a train
-   step's time goes for `a2c_cartpole`, `ppo_cartpole`, `a2c_mixture` and
-   `impala_pong` (eager and as graph replays in the same call, host clock;
+   step's time goes for `a2c_cartpole` and `impala_pong` (eager and as
+   graph replays in the same call, host clock;
    torch.profiler on the graph, V-trace's own time inside it), each in
    float32 and then in bf16, with ms and launches a step compared;
    - the host env path, on each preset's MuJoCo env or the engine's
@@ -95,7 +95,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      CUDA graph from iteration 1 (warmed), GAE launched once an iteration and
      counted on the card, ms an iteration and the split into collect,
      wait, dispatch (host clock), upload and update (device); the
-     off-policy presets at full width for 60 iterations past their
+     off-policy presets at full width for 50 iterations past their
      warm-up cut to 2,000 env steps (the ingest and 64 updates one
      graph, the
      update count read back), ms an iteration and updates/s after the
@@ -115,8 +115,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      update) against its eager run and showing in torch.profiler's trace
      that the learner's thread copies nothing to the card while the actor
      enqueues; `ppo_halfcheetah --async-actors 2` at full width through
-     `train.main` on the host plane and the device plane (fp32 at the
-     preset's 10 epochs; the host plane and int8 at two),
+     `train.main` on the host plane and the device plane (fp32 and int8),
+     each at two epochs,
      V-trace's launches counted on the card equal to the consumed blocks,
      ms a consumed block, consumed env-steps/s, the split (collect per
      actor, learner idle, upload, update), drops and staleness, then the
@@ -201,6 +201,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      spin inside an `update` span (exit 42 naming it, a `stall` event, a
      flight dump); `serve.py --telemetry-dir` (the request hops as spans
      and flows, the card's memory on /metrics);
+   - the runtime sanitizers (`actor_critic_tpu_torch/analysis/`) on the
+     card: racesan's quick profile over the port's queue, publisher,
+     mailbox and batcher and its device-ring exerciser with the ring's
+     storage on the card; numsan's quick profile with the host PPO update
+     (the GAE kernel's launches counted: one an update), the bf16 update,
+     the checkpoint and the codecs on the card; padsan's quick profile with
+     every seam on the card and the kernel seam (the scan kernels' ragged
+     strips and chunks at E = 7, 96, 200 and T = 100, inputs and outputs
+     tailed by zeros and by poison) at 21 seeds, both kernels' launches
+     counted by E and equal to the calls made, the serving buckets
+     captured and replayed; every reverted mode of the three caught, and
+     padsan's `chunked` refused (no counterpart seam);
 6. a `{"kernels": [...]}` line (each kernel's launches on every main path
    that runs it under `launches_by_path`), then the card's name and power
    limit;
@@ -1230,8 +1242,8 @@ OFFPOLICY_GRAPH_WARMUP = 128     # env steps: iterations 1-2; the 256-row batch 
 # and the iterations cut are replays with the gate shut, which run the same
 # graph as the ones kept.
 OFFPOLICY_CUT_WARMUP = 2000
-OFFPOLICY_MAIN_ITERATIONS = 60
-SAC_LEARN_ITERATIONS, SAC_LEARN_EVAL_EVERY = 2000, 500
+OFFPOLICY_MAIN_ITERATIONS = 44
+SAC_LEARN_ITERATIONS, SAC_LEARN_EVAL_EVERY = 1000, 500  # the eval at 1000 read -169.5 on an H100
 HUMANOID_OBS, HUMANOID_ACT = 348, 17  # Humanoid-v5 (gymnasium 1.2.2)
 
 
@@ -1360,7 +1372,7 @@ def run_offpolicy_main(preset_name: str) -> None:
 def run_offpolicy_learning() -> None:
     """Learning on the card through the CUDA graph: SAC on Pendulum at
     tests/test_sac.py::test_sac_learns_jax_pendulum_fused's config (E=8,
-    K=J=8, hidden (128, 128), batch 128, warm-up 1,000; 2,000 iterations, a
+    K=J=8, hidden (128, 128), batch 128, warm-up 1,000; 1,000 iterations, a
     greedy eval of 8 envs × 200 steps every 500; best >= -250), and TD3 on
     the point mass at tests/test_ddpg.py::test_td3_learns_point_mass's
     (250 iterations, seed 2; greedy return of 32 envs × 16 steps > -1.0)."""
@@ -1669,7 +1681,7 @@ HOST_LOG_EVERY = 4           # the main paths log (and so wait for the card) eve
 HOST_OFFPOLICY_LOG_EVERY = 10  # iteration, so the iterations between overlap host and card
 HOST_CHECK_ITERATIONS = 6    # the graph-vs-eager and upload checks: iterations 1-6
 HOST_CHECK_AT = 4            # a replayed iteration
-HOST_OFFPOLICY_ITERATIONS = 60  # the warm-up (OFFPOLICY_CUT_WARMUP) ends at iteration 32
+HOST_OFFPOLICY_ITERATIONS = 50  # the warm-up (OFFPOLICY_CUT_WARMUP) ends at iteration 32
 HOST_RESUME_ITERATIONS = 3
 
 
@@ -2242,9 +2254,9 @@ def check_async_kernel_launches(logged: list[dict], launches: dict, blocks: int,
 def run_async_ppo(env: str) -> int:
     """`ppo_halfcheetah --async-actors 2` at full width (E=8 as two actors of
     4, T=256, 32 minibatches) through `train.main` for ASYNC_PPO_BLOCKS
-    consumed blocks, on the device plane with the fp32 codec at the
-    preset's 10 epochs (serve-while-training's baseline), then at
-    CHECK_EPOCHS on the host plane and with the int8 codec: V-trace's
+    consumed blocks at CHECK_EPOCHS, on the device plane with the fp32 codec
+    (serve-while-training's baseline), then on the host plane and with the
+    int8 codec: V-trace's
     launches counted on
     the card equal the consumed blocks; ms a consumed block, consumed
     env-steps/s, the split, drops and staleness printed. Then the host
@@ -2259,14 +2271,13 @@ def run_async_ppo(env: str) -> int:
 
     n = ASYNC_PPO_BLOCKS
     host_launches = None
-    for plane, codec, epochs in (("device", "fp32", None), ("host", "fp32", CHECK_EPOCHS),
-                                 ("device", "int8", CHECK_EPOCHS)):
+    for plane, codec in (("device", "fp32"), ("host", "fp32"), ("device", "int8")):
         t0 = time.perf_counter()
         logged, summary, launches = drive(
             ["--preset", "ppo_halfcheetah", "--env", env, "--async-actors", str(ASYNC_ACTORS),
              "--iterations", str(n), "--log-every", str(ASYNC_LOG_EVERY), "--seed", "0",
-             "--data-plane", plane, "--data-plane-codec", codec,
-             *(["--set", f"epochs={epochs}"] if epochs else [])],
+             "--data-plane", plane, "--data-plane-codec", codec, "--set",
+             f"epochs={CHECK_EPOCHS}"],
             show_every=ASYNC_LOG_EVERY)
         check_rows(logged, n)
         check_async_kernel_launches(logged, launches, n, 1)
@@ -2278,7 +2289,7 @@ def run_async_ppo(env: str) -> int:
         steps = logged[-1]["consumed_env_steps"] / logged[-1]["iter"]
         last = logged[-1]
         print(f"main path async ppo_halfcheetah on {env}, --data-plane {plane} ({codec}, "
-              f"{epochs or 10} epochs): "
+              f"{CHECK_EPOCHS} epochs): "
               f"{ASYNC_ACTORS} actors of 4 envs, {n} consumed blocks of {int(steps)} env steps, "
               f"V-trace launches {launches['vtrace']} (= blocks × updates_per_block); "
               f"block 1 (the warm-up included) {logged[0]['wall_s'] * 1e3:.1f} ms; {per_block * 1e3:.3f} ms a consumed "
@@ -2659,11 +2670,11 @@ SERVE_SHAPES = {"ppo_cartpole": None, "ppo_halfcheetah": (17, 6), "td3_walker2d"
 SERVE_CALLS = 200             # timed acts a bucket and way (graph, eager)
 SERVE_LATENCY_CALLS = 1000    # batch-1 acts for p50 / p99 through engine.act
 SERVE_HTTP_CALLS = 500        # batch-1 requests for p50 / p99 through HTTP
-SERVE_LOAD_S = 3.0            # seconds of mixed-size load for rows/s
+SERVE_LOAD_S = 2.0            # seconds of mixed-size load for rows/s
 SERVE_CLIENTS = 16            # concurrent clients of the load and the checks
 SERVE_MIXED_SIZES = (1, 3, 2, 1, 4, 6, 8, 2, 5, 1, 7, 3, 2, 6, 1, 4)
 SERVE_SWAPS = 4               # checkpoints swapped in under load (versions 2..5)
-SERVE_TRAIN_BLOCKS = 12       # serve-while-training: consumed blocks
+SERVE_TRAIN_BLOCKS = 8        # serve-while-training: consumed blocks
 SERVE_POLL_CLIENTS = 2        # clients polling the sidecar back to back
 SERVE_SAC_WARMUP = 256        # env steps: the SAC learner updates from block 5 on
 
@@ -3189,11 +3200,11 @@ def consumed_rate(logged: list[dict], summary: dict) -> float:
 
 # -- the multi-process actor-learner and the serving fleet -------------------
 
-MULTIHOST_BLOCKS = 6            # world-1 sync: 2 eager blocks, a capture, replays
+MULTIHOST_BLOCKS = 4            # world-1 sync: 2 eager blocks, a capture, replays
 MULTIHOST_CHECK_AT = 4          # the block whose replay is held against the single host's
 MULTIHOST_TIMED_REPLAYS = 5     # each way, from one restored state
 MULTIHOST_TIMED_CHECKS = 20     # consistency checks timed with the actors held
-GOSSIP_BLOCKS = 8               # each rank's consumed blocks in the world-2 gossip run
+GOSSIP_BLOCKS = 6               # each rank's consumed blocks in the world-2 gossip run
 FLEET_ACTS = 6                  # requests through the proxy before and after the kill
 
 
@@ -3620,7 +3631,7 @@ def run_serve_while_training(env: str, without: float | None = None) -> int:
     base = ["--env", env, "--iterations", str(SERVE_TRAIN_BLOCKS), "--log-every",
             str(ASYNC_LOG_EVERY), "--seed", "0", "--data-plane", "device"]
     ppo_argv = ["--preset", "ppo_halfcheetah", "--async-actors", str(ASYNC_ACTORS),
-                "--async-correction", "vtrace", *base]
+                "--async-correction", "vtrace", "--set", f"epochs={CHECK_EPOCHS}", *base]
     if without is None:
         without = consumed_rate(*drive(ppo_argv, show_every=ASYNC_LOG_EVERY)[:2])
     logged, summary, launches, probe, net = serve_drive(ppo_argv, ppo, lambda out: out[0])
@@ -3908,8 +3919,7 @@ BF16_SAC_WARMUP = 256        # env steps: the SAC learner's gate opens at iterat
 BF16_SAC_ITERATIONS = 6
 BF16_SERVE_PRESETS = ("ppo_cartpole", "ppo_halfcheetah")
 PROFILE_REPLAYS = 10         # graph replays a turn, float32 against bf16
-PROFILE_PRESETS = (("a2c_cartpole", 3, ""), ("ppo_cartpole", 1, ""), ("a2c_mixture", 1, ""),
-                   ("impala_pong", 3, ""))
+PROFILE_PRESETS = (("a2c_cartpole", 3, ""), ("impala_pong", 3, ""))
 
 
 def check_tf32() -> None:
@@ -4903,6 +4913,169 @@ def run_sp_impala() -> dict[str, int]:
             "vtrace": one_call + records["graph"][1] + train_runs["graph"][1] + seqpar_launches[1]}
 
 
+# -- the runtime sanitizers on the card -----------------------------------
+
+SANITIZER_DEVICE = "cuda"
+RACESAN_SCHEDULES = 16     # the quick profile: 4 seeds each of queue, publisher, mailbox, batcher
+RACESAN_RING_SEEDS = 4     # the device ring's seeds, its storage on the card
+NUMSAN_SCHEDULES = 20      # the quick profile: 4 seeds each of its five exercisers
+PADSAN_SCHEDULES = 16      # the quick profile: 4 seeds each of its four seams
+# The kernel seam one round a seed, so each launch count belongs to one E:
+# seeds 0-20 draw both kernels at every ragged E (V-trace at E=200 first at 20).
+PADSAN_KERNEL_SEEDS = 21
+
+
+def expect_raise(label: str, fn, error, match: str) -> str:
+    """`fn()` must raise `error` with `match` in its message (a reverted mode
+    caught); returns the message's first line."""
+    try:
+        fn()
+    except error as e:
+        assert match in str(e), (label, str(e))
+        return str(e).splitlines()[0][:100]
+    raise AssertionError(f"{label}: the reverted mode was NOT caught")
+
+
+def run_racesan_on_card() -> None:
+    """racesan (`actor_critic_tpu_torch/analysis/racesan.py`): its quick
+    profile over the port's queue, publisher, mailbox and batcher, and the
+    device trajectory ring with its storage on the card; then each reverted
+    mode, every one caught."""
+    from actor_critic_tpu_torch.analysis import racesan
+
+    dev = SANITIZER_DEVICE
+    out = racesan.quick_profile(schedules=RACESAN_SCHEDULES)
+    assert out["races"] == 0 and all(out[k]["schedules"] >= 4
+                                     for k in ("queue", "publisher", "mailbox", "batcher")), out
+    ring = racesan.exercise_sweep(range(RACESAN_RING_SEEDS),
+                                  lambda s: racesan.exercise_device_ring(s, device=dev))
+    assert ring["races"] == 0 and ring["consumed"] > 0, ring
+    caught = {
+        "queue consumer=alias": expect_raise(
+            "alias", lambda: racesan.exercise_queue(0, consumer="alias"), racesan.RacesanError,
+            "corrupted"),
+        "publisher buggy_producer": expect_raise(
+            "producer", lambda: racesan.exercise_publisher(0, buggy_producer=True), ValueError,
+            "read-only"),
+        "mailbox buggy_depositor": expect_raise(
+            "depositor", lambda: racesan.exercise_mailbox(0, buggy_depositor=True), ValueError,
+            "read-only"),
+        "batcher alias_submit": expect_raise(
+            "submit", lambda: racesan.exercise_batcher(0, alias_submit=True), ValueError,
+            "read-only"),
+        "batcher buggy_swapper": expect_raise(
+            "swapper", lambda: racesan.exercise_batcher(0, buggy_swapper=True), ValueError,
+            "read-only"),
+        "device ring buggy_writer": expect_raise(
+            "writer", lambda: racesan.exercise_device_ring(1, buggy_writer=True, device=dev),
+            racesan.RacesanError, "LEASED slot"),
+    }
+    released = None
+    for seed in range(16):
+        try:
+            racesan.exercise_device_ring(seed, consumer="released", blocks_per_producer=4,
+                                         depth=1, device=dev)
+        except racesan.RacesanError:
+            released = seed
+            break
+    assert released is not None, "no schedule exposed the release-before-read consumer"
+    caught["device ring consumer=released"] = f"first caught at seed {released}"
+    print(f"racesan on the card: quick profile {out['schedules']} schedules clean (queue "
+          f"consumed {out['queue']['consumed']}, publisher reads {out['publisher']['reads']}, "
+          f"mailbox takes {out['mailbox']['takes']}, batcher responses "
+          f"{out['batcher']['responses']} and scrapes {out['batcher']['scrapes']}); device ring "
+          f"on {dev}: {ring['schedules']} schedules clean, {ring['consumed']} blocks read back "
+          f"from the card; reverted modes caught: {json.dumps(caught, ensure_ascii=False)}", flush=True)
+
+
+def run_numsan_on_card() -> int:
+    """numsan (`analysis/numsan.py`): its quick profile with the host PPO
+    update, the bf16 update, the checkpoint and the codecs on the card, the
+    GAE kernel's launches counted (one an update: 2 rounds a schedule of the
+    float32 update, one a schedule of the bf16 update); then each revert
+    mode, every one caught. Returns the GAE launches."""
+    from actor_critic_tpu_torch.analysis import numsan
+    from actor_critic_tpu_torch.ops import gae_cuda, vtrace_cuda
+
+    dev = SANITIZER_DEVICE
+    gae_cuda.reset_launch_count()
+    vtrace_cuda.reset_launch_count()
+    out = numsan.quick_profile(schedules=NUMSAN_SCHEDULES, device=dev)
+    launches = {"gae": gae_cuda.launch_count(), "vtrace": vtrace_cuda.launch_count()}
+    updates = 2 * out["update"]["schedules"] + out["bf16_update"]["schedules"]
+    assert out["violations"] == 0, out
+    assert all(out[k]["schedules"] >= 4 for k in
+               ("update", "bf16_update", "publish", "checkpoint", "codec")), out
+    assert out["update"]["divergence_events"] > 0 and out["codec"]["saturations"] > 0, out
+    assert launches == {"gae": updates, "vtrace": 0}, (launches, updates)
+    caught = {}
+    for name, fn in (("publish", lambda: numsan.exercise_publish(0, revert=True)),
+                     ("checkpoint", lambda: numsan.exercise_checkpoint(0, revert=True,
+                                                                        device=dev)),
+                     ("bf16-update", lambda: numsan.exercise_bf16_update(0, revert=True,
+                                                                          device=dev)),
+                     ("codec-wrap", lambda: numsan.exercise_codec(0, revert=True, device=dev))):
+        caught[name] = expect_raise(name, fn, numsan.NumSanError, "REVERTED")
+    print(f"numsan on the card: quick profile {out['schedules']} schedules clean (divergence "
+          f"events {out['update']['divergence_events']}, rejections "
+          f"{out['publish']['rejections'] + out['bf16_update']['rejections']}, refusals "
+          f"{out['checkpoint']['refusals'] + out['bf16_update']['refusals']}, codec saturations "
+          f"{out['codec']['saturations']}); the update's GAE kernel launched {launches['gae']} "
+          f"times (= {updates} updates, counted on the card); reverted modes caught: "
+          f"{json.dumps(caught, ensure_ascii=False)}", flush=True)
+    return launches["gae"]
+
+
+def run_padsan_on_card() -> dict[str, dict[int, int]]:
+    """padsan (`analysis/padsan.py`): its quick profile with every seam on the
+    card; the kernel seam at seeds 0..PADSAN_KERNEL_SEEDS-1 with the GAE and
+    V-trace launches counted a schedule (each kernel launched at every E,
+    launches = the calls made); the serving buckets captured and replayed;
+    then each revert mode, every one caught, and `chunked` refused. Returns
+    the kernels' launches by E."""
+    from actor_critic_tpu_torch.analysis import padsan
+    from actor_critic_tpu_torch.ops import gae_cuda, vtrace_cuda
+
+    dev = SANITIZER_DEVICE
+    out = padsan.quick_profile(schedules=PADSAN_SCHEDULES, device=dev)
+    assert out["violations"] == 0, out
+    assert all(out[k]["schedules"] >= 4 for k in ("pallas", "mixture", "serving",
+                                                  "device_plane")), out
+    by_e = {kernel: {e: 0 for e in padsan.KERNEL_ES} for kernel in ("gae", "vtrace")}
+    for seed in range(PADSAN_KERNEL_SEEDS):
+        gae_cuda.reset_launch_count()
+        vtrace_cuda.reset_launch_count()
+        ((_, op, e, _, _),) = padsan.exercise_kernels(seed, rounds=1, device=dev)["trace"]
+        got = {"gae": gae_cuda.launch_count(), "vtrace": vtrace_cuda.launch_count()}
+        kernel = "vtrace" if op == "vtrace" else "gae"
+        # Two calls a round (the zero-fill run and the poison-fill run), each
+        # one launch; the λ-returns are the GAE kernel's second output.
+        made = {"gae": 0, "vtrace": 0, kernel: 2}
+        assert got == made, (seed, op, e, got)
+        by_e[kernel][e] += got[kernel]
+    assert all(n >= 2 for counts in by_e.values() for n in counts.values()), by_e
+    eng, _ = padsan.serving_fixture(dev)
+    replayed = sorted({next(b for b in eng.buckets if b >= t[1])
+                       for s in range(PADSAN_SCHEDULES // 4)
+                       for t in padsan.exercise_serving(s, device=dev)["trace"]})
+    assert eng.graphs_captured == len(eng.buckets), eng.graphs_captured
+    caught = {}
+    for scenario, modes in padsan.SCENARIO_REVERTS.items():
+        for mode in modes:
+            caught[f"{scenario} {mode}"] = expect_raise(
+                scenario, lambda: padsan.EXERCISERS[scenario](0, revert=mode, device=dev),
+                padsan.PadSanError, "REVERTED GUARD")
+    assert padsan.main(["--scenario", "chunked", "--device", dev]) == 2
+    print(f"padsan on the card: quick profile {out['schedules']} schedules clean ({out['programs']} "
+          f"programs); the kernel seam at T={padsan.KERNEL_T} over seeds 0-"
+          f"{PADSAN_KERNEL_SEEDS - 1} (one round each): launches counted on the card by E, GAE "
+          f"{by_e['gae']} and V-trace {by_e['vtrace']} (= the calls made, 2 a schedule); serving: "
+          f"{eng.graphs_captured} bucket graphs {list(eng.buckets)} captured and replayed by the "
+          f"warm-up, buckets {replayed} replayed by the ragged acts; reverted modes caught: "
+          f"{json.dumps(caught, ensure_ascii=False)}; chunked refused (no counterpart seam)", flush=True)
+    return by_e
+
+
 def phase(label: str, fn, *args, **kwargs):
     """`fn(*args, **kwargs)`, its host seconds printed after it as `phase
     <label>: <s> s` (the script's time budget is read off these lines)."""
@@ -5015,6 +5188,9 @@ def main() -> int:
         dp_vtrace = phase("dp impala_pong", run_dp_fused, "impala_pong")
         phase("dp off-policy", run_dp_offpolicy)
         sp_launches = phase("sp impala_pong", run_sp_impala)
+    phase("racesan on the card", run_racesan_on_card)
+    numsan_gae = phase("numsan on the card", run_numsan_on_card)
+    padsan_by_e = phase("padsan on the card", run_padsan_on_card)
     report = phase("telemetry a2c_cartpole", run_telemetry_a2c)
     phase("telemetry host and async", run_telemetry_host_async, host_envs["ppo_halfcheetah"])
     phase("stall on the card, telemetry serve beside it", run_stall_on_card, run_telemetry_serve)
@@ -5037,7 +5213,10 @@ def main() -> int:
                           f"none)": n for r, n in gossip_gae.items()},
                        **bf16_by_path["gae"],
                        "dp a2c_cartpole (world 1, NCCL)": dp_gae,
-                       "sp seqpar_gae [4096, 64] (world 1, NCCL)": sp_launches["gae"]},
+                       "sp seqpar_gae [4096, 64] (world 1, NCCL)": sp_launches["gae"],
+                       "numsan host PPO update (float32 and bf16)": numsan_gae,
+                       **{f"padsan kernel seam E={e}, T=100 (GAE and λ-returns)": n
+                          for e, n in padsan_by_e["gae"].items() if n}},
                "vtrace": {"impala_pong": launches["vtrace"],
                           "async ppo_halfcheetah (host plane)": async_vtrace,
                           "serve-while-training ppo_halfcheetah (device plane)": serve_vtrace,
@@ -5045,7 +5224,9 @@ def main() -> int:
                           **bf16_by_path["vtrace"],
                           "dp impala_pong (world 1, NCCL)": dp_vtrace,
                           "sp impala_pong update, train step and seqpar_vtrace (world 1, NCCL)":
-                              sp_launches["vtrace"]}}
+                              sp_launches["vtrace"],
+                          **{f"padsan kernel seam E={e}, T=100": n
+                             for e, n in padsan_by_e["vtrace"].items() if n}}}
     for e in entries:
         e["launches"] = launches[e["name"]]
         e["launches_by_path"] = by_path[e["name"]]

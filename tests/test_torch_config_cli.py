@@ -19,8 +19,8 @@ JAX package's `config.py` and `train.py`:
   no ring, as JAX's;
 - `--update-dtype fp32|bf16` is `--set bf16_compute=...`, and bf16 runs
   on the host path's `host:`/`native:` envs and the MuJoCo presets'
-  learners; what is not ported yet (`--workers` and the flags of later
-  paths) exits with a message saying so; the telemetry and watchdog flags
+  learners; `--workers` (the last flag to be ported) is ignored on a
+  fused env and refused on `native:` as JAX does; the telemetry and watchdog flags
   run, or exit with JAX's errors (`tests/test_torch_telemetry.py` holds
   their traces against JAX's);
 - the async actor-learner's seven flags (`--async-actors`,
@@ -33,6 +33,7 @@ JAX package's `config.py` and `train.py`:
 
 import dataclasses
 import json
+import os
 import sys
 
 import pytest
@@ -316,14 +317,22 @@ def test_unported_and_bad_selections_exit(argv, match):
         train.main(argv + ["--device", "cpu", "--iterations", "1"])
 
 
-@pytest.mark.parametrize("flag", sorted(train.UNPORTED_FLAGS))
+@pytest.mark.parametrize("flag", ["--workers"])
 def test_flags_still_to_port_are_refused(flag, capsys):
-    """The JAX CLI's flags of the paths not ported yet: each exits with the
-    path it belongs to, never silently ignored."""
-    with pytest.raises(SystemExit):
-        train.main(["--preset", "a2c_cartpole", flag, "2", "--device", "cpu"])
-    err = capsys.readouterr().err
-    assert f"{flag} is not ported yet" in err and train.UNPORTED_FLAGS[flag] in err
+    """Every flag of the JAX CLI is ported (`UNPORTED_FLAGS` is empty): the
+    last one, `--workers`, parses and is handled as JAX handles it, never
+    refused as not ported. A fused env ignores it with JAX's note, and the
+    native engine refuses it with JAX's message."""
+    assert train.UNPORTED_FLAGS == {}
+    train.main(["--preset", "a2c_cartpole", flag, "2", "--device", "cpu", "--iterations", "1",
+                "--set", "num_envs=8", "--set", "rollout_steps=4", "--quiet",
+                "--metrics", os.devnull])
+    out = capsys.readouterr()
+    assert "not ported yet" not in out.err
+    assert f"{flag} applies to host pools only; ignored for jax:* envs" in out.out
+    with pytest.raises(SystemExit, match=f"{flag} applies to host:<id> pools only"):
+        train.main(["--preset", "ppo_halfcheetah", "--env", "native:Pendulum-v1", flag, "2",
+                    "--device", "cpu", "--iterations", "1"])
 
 
 HOST_TINY = ["--preset", "ppo_halfcheetah", "--env", "native:Pendulum-v1", "--set", "num_envs=2",
@@ -569,16 +578,18 @@ def test_async_selections_that_exit_as_jax(argv, match):
 @pytest.mark.parametrize("flag,path", [("--workers", "the sharded host pool"),
                                        ("--distributed", "multi-GPU")])
 def test_later_paths_stay_refused_beside_async(flag, path, capsys):
-    """Beside the async flags, `--workers` is still refused as not ported;
-    `--distributed` (the multi-GPU path, ported since) without a
-    coordinator or `--gossip` exits with JAX's sync-mode refusal."""
-    value = ["2"] if flag in train.UNPORTED_FLAGS else []
+    """Beside the async flags, the later paths (both ported since) refuse
+    what JAX refuses: `--workers 4` over two actors gives each actor's
+    native pool two workers, which the engine does not take;
+    `--distributed` without a coordinator or `--gossip` exits with JAX's
+    sync-mode refusal."""
+    value = ["4"] if flag == "--workers" else []
     with pytest.raises(SystemExit) as exit_:
         train.main(["--preset", "ppo_halfcheetah", "--env", "native:Pendulum-v1",
                     "--async-actors", "2", flag, *value, "--device", "cpu"])
+    assert "not ported yet" not in capsys.readouterr().err
     if value:
-        err = capsys.readouterr().err
-        assert f"{flag} is not ported yet" in err and path in err
+        assert "--workers applies to host:<id> pools only" in str(exit_.value)
     else:
         assert "--distributed sync mode needs --coordinator HOST:PORT" in str(exit_.value)
 

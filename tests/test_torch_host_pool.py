@@ -5,7 +5,9 @@ actions give the same obs, rewards, dones, `final_obs` and normalizer
 statistics, bit for bit (both pools are numpy), under clipped and scaled
 actions, with and without normalization; the eval pool shares and freezes
 the obs statistics; `get_state`/`set_state` round-trip; the sharded pool
-and the pixel wrappers are refused as not ported yet.
+and the pixel wrappers are refused off the gym backend, as in JAX
+(`tests/test_torch_shard_pool.py` and `test_torch_pixel_wrappers.py` hold
+them on gym).
 """
 
 import numpy as np
@@ -141,10 +143,12 @@ def test_scaled_bounds_and_refusals():
     assert not scalable_bounds(True, None, None)
     with pytest.raises(ValueError, match="scale_actions"):
         HostEnvPool("CartPole-v1", 2, backend="native", scale_actions=True)
-    with pytest.raises(NotImplementedError, match="sharded host pool"):
-        HostEnvPool("Pendulum-v1", 4, workers=2)
-    with pytest.raises(NotImplementedError, match="sharded host pool"):
-        HostEnvPool("Pendulum-v1", 4, pixel_preprocess=True)
+    # The sharded pool and the pixel wrappers are gym-only, as in JAX
+    # (`tests/test_torch_shard_pool.py` drives them on gym).
+    with pytest.raises(ValueError, match="workers applies to the gym backend only"):
+        HostEnvPool("Pendulum-v1", 4, backend="native", workers=2)
+    with pytest.raises(ValueError, match="pixel_preprocess applies to the gym backend only"):
+        HostEnvPool("Pendulum-v1", 4, backend="native", pixel_preprocess=True)
     with pytest.raises(ValueError, match="native engine takes none"):
         HostEnvPool("Pendulum-v1", 2, backend="native", env_kwargs={"g": 9.0})
     with pytest.raises(ValueError, match="native backend supports"):

@@ -106,9 +106,14 @@ def test_checkpoint_and_publisher_refuse_through_numguard():
     assert checkpoint.NonFiniteError is numguard.NonFiniteError
     assert tq.NonFiniteError is numguard.NonFiniteError
     pub = tq.PolicyPublisher({"w": np.zeros(2, np.float32)})
+    poisoned = {"w": np.array([np.nan, 1.0], np.float32), "k": np.ones(1)}
     with pytest.raises(numguard.NonFiniteError,
-                       match=r"^behaviour-params publish refused: non-finite values at params\.w$"):
-        pub.publish({"w": np.array([np.nan, 1.0], np.float32), "k": np.ones(1)}, version=1)
+                       match=r"^behavior-params publish refused: non-finite values at "
+                             r"params\['w'\]\[0\]: nan") as e:
+        pub.publish(poisoned, version=1)
+    with pytest.raises(jnumguard.NonFiniteError) as je:
+        jnumguard.check_finite(poisoned, "behavior-params publish", name="params")
+    assert str(e.value) == str(je.value)
 
 
 # ------------------------------------------------------------- histograms

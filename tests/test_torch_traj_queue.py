@@ -160,7 +160,7 @@ def test_nonfinite_publish_refused_last_good_kept(bad):
     pub = tq.PolicyPublisher({"w": np.zeros(3, np.float32)}, version=0)
     pub.publish({"w": np.full(3, 2.0, np.float32)}, version=1)
     poisoned = {"w": np.array([1.0, bad, 1.0], np.float32), "b": (np.ones(1),)}
-    with pytest.raises(NonFiniteError, match="params.w"):
+    with pytest.raises(NonFiniteError, match=r"params\['w'\]\[1\]"):
         pub.publish(poisoned, version=2)
     version, params = pub.get()
     assert version == 1

@@ -32,6 +32,8 @@ Modes:
   coordinates, group sizes, the error of a layout that does not fit);
 - `stats`: `quantize.update_stats` of this rank's rows of a batch with the
   world group (an `i8` leaf's mean and scale);
+- `gather`: `mesh.all_gather` of each rank's row of a plane holding −0.0,
+  NaN and ±inf;
 - `ckpt`: dp TD3 saved by every rank (`Checkpointer(mesh=...)`), continued,
   and restored into a fresh distributed template and continued again.
 
@@ -304,7 +306,14 @@ def run_ckpt(z, opts) -> dict:
     return out
 
 
-MODES = {"seqpar": run_seqpar, "sp_update": run_sp_update, "sp_train": run_sp_train,
+def run_gather(z, opts) -> dict:
+    """`mesh.all_gather` over the world of this rank's row of `x` (a
+    [W, n] float32 plane: −0.0, NaN and ±inf among the values)."""
+    x = _t(z["x"][dist.get_rank()])
+    return {"gathered": mesh.all_gather(x, mesh.world_group()).numpy()}
+
+
+MODES = {"seqpar": run_seqpar, "gather": run_gather, "sp_update": run_sp_update, "sp_train": run_sp_train,
          "grad": run_grad, "dp_step": run_dp_step, "world1": run_world1, "learn": run_learn,
          "mismatch": run_mismatch, "mesh": run_mesh, "stats": run_stats, "ckpt": run_ckpt}
 
