@@ -203,15 +203,18 @@ class _Lane:
     def _capture(self, b: int) -> None:
         """An eager run of bucket `b` on the lane's stream (cuBLAS's
         handle and workspace for it), then its capture; "thread_local"
-        mode, so other threads (flights, a learner) go on meanwhile."""
-        with torch.cuda.stream(self.stream):
-            self._forward(b)
-        self.stream.synchronize()
+        mode, so other threads (flights, a learner) go on meanwhile. Both
+        are one compile event: the synchronizations of a capture stay inside
+        `profiler.record_compile` (perfsan's guard lifts its sync check
+        there)."""
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
             graph.register_generator_state(self.generator)
         signature = profiler.signature_of({"obs": self.inputs[b]})
         with profiler.record_compile(f"serving.act[b={b},lane={self.index}]", signature):
+            with torch.cuda.stream(self.stream):
+                self._forward(b)
+            self.stream.synchronize()
             with loop.capture(graph, stream=self.stream, capture_error_mode="thread_local"):
                 out = self._forward(b)
         self.outputs[b] = out

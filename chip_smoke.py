@@ -212,14 +212,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      tailed by zeros and by poison) at 21 seeds, both kernels' launches
      counted by E and equal to the calls made, the serving buckets
      captured and replayed; every reverted mode of the three caught, and
-     padsan's `chunked` refused (no counterpart seam);
+     padsan's `chunked` refused (no counterpart seam); fleetsan's quick
+     profile (gossip fleet and gateway schedules over the port's mailbox,
+     `PolicyStore` and syncer), its replica sweep and its three reverted
+     modes, then one real-process chaos at world 2 on the card (gossip
+     workers of `parallel.launch` on `native:CartPole-v1`, one SIGKILLed
+     mid-run and restarted: its time to recover, its flight ring harvested
+     into a dump, the survivors' mixes, V-trace launches = consumed blocks
+     in each worker); perfsan's quick profile against its manifest's
+     `cuda` values (every program's dispatches, transfers, bytes and
+     recompiles a block; GAE and V-trace launches inside the PPO and
+     mixture programs = the blocks and iterations they consumed) and its
+     three reverted modes, each caught on its budget key;
 6. a `{"kernels": [...]}` line (each kernel's launches on every main path
    that runs it under `launches_by_path`), then the card's name and power
    limit;
 7. last line: `{"ok": true, "device": {"platform": "gpu", ...}}`.
 
 Exits non-zero, printing no result, where no CUDA device is present.
-Imports nothing of JAX.
+Imports nothing of JAX. Every process it starts is stopped when it ends,
+passed or failed: the script reaps its orphaned descendants
+(`PR_SET_CHILD_SUBREAPER`), and whatever still runs below it at the end is
+listed and killed.
 """
 
 from __future__ import annotations
@@ -4191,7 +4205,7 @@ def sampled(label: str, fn, *args):
     return out
 
 
-def run_telemetry_a2c() -> None:
+def run_telemetry_a2c(heap: "FrozenHeap") -> subprocess.Popen:
     """`a2c_cartpole` at full width (E=4096, T=64) through `train.main` with
     the session, the exporter, the watchdog and the chunk-wall ratchet:
     `--chunk 4 --ckpt-dir --save-every 8 --stall-timeout 30 --telemetry-dir
@@ -4212,7 +4226,9 @@ def run_telemetry_a2c() -> None:
     every run with the watchdog armed and no client: without the session,
     with it at the default 5 s sampling, with it at 20 ms. Each run's
     `chunk_wall.json` is held within 1.5 x 4 x its own replay ms + 5 ms
-    (the ratio printed). Returns `scripts/run_report.py` on the run's
+    (the ratio printed). Each in-process run starts after `heap.collect()`,
+    so that the previous run's garbage is not destroyed inside its timed
+    chunks. Returns `scripts/run_report.py` on the run's
     directory, started in a subprocess (its static-findings pass reads the
     whole tree for tens of seconds: it runs beside the next phases, and
     `wait_run_report` holds it to exit 0)."""
@@ -4278,6 +4294,7 @@ def run_telemetry_a2c() -> None:
     t = threading.Thread(target=client, daemon=True)
     t.start()
     try:
+        heap.collect()
         logged, _, launches = drive(common + flags + ["--ckpt-dir", ck], show_every=n)
     finally:
         stop.set()
@@ -4292,8 +4309,9 @@ def run_telemetry_a2c() -> None:
     done = [e for e in events if e["kind"] == "profile_done"]
     gae_in_window = None
     if len(done) == 1:
-        trace = json.load(open(os.path.join(done[0]["path"], "trace.json")))["traceEvents"]
-        gae_in_window = sum(1 for e in trace if e.get("cat") == "kernel" and "gae" in e["name"])
+        with open(os.path.join(done[0]["path"], "trace.json")) as f:
+            gae_in_window = sum(1 for e in json.load(f)["traceEvents"]
+                                if e.get("cat") == "kernel" and "gae" in e["name"])
     with open(f"{ck}/chunk_wall.json") as f:
         wall_ms = json.load(f)["chunk_wall_s"] * 1e3
     ms_on = replay_ms(logged, 2 * chunk)
@@ -4314,6 +4332,7 @@ def run_telemetry_a2c() -> None:
             for x in (d, ck_d):
                 shutil.rmtree(x, ignore_errors=True)
             session = ["--telemetry-dir", d, *extra] if extra else []
+            heap.collect()
             logged_v, _, launches_v = drive(timed + session + ["--ckpt-dir", ck_d],
                                             show_every=TELEMETRY_TIMING_ITERATIONS)
             assert launches_v["gae"] == TELEMETRY_TIMING_ITERATIONS, (v, launches_v)
@@ -4321,12 +4340,9 @@ def run_telemetry_a2c() -> None:
             with open(f"{ck_d}/chunk_wall.json") as f:
                 walls[v].append(json.load(f)["chunk_wall_s"] * 1e3)
     cpu_flags = ["--telemetry-dir", f"{tel}_cpu", "--telemetry-sample-s", str(TELEMETRY_SAMPLE_S)]
+    heap.collect()
     drive(common + cpu_flags + ["--ckpt-dir", f"{ck}_cpu", "--set", "num_envs=64", "--device",
                                 "cpu"], show_every=n)
-    # After the timed runs, so that it does not share the host with them.
-    report = subprocess.Popen([sys.executable, "scripts/run_report.py", tel, "-o",
-                               f"{tel}/report.md"], stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
     card_seq, cpu_seq = dispatch_sequence(tel, chunk), dispatch_sequence(f"{tel}_cpu", chunk)
     live = [d.get("live_bytes") for d in devs]
     med = {v: statistics.median(x) for v, x in ms.items()}
@@ -4363,7 +4379,11 @@ def run_telemetry_a2c() -> None:
         for w, m in zip(walls[v], ms[v]):
             assert w < 1.5 * chunk * m + 5.0, (v, w, m)
     assert card_seq == cpu_seq, (card_seq, cpu_seq)
-    return report
+    # After the timed runs, so that it does not share the host with them,
+    # and after the checks, so that a failed phase leaves no process behind.
+    return subprocess.Popen([sys.executable, "scripts/run_report.py", tel, "-o",
+                             f"{tel}/report.md"], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
 
 
 def wait_run_report(report: subprocess.Popen) -> None:
@@ -5076,6 +5096,243 @@ def run_padsan_on_card() -> dict[str, dict[int, int]]:
     return by_e
 
 
+FLEETSAN_SCHEDULES = 40     # the quick profile: 20 fleet, 20 gateway schedules
+FLEETSAN_REPLICA_SEEDS = 8  # the replica-kill-mid-swap sweep
+# The chaos workers' pool: the card's machine has no gymnasium for the
+# sleep-padded CartPole, so the C++ engine's.
+FLEETSAN_ENV = "native:CartPole-v1"
+
+
+def run_fleetsan_on_card() -> dict[str, int]:
+    """fleetsan (`analysis/fleetsan.py`): the quick profile and the replica
+    sweep (files and the port's mailbox, store and syncer objects), each
+    reverted mode caught (the shared-tmp collision replayed from its seed),
+    then `run_process_chaos` at world 2 with both gossip workers on the card:
+    rank 1 SIGKILLed and restarted, its time to recover, its flight ring
+    harvested into a dump before the restart, the survivor's mixes, and in
+    each worker's process V-trace launches = its consumed blocks. Returns
+    V-trace's launches by worker."""
+    import os
+    import shutil
+
+    from actor_critic_tpu_torch.analysis import fleetsan
+    from actor_critic_tpu_torch.telemetry import flight
+
+    out = fleetsan.quick_profile(schedules=FLEETSAN_SCHEDULES)
+    assert out["violations"] == 0 and out["fleet"]["kills"] > 0, out
+    replica = fleetsan.exercise_sweep(range(FLEETSAN_REPLICA_SEEDS),
+                                      lambda s: fleetsan.exercise_replica_fleet(s))
+    assert replica["violations"] == 0 and replica["kills"] == FLEETSAN_REPLICA_SEEDS, replica
+    collision = None
+    for seed in range(16):  # the shared tmp collides within JAX's 16 seeds
+        try:
+            fleetsan.exercise_fleet(seed, rounds=8, writer="shared_tmp", faults=False)
+        except fleetsan.FleetSanError:
+            collision = seed
+            break
+    assert collision is not None, "16 seeds never collided the shared tempfile"
+    caught = {
+        "writer direct": expect_raise(
+            "direct", lambda: fleetsan.exercise_fleet(0, rounds=6, writer="direct",
+                                                      faults=False),
+            fleetsan.FleetSanError, "unreadable"),
+        f"writer shared_tmp (seed {collision}, replayed)": expect_raise(
+            "shared_tmp", lambda: fleetsan.exercise_fleet(collision, rounds=8,
+                                                          writer="shared_tmp", faults=False),
+            fleetsan.FleetSanError, "collision"),
+        "poller naive": expect_raise(
+            "naive", lambda: fleetsan.exercise_gateway(0, poller="naive"),
+            fleetsan.FleetSanError, "swapped BACK"),
+    }
+    tel = os.path.abspath(f"{SCRATCH}/fleetsan")
+    shutil.rmtree(tel, ignore_errors=True)
+    os.makedirs(tel)
+    rec = fleetsan.run_process_chaos(world=2, duration_s=6.0, kill_after_s=2.5, timeout_s=120.0,
+                                     telemetry_dir=tel, device=SANITIZER_DEVICE,
+                                     env=FLEETSAN_ENV)
+    assert rec["ok"] and rec["flight_records"] > 0, rec
+    assert flight.find_dumps(os.path.join(tel, "host1")) == [rec["flight_dump"]], rec
+    for r, n in rec["launches"].items():
+        assert n == {"gae": 0, "vtrace": rec["consumed_blocks"][r]}, rec
+    print(f"fleetsan on the card: quick profile {out['schedules']} schedules clean "
+          f"({out['fleet']['kills']} kills, recover rounds max {out['fleet']['recover_rounds_max']}, "
+          f"{out['gateway']['swaps']} gateway swaps); replica sweep {replica['schedules']} clean "
+          f"({replica['swaps']} swaps, {replica['kills']} kills); reverted modes caught: "
+          f"{json.dumps(caught, ensure_ascii=False)}; process chaos at world 2 on the card "
+          f"({FLEETSAN_ENV}): rank 1 SIGKILLed {rec['killed_at_s']} s in, time to recover "
+          f"{rec['time_to_recover_s']} s, {rec['flight_records']} flight records harvested into "
+          f"{os.path.relpath(rec['flight_dump'])}, survivor gossip mixes "
+          f"{rec['survivor_gossip_mixes']}, consumed blocks {rec['consumed_blocks']} (the "
+          f"restarted rank's), V-trace launches {rec['launches']} (= consumed blocks, counted "
+          f"in each worker)", flush=True)
+    return {f"fleetsan gossip worker {r} (world 2, after the chaos)": n["vtrace"]
+            for r, n in rec["launches"].items()}
+
+
+def run_perfsan_on_card() -> dict[str, dict[str, int]]:
+    """perfsan (`analysis/perfsan.py`): the quick profile against the
+    manifest's `cuda` values (its programs on the card: graph replays,
+    pinned staging, the sync-debug guard), every program's actuals printed;
+    GAE and V-trace launches inside the PPO and mixture programs' measured
+    blocks, counted on the card, = the blocks (4 iterations a mixture call);
+    then each reverted mode, caught on its budget key. Returns the kernels'
+    launches by program."""
+    from actor_critic_tpu_torch.analysis import perfsan
+
+    out = perfsan.quick_profile(device=SANITIZER_DEVICE)
+    assert out["platform"] == SANITIZER_DEVICE and out["violations"] == 0, out
+    for name, entry in out["programs"].items():
+        a = entry["actuals"]
+        print(f"perfsan {name}: {a['dispatches']} dispatch(es) {a['dispatch_names']}, "
+              f"{a['transfers']} transfer(s), {a['transferred_bytes']} B, {a['recompiles']} "
+              f"recompile(s) a block" + (f"; enqueue {entry['enqueue_actuals']}"
+                                         if "enqueue_actuals" in entry else "")
+              + (f"; launches {entry['launches']}" if "launches" in entry else ""), flush=True)
+    made = {"ppo_update_host": {"gae": 0, "vtrace": 3}, "ppo_update_device": {"gae": 0, "vtrace": 3},
+            "ppo_update_fused": {"gae": 3, "vtrace": 0}, "mixture_fleet_step": {"gae": 12, "vtrace": 0}}
+    for name, n in made.items():
+        assert out["programs"][name]["launches"] == n, (name, out["programs"][name])
+    keys = {"host-gather": "max_transfers_per_block", "unfused": "max_dispatches_per_block",
+            "uncommit": "max_recompiles"}
+    caught = {mode: expect_raise(mode, lambda: perfsan.run_reverted(mode, device=SANITIZER_DEVICE),
+                                 perfsan.PerfSanError, key) for mode, key in keys.items()}
+    print(f"perfsan on the card: {len(out['programs'])} programs green against the manifest's cuda "
+          f"values; kernel launches inside the measured blocks {made} (= blocks, 4 iterations a "
+          f"mixture call); reverted modes caught on their keys: "
+          f"{json.dumps(caught, ensure_ascii=False)}", flush=True)
+    by = {"gae": {}, "vtrace": {}}
+    for name, n in made.items():
+        what = "3 measured calls of 4 iterations" if name == "mixture_fleet_step" else \
+            "3 measured blocks"
+        for kernel, count in n.items():
+            if count:
+                by[kernel][f"perfsan {name} ({what})"] = count
+    return by
+
+
+def adopt_orphans() -> None:
+    """Make this process the reaper of its orphaned descendants
+    (`PR_SET_CHILD_SUBREAPER`): a grandchild whose parent died first is
+    re-parented here, not to init, so that `stop_descendants` finds it."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(36, 1, 0, 0, 0) != 0:  # PR_SET_CHILD_SUBREAPER
+        print(f"chip_smoke: prctl(PR_SET_CHILD_SUBREAPER) failed (errno {ctypes.get_errno()}): "
+              "an orphaned grandchild escapes the final cleanup", file=sys.stderr, flush=True)
+
+
+def descendants() -> dict[int, str]:
+    """{pid: command line} of every live (not zombie) process below this
+    one, read from /proc."""
+    import os
+
+    children: dict[int, list[int]] = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        # The command name may hold spaces and parentheses: the fields
+        # after its last ")" are the state and the parent's pid.
+        state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+        if state != "Z":
+            children.setdefault(int(ppid), []).append(int(entry))
+    out, todo = {}, list(children.get(os.getpid(), ()))
+    while todo:
+        pid = todo.pop()
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                out[pid] = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:
+            continue
+        todo += children.get(pid, ())
+    return out
+
+
+def stop_descendants() -> dict[int, str]:
+    """SIGKILL every process still running below this one; returns them."""
+    import os
+    import signal
+
+    left = descendants()
+    for pid in left:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except OSError:
+            pass
+    return left
+
+
+class FrozenHeap:
+    """The collector's work inside `harness_heap_frozen`: the explicit
+    collections' ms (`collect`) and, apart from them, every collection over
+    1 ms (generation, ms)."""
+
+    def __init__(self):
+        self.collects: list[float] = []
+        self.pauses: list[tuple[int, float]] = []
+        self._t: Optional[float] = None
+        self._explicit = False
+
+    def watch(self, when: str, info: dict) -> None:
+        if when == "start":
+            self._t = time.perf_counter()
+        elif self._t is not None:
+            ms = (time.perf_counter() - self._t) * 1e3
+            self._t = None
+            if not self._explicit and ms > 1.0:
+                self.pauses.append((info["generation"], round(ms, 3)))
+
+    def collect(self) -> float:
+        """A full collection now; its ms."""
+        import gc
+
+        self._explicit = True
+        t0 = time.perf_counter()
+        try:
+            gc.collect()
+        finally:
+            self._explicit = False
+        ms = (time.perf_counter() - t0) * 1e3
+        self.collects.append(round(ms, 3))
+        return ms
+
+
+@contextlib.contextmanager
+def harness_heap_frozen(label: str):
+    """The harness's own heap, gathered over the phases before, out of the
+    collector's reach for the block (`gc.freeze`, after a full collection):
+    a collection over it, or one that destroys an earlier in-process run's
+    graphs and rings, stalls whatever runs in this process, and a timed
+    in-process run would read that stall as its own wall, where a trainer's
+    own process has neither. Yields a `FrozenHeap`, whose `collect()` the
+    block calls before each in-process run; objects made inside the block
+    are collected as usual. Prints the collections, also when the block
+    raises."""
+    import gc
+
+    heap = FrozenHeap()
+    gc.callbacks.append(heap.watch)
+    try:
+        heap.collect()
+        frozen = len(gc.get_objects())
+        gc.freeze()
+        try:
+            yield heap
+        finally:
+            gc.unfreeze()
+    finally:
+        gc.callbacks.remove(heap.watch)
+        print(f"{label}: the harness heap frozen, {frozen} objects after a full collection of "
+              f"{heap.collects[0]:.3f} ms; a full collection before each in-process run: "
+              f"{heap.collects[1:]} ms; other collections over 1 ms inside (generation, ms): "
+              f"{heap.pauses or 'none'}", flush=True)
+
+
 def phase(label: str, fn, *args, **kwargs):
     """`fn(*args, **kwargs)`, its host seconds printed after it as `phase
     <label>: <s> s` (the script's time budget is read off these lines)."""
@@ -5093,6 +5350,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    adopt_orphans()
     import faulthandler
 
     faulthandler.dump_traceback_later(STACKS_AFTER_S)
@@ -5191,7 +5449,10 @@ def main() -> int:
     phase("racesan on the card", run_racesan_on_card)
     numsan_gae = phase("numsan on the card", run_numsan_on_card)
     padsan_by_e = phase("padsan on the card", run_padsan_on_card)
-    report = phase("telemetry a2c_cartpole", run_telemetry_a2c)
+    fleetsan_vtrace = phase("fleetsan on the card", run_fleetsan_on_card)
+    perfsan_by = phase("perfsan on the card", run_perfsan_on_card)
+    with harness_heap_frozen("telemetry a2c_cartpole") as heap:
+        report = phase("telemetry a2c_cartpole", run_telemetry_a2c, heap)
     phase("telemetry host and async", run_telemetry_host_async, host_envs["ppo_halfcheetah"])
     phase("stall on the card, telemetry serve beside it", run_stall_on_card, run_telemetry_serve)
     phase("run report", wait_run_report, report)
@@ -5216,7 +5477,8 @@ def main() -> int:
                        "sp seqpar_gae [4096, 64] (world 1, NCCL)": sp_launches["gae"],
                        "numsan host PPO update (float32 and bf16)": numsan_gae,
                        **{f"padsan kernel seam E={e}, T=100 (GAE and λ-returns)": n
-                          for e, n in padsan_by_e["gae"].items() if n}},
+                          for e, n in padsan_by_e["gae"].items() if n},
+                       **perfsan_by["gae"]},
                "vtrace": {"impala_pong": launches["vtrace"],
                           "async ppo_halfcheetah (host plane)": async_vtrace,
                           "serve-while-training ppo_halfcheetah (device plane)": serve_vtrace,
@@ -5226,7 +5488,8 @@ def main() -> int:
                           "sp impala_pong update, train step and seqpar_vtrace (world 1, NCCL)":
                               sp_launches["vtrace"],
                           **{f"padsan kernel seam E={e}, T=100": n
-                             for e, n in padsan_by_e["vtrace"].items() if n}}}
+                             for e, n in padsan_by_e["vtrace"].items() if n},
+                          **fleetsan_vtrace, **perfsan_by["vtrace"]}}
     for e in entries:
         e["launches"] = launches[e["name"]]
         e["launches_by_path"] = by_path[e["name"]]
@@ -5234,6 +5497,8 @@ def main() -> int:
             f"kernel {e['name']} was not launched on a main path: {by_path[e['name']]}"
 
     faulthandler.cancel_dump_traceback_later()
+    left = stop_descendants()
+    print(f"processes left running at the end, killed: {left or 'none'}", flush=True)
     print(f"script: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
@@ -5246,4 +5511,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        left = stop_descendants()
+        if left:
+            print(f"chip_smoke: processes left running at the end, killed: {left}",
+                  file=sys.stderr, flush=True)
+    sys.exit(rc)
