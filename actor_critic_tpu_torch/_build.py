@@ -39,6 +39,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
+# torchlint: thread-owned=loader (two threads loading one library at once
+# both get a handle of the one mapped library, dlopen counting references;
+# the store is one dict setitem under the GIL)
 _loaded: dict[str, ctypes.CDLL] = {}
 # name -> (seconds, compiler output) of the builds this process ran.
 build_log: dict[str, tuple[float, str]] = {}
@@ -78,10 +81,10 @@ def build(*names: str) -> dict[str, Path]:
     source is recorded as one `compile` event (`telemetry/profiler.py`:
     its nvcc seconds and arch; a library already built is a cache hit)."""
     with _build_lock:
-        return _build(names)
+        return _build_locked(names)
 
 
-def _build(names) -> dict[str, Path]:
+def _build_locked(names) -> dict[str, Path]:
     from actor_critic_tpu_torch.telemetry import profiler
 
     build_dir().mkdir(parents=True, exist_ok=True)

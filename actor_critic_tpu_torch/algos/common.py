@@ -655,6 +655,9 @@ class BlockedEval:
         capture = generator.device.type == "cuda"
         alive = self.buffers[3]
         for i, n in enumerate(self.blocks):
+            # torchlint: disable=transfer-discipline (one read a block of steps,
+            # by design: the eval stops at the first block boundary where every
+            # env is done)
             if i > 0 and not bool(alive.any()):
                 break
             if not capture:

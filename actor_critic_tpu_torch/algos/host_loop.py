@@ -86,6 +86,7 @@ class EpisodeTracker:
     def update(self, raw_reward: np.ndarray, done: np.ndarray) -> None:
         self._ep_ret += raw_reward
         for i in np.nonzero(done)[0]:
+            # torchlint: disable=transfer-discipline (a numpy float: no card)
             self.finished.append(float(self._ep_ret[i]))
             self._ep_ret[i] = 0.0
 
@@ -517,6 +518,7 @@ def pool_state(tensors: dict[str, torch.Tensor]) -> dict:
         node = out
         for part in path:
             node = node.setdefault(part, {})
+        # torchlint: disable=transfer-discipline (CPU tensors of a restore)
         node[leaf] = t.numpy()
     return out
 
@@ -788,9 +790,14 @@ def off_policy_train_host(
                     @torch.no_grad()
                     def explore_act(o):
                         nonlocal env_steps
+                        # torchlint: disable=transfer-discipline (the device act
+                        # of a learner the numpy mirror cannot serve: the
+                        # observations go up and the actions come down each env
+                        # step, the host env path's data plane by design)
                         action = act(learner.actor, torch.as_tensor(o, device=device), generator,
                                      torch.tensor(env_steps, dtype=torch.int64, device=device))
                         env_steps += E
+                        # torchlint: disable=transfer-discipline (the same act)
                         return action.cpu().numpy(), {}
 
                 t0 = time.perf_counter()
@@ -917,6 +924,7 @@ class AsyncFeed:
     def stage(self, block, **scalars: int) -> None:
         if self.device_plane:
             for name, value in scalars.items():
+                # torchlint: disable=transfer-discipline (Python ints: no card)
                 self.scalar(name).fill_(int(value))
             self.queue.select(block)
             return

@@ -343,10 +343,13 @@ class ActorService:
         self.actor_id = int(actor_id)
         self.pool = pool
         self.tracker = EpisodeTracker(pool.num_envs)
-        # Written by this service's thread only; the learner reads them for
-        # its log rows and tolerates a read one block stale.
+        # torchlint: thread-owned=actor (single writer: this service's own
+        # thread bumps the progress counters; the learner only reads them for
+        # its log rows and tolerates a read one block stale)
         self.steps_collected = 0
+        # torchlint: thread-owned=actor (the same single-writer contract)
         self.blocks_pushed = 0
+        # torchlint: thread-owned=actor (the same single-writer contract)
         self.collect_s = 0.0
         self.error: Optional[BaseException] = None
         self._queue = queue

@@ -163,6 +163,7 @@ class _SimHost:
         path = params_file(self.dir, self.rank)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         data = _npz_bytes(self.version, _payload(self.rank, self.version))
+        # torchlint: disable=mailbox-protocol (the reverted direct writer under test)
         with open(path, "wb") as f:
             f.write(data[: len(data) // 2])
         yield "publish:half"
@@ -179,6 +180,7 @@ class _SimHost:
         path = params_file(self.dir, self.rank)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         tmp = os.path.join(self.dir, "pending.tmp")
+        # torchlint: disable=mailbox-protocol (the reverted shared-tmp writer under test)
         with open(tmp, "wb") as f:
             f.write(_npz_bytes(self.version, _payload(self.rank, self.version)))
         yield "publish:tmp"
@@ -202,6 +204,8 @@ class _SimHost:
 
         path = params_file(self.dir, self.rank)
         os.makedirs(os.path.dirname(path), exist_ok=True)
+        # torchlint: disable=mailbox-protocol (a writer killed before its fsync
+        # and rename: the fault under test)
         with open(f"{path}.tmp.{os.getpid()}", "wb") as f:
             f.write(_npz_bytes(self.version, _payload(self.rank, self.version)))
 
@@ -267,9 +271,11 @@ def _replace_with(path: str, data: bytes) -> None:
     """Re-place `path` with `data` atomically (the reorder and duplicate
     injectors: a stale complete snapshot delivered late)."""
     tmp = f"{path}.tmp.reorder"
+    # torchlint: disable=mailbox-protocol (the injector of a late stale
+    # snapshot: one process, no crash to survive)
     with open(tmp, "wb") as f:
         f.write(data)
-    os.replace(tmp, path)
+    os.replace(tmp, path)  # torchlint: disable=mailbox-protocol (the same injector)
 
 
 # ---------------------------------------------------------------------------

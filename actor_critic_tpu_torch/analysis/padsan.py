@@ -410,6 +410,7 @@ def exercise_mixture(seed: int, revert: Optional[str] = None, rounds: int = 2,
             s = state._replace(members=_fill_members(state.members, live, pad_fill))
             # The same generator state for both runs: a step's draws do not
             # depend on the values it steps.
+            # torchlint: disable=prng-reuse (the same stream for both runs on purpose)
             gen = torch.Generator(device=dev).manual_seed(key + 1)
             outs.append(env.step(s, action, gen))
             report["programs"] += 1

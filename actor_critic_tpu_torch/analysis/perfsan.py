@@ -265,8 +265,12 @@ _NUMPY_SEAMS = (
 )
 # Program objects' tensor addresses at their first metered call on the CPU
 # (the stand-in for what a capture on the card freezes), by program key.
+# torchlint: thread-owned=meter (setdefault is one call under the GIL: two
+# metered threads reaching one program get the same entry)
 _CPU_CAPTURES: "weakref.WeakKeyDictionary[Any, dict]" = weakref.WeakKeyDictionary()
-_ACTIVE: list = []  # the one active meter (measure() is not reentrant)
+# torchlint: thread-owned=main (the one active meter: measure() is not
+# reentrant and runs on the caller's thread)
+_ACTIVE: list = []
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -1244,6 +1248,8 @@ def main(argv=None) -> int:
         return 2
     try:
         if args.revert:
+            # torchlint: disable=collective-discipline (one process: the CLI maps
+            # a crash to exit 2; no fleet runs this)
             run_reverted(args.revert, args.manifest, device=args.device)
             print(f"perfsan: error: reverted mode {args.revert!r} was NOT detected — the meter "
                   "is blind", file=sys.stderr)

@@ -72,6 +72,8 @@ class CoopScheduler:
         self._local = threading.local()
         # Written by spawn() only, before run() starts any participant
         # (guarded by _started); run() only reads.
+        # torchlint: thread-owned=main (participants are registered by the
+        # test's thread before run() starts any of them)
         self._threads: dict[str, threading.Thread] = {}
         self._runnable: set[str] = set()
         self._live: set[str] = set()
@@ -431,6 +433,7 @@ def exercise_queue(
             sched.yield_point("filled")
             # Deliberate reuse of the fill buffer: TrajQueue.put copies
             # into its own pool, the producer contract under test.
+            # torchlint: disable=publish-aliasing (the contract under test)
             queue.put({"x": buf}, version=b, actor_id=p)
         # Participants are serialized by the scheduler (one runs at a
         # time), so the shared progress dict needs no lock here.
@@ -453,6 +456,7 @@ def exercise_queue(
                 # The reverted copy-on-transfer consumer: a zero-copy
                 # view, released before the read completes (the bug the
                 # poisoner must catch).
+                # torchlint: disable=publish-aliasing (the revert under test)
                 view = {k: np.asarray(v) for k, v in block.arrays.items()}
                 queue.release(block)
                 sched.yield_point("post-release")

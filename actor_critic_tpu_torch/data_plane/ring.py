@@ -244,7 +244,14 @@ class DeviceTrajRing:
                                               pin_memory=True) for _ in range(depth)]
             self._enqueued = [torch.cuda.Event() for _ in range(depth)]
             self._released = [torch.cuda.Event() for _ in range(depth)]
+            # torchlint: thread-owned=producer (per slot: a slot's flag is
+            # written only by the put that claimed the slot under the cv, and
+            # read by the next claimant after the handoff; one GIL-atomic
+            # list store)
             self._enqueue_recorded = [False] * depth
+            # torchlint: thread-owned=learner (per slot: written only by the
+            # learner releasing its lease, read by the next put of the slot
+            # after the release is handed over under the cv)
             self._release_recorded = [False] * depth
         self._cv = threading.Condition()
         self._free: list[int] = list(range(depth))

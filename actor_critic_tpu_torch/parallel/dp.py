@@ -214,7 +214,10 @@ def make_dp_train_step(
         if not checked:
             fp = replicated_fingerprint(state, specs)
             hi, lo = mesh_lib.pmax(fp, group), -mesh_lib.pmax(-fp, group)
+            # torchlint: disable=tracer-leak (the first call only, which is always
+            # eager: the fused loop's warm-up iterations run before any capture)
             if not torch.equal(hi, lo):
+                # torchlint: disable=tracer-leak (the same first, eager call)
                 raise ValueError("make_dp_train_step: the ranks' replicated state differs "
                                  f"(fingerprint max {hi.tolist()}, min {lo.tolist()})")
             checked.append(True)

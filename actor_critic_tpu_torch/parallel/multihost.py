@@ -299,7 +299,9 @@ class FileMailboxWriter:
         # Rebound by the learner's thread (set_round); this thread reads it
         # and tolerates a one-poll-stale round.
         self._round = 0
-        # This thread's alone: the newest version seen per peer.
+        # torchlint: thread-owned=mailbox (single writer: poll_once runs on
+        # the mailbox thread's loop only, or under fleetsan's scheduler with
+        # the thread never started; nothing else reads the per-peer clock)
         self._seen: dict[int, int] = {}
         self.error: Optional[BaseException] = None
         self._thread = threading.Thread(target=self._run, name=f"mailbox-{rank}", daemon=True)

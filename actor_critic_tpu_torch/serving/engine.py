@@ -300,6 +300,8 @@ class PolicyEngine:
         self.obs_dtype = obs_dtype_of(spec)
         if backend == "auto" and self.sample:
             backend = "device"  # the mirror serves greedy only: nothing to choose
+        # torchlint: thread-owned=caller (resolve_backend fixes "auto" once, on
+        # the owning thread at start-up, before any lane serves)
         self.backend = backend
         # resolve_backend's measurement ({'backend', 'device_ms', 'mirror_ms'}).
         self.auto_choice: Optional[dict] = None

@@ -413,7 +413,12 @@ class MailboxPolicySyncer:
         # Written by the sync thread's loop only (or a test's direct
         # poll_once with the thread never started); observers read the
         # ints as they are.
+        # torchlint: thread-owned=mailbox (newest version this replica
+        # consumed; single writer: poll_once runs on the sync thread's loop
+        # only, or under fleetsan's scheduler with the thread never
+        # started; swaps() reads it as a plain GIL-atomic int)
         self._seen = -1
+        # torchlint: thread-owned=mailbox (the same single writer as _seen)
         self._swaps = 0
         self.error: Optional[BaseException] = None
         self._stop = threading.Event()

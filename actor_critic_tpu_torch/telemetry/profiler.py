@@ -179,6 +179,10 @@ class WindowedProfiler:
         # request counter), and tick() only READS, comparing the counter
         # with the last value it consumed.
         self._pending_arm = DEFAULT_PROFILE_ITERS
+        # torchlint: thread-owned=signal (single writer by design: only the
+        # signal handler bumps the request counter; taking the
+        # non-reentrant lock there would deadlock a handler landing inside
+        # tick(), see above)
         self._arm_requests = 0
         self._arm_seen = 0
         self._remaining = 0

@@ -116,6 +116,8 @@ def rss_bytes() -> Optional[int]:
         return maxrss if sys.platform == "darwin" else maxrss * 1024
 
 
+# torchlint: thread-owned=sampler (a cache of torch.cuda.device_count(): a
+# second thread filling it at the same time writes the same count)
 _card_count: Optional[int] = None
 
 

@@ -236,6 +236,9 @@ class TelemetrySession:
         # threads READ it, and FlightRecorder's record/dump/close are
         # individually no-ops after close, so a stale read during shutdown
         # degrades to a dropped mirror record.
+        # torchlint: thread-owned=owner (only the session-owning thread writes
+        # this, set here and cleared in close(); other threads read it, and a
+        # stale read during shutdown drops one mirror record)
         self.flight = None
         if flight:
             from actor_critic_tpu_torch.telemetry.flight import (
@@ -258,6 +261,9 @@ class TelemetrySession:
         # Single writer: observe() runs on the training thread only; the
         # exporter thread snapshots via rates()'s dict() copy, and a
         # one-row-stale read is fine for a metrics scrape.
+        # torchlint: thread-owned=train (single writer: observe() runs on the
+        # training thread only; the exporter copies it with one dict() call
+        # under the GIL, and a row-stale read is fine for a scrape)
         self._rates: dict[str, float] = {}
         self._prev_observe: Optional[tuple[int, Optional[float], float]] = None
         self.event("session_start", **(run_info or {}))
@@ -269,11 +275,15 @@ class TelemetrySession:
         ]
         # The session's lifecycle (install and close()) is owned by the
         # run-owning thread; daemon threads only read these handles.
+        # torchlint: thread-owned=train (the session's lifecycle, install and
+        # close(), belongs to the run-owning thread; daemon threads only read
+        # the handles)
         self.profiler = None
         if profile:
             from actor_critic_tpu_torch.telemetry.profiler import WindowedProfiler
 
             self.profiler = WindowedProfiler(self.directory)
+        # torchlint: thread-owned=train (the same lifecycle contract as profiler)
         self.sampler: Optional[ResourceSampler] = None
         if sample_resources:
             self.sampler = ResourceSampler(
@@ -284,6 +294,7 @@ class TelemetrySession:
                     else self.flight.record_gauges
                 ),
             ).start()
+        # torchlint: thread-owned=train (the same lifecycle contract as profiler)
         self.exporter = None
         if serve_port is not None:
             from actor_critic_tpu_torch.telemetry.exporter import TelemetryExporter

@@ -1135,6 +1135,8 @@ def _run(preset, args: argparse.Namespace, host: bool, fused_env, device: torch.
                 snap_cadences(args)
             watchdog = start_watchdog(args)
             try:
+                # torchlint: disable=rank-affinity (main's rank_paths has made
+                # --metrics <root>.host<rank><ext> on every --distributed rank)
                 with JsonlLogger(args.metrics, echo=not args.quiet) as logger:
                     if pools is not None and args.distributed:
                         final = run_multihost(pools, preset, args, logger, device)

@@ -68,6 +68,13 @@ def state_file(rank: int, world: int) -> str:
 CHUNK_WALL_FILE = "chunk_wall.json"
 
 
+def _fsync_file(path: str) -> None:
+    """Flush `path`'s data to the disk: a checkpoint renamed into place must
+    not be published before its bytes are (a crash could leave it empty)."""
+    with open(path, "rb") as f:
+        os.fsync(f.fileno())
+
+
 class Checkpointer:
     """Saves and restores train states under `directory`, one sub-directory
     per iteration count, keeping the newest `max_to_keep`. With a `mesh`
@@ -135,7 +142,11 @@ class Checkpointer:
         torch.save(payload, os.path.join(tmp, STATE_FILE))
         with open(os.path.join(tmp, METRICS_FILE), "w") as f:
             json.dump(metrics, f)
+        for name in (STATE_FILE, METRICS_FILE):
+            _fsync_file(os.path.join(tmp, name))  # the data durable before the rename
         shutil.rmtree(self._path(step), ignore_errors=True)
+        # torchlint: disable=mailbox-protocol (one writer per checkpoint
+        # directory: the run's own; world > 1 takes _save_shard)
         os.replace(tmp, self._path(step))
         for old in self.all_steps()[:-self.max_to_keep]:
             shutil.rmtree(self._path(old))
@@ -148,10 +159,16 @@ class Checkpointer:
         os.makedirs(self._path(step), exist_ok=True)
         tmp = self._path(step, f".{self.state_file}.tmp")
         torch.save(payload, tmp)
+        _fsync_file(tmp)
+        # torchlint: disable=mailbox-protocol (the tmp name carries the rank:
+        # state_file is state.<rank>-of-<world>.pt)
         os.replace(tmp, self._path(step, self.state_file))
         if self.rank == 0:
             with open(self._path(step, f".{METRICS_FILE}.tmp"), "w") as f:
                 json.dump(metrics, f)
+                f.flush()
+                os.fsync(f.fileno())
+            # torchlint: disable=mailbox-protocol (rank 0 alone writes the metrics)
             os.replace(self._path(step, f".{METRICS_FILE}.tmp"), self._path(step, METRICS_FILE))
         for old in self.all_steps()[:-self.max_to_keep]:
             os.remove(self._path(old, self.state_file))

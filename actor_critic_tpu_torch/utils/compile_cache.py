@@ -281,9 +281,13 @@ def warmup_of(ctx: WarmupContext, kernels: tuple[str, ...] = (), host: bool = Fa
 # its entry will not run under this context (wrong algo, host entry on a
 # fused run, eval disabled ...) or has nothing to capture in the port.
 # Populated by the register_warmup decorators at module import.
+# torchlint: thread-owned=import (populated only by @register_warmup at
+# module-import time, under the import lock; the warm-up thread and the
+# registry lint only read it afterwards)
 _REGISTRY: dict[str, Callable[[WarmupContext], Optional[Callable]]] = {}
 # The planners of the SERVING side (register_warmup(..., serving=True)):
 # plan_warmup runs exactly one side per context.
+# torchlint: thread-owned=import (the same import-time population as _REGISTRY)
 _SERVING_PLANNERS: set[str] = set()
 # The modules whose import registers planners.
 _REGISTERING_MODULES = (
@@ -402,6 +406,9 @@ def plan_warmup(ctx: WarmupContext) -> list[tuple[str, Callable]]:
 
 # The runner whose plan `capture_part` consults (at most one per process:
 # the CLI's).
+# torchlint: thread-owned=main (set by the owner's start; cleared to None
+# by _finish on the warm-up thread or by close on the owner, each only for
+# its own runner, so the two racing write the same None)
 _active: Optional["WarmupRunner"] = None
 # Called with the runner on the thread that completes its plan, right after
 # its `warmup_done` event: before the first dispatch of the site that

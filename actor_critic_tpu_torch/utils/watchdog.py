@@ -33,6 +33,10 @@ STALL_EXIT_CODE = 42
 # start()/stop(); the watchdog daemon and /healthz threads only iterate,
 # and a snapshot that is one arm/disarm stale is harmless for a heartbeat
 # check.
+# torchlint: thread-owned=main (arm and disarm, append and remove, happen
+# only on the run-owning thread through start()/stop(); the watchdog and
+# /healthz threads only iterate, and a snapshot one arm stale is harmless
+# for a heartbeat check)
 _ACTIVE: list["StallWatchdog"] = []
 
 
@@ -121,6 +125,9 @@ class StallWatchdog:
         self.timeout_s = float(timeout_s)
         # extend_grace raises the deadline from the run-owning thread
         # only; the watchdog thread reads a float.
+        # torchlint: thread-owned=main (extend_grace raises the deadline from
+        # the run-owning thread only; the watchdog thread reads a float, and
+        # a raise racing a raise keeps the larger deadline, the safe side)
         self._grace_until = time.monotonic() + max(timeout_s, startup_grace_s)
         self._last = time.monotonic()
         self._stopped = False

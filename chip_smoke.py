@@ -224,6 +224,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      recompiles a block; GAE and V-trace launches inside the PPO and
      mixture programs = the blocks and iterations they consumed) and its
      three reverted modes, each caught on its budget key;
+   - the static analyzer (`python -m actor_critic_tpu_torch.analysis.torchlint`,
+     run over the port's tree in the background from the script's start):
+     exit 0 and no finding the baseline does not cover, its checks and
+     seconds printed; then three of its capture checks grounded on the
+     card, in two child processes: the flag twins of tracer-leak (a sync
+     inside a capture) and prng-reuse (an unregistered generator drawn
+     inside a capture) raise or bake in what they read, donation-aliasing's
+     (a restored tensor rebound into a captured state) makes graph != eager,
+     and each ok twin gives graph = eager at 0.0;
 6. a `{"kernels": [...]}` line (each kernel's launches on every main path
    that runs it under `launches_by_path`), then the card's name and power
    limit;
@@ -2166,7 +2175,7 @@ ASYNC_LOCKSTEP_ITERATIONS = 5    # two eager, a capture, replays
 # outruns the learner, with the GIL deciding) and 250-380 on the device
 # plane, so the gate opens by block ~8 and ~8-13; each run needs it open
 # 5 blocks before its end (at least 167 and 111 env steps a block).
-ASYNC_OFFPOLICY_BLOCKS = {"host": 12, "device": 24}
+ASYNC_OFFPOLICY_BLOCKS = {"host": 12, "device": 20}
 ASYNC_RESUME_BLOCKS = 4
 # Consumed env-steps/s of the async PPO phase's runs, by (plane, codec): the
 # serve-while-training phase's run without --serve-port.
@@ -2681,10 +2690,10 @@ def run_async_resume(env: str) -> None:
 # actions, Humanoid-v5 348 and 17.
 SERVE_SHAPES = {"ppo_cartpole": None, "ppo_halfcheetah": (17, 6), "td3_walker2d": (17, 6),
                 "sac_humanoid": (348, 17)}
-SERVE_CALLS = 200             # timed acts a bucket and way (graph, eager)
-SERVE_LATENCY_CALLS = 1000    # batch-1 acts for p50 / p99 through engine.act
-SERVE_HTTP_CALLS = 500        # batch-1 requests for p50 / p99 through HTTP
-SERVE_LOAD_S = 2.0            # seconds of mixed-size load for rows/s
+SERVE_CALLS = 100             # timed acts a bucket and way (graph, eager)
+SERVE_LATENCY_CALLS = 400    # batch-1 acts for p50 / p99 through engine.act
+SERVE_HTTP_CALLS = 200        # batch-1 requests for p50 / p99 through HTTP
+SERVE_LOAD_S = 1.0            # seconds of mixed-size load for rows/s
 SERVE_CLIENTS = 16            # concurrent clients of the load and the checks
 SERVE_MIXED_SIZES = (1, 3, 2, 1, 4, 6, 8, 2, 5, 1, 7, 3, 2, 6, 1, 4)
 SERVE_SWAPS = 4               # checkpoints swapped in under load (versions 2..5)
@@ -3216,8 +3225,8 @@ def consumed_rate(logged: list[dict], summary: dict) -> float:
 
 MULTIHOST_BLOCKS = 4            # world-1 sync: 2 eager blocks, a capture, replays
 MULTIHOST_CHECK_AT = 4          # the block whose replay is held against the single host's
-MULTIHOST_TIMED_REPLAYS = 5     # each way, from one restored state
-MULTIHOST_TIMED_CHECKS = 20     # consistency checks timed with the actors held
+MULTIHOST_TIMED_REPLAYS = 3     # each way, from one restored state
+MULTIHOST_TIMED_CHECKS = 10     # consistency checks timed with the actors held
 GOSSIP_BLOCKS = 6               # each rank's consumed blocks in the world-2 gossip run
 FLEET_ACTS = 6                  # requests through the proxy before and after the kill
 
@@ -3853,31 +3862,48 @@ def run_warmup_host_ppo(env: str) -> None:
           flush=True)
 
 
-def run_build_cache() -> None:
-    """The build cache cold and warm, each a fresh process that runs a plan
-    entry's build part for `gae.cu`, `vtrace.cu` and the native engine:
-    `--compile-cache-dir none` (a fresh temporary directory: three misses,
-    with nvcc's and g++'s seconds) and an explicit new directory, side by
-    side; then a second process on that directory: three hits."""
+def _cache_child(value: str) -> subprocess.Popen:
+    """A fresh process running a plan entry's build part (CACHE_CHILD) with
+    `--compile-cache-dir value`."""
+    import os
+
+    return subprocess.Popen([sys.executable, "-c", CACHE_CHILD, value],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env={**os.environ, "PYTHONPATH": os.getcwd()})
+
+
+def start_build_cache() -> tuple[str, subprocess.Popen, subprocess.Popen]:
+    """The build cache's two cold runs (`none` and an explicit new
+    directory), started in the background early in the script: they use
+    the host's cores (nvcc, g++), not the card, and `run_build_cache`
+    collects them."""
     import os
     import shutil
 
     explicit = os.path.abspath(f"{SCRATCH}/build_cache")
     shutil.rmtree(explicit, ignore_errors=True)
+    return explicit, _cache_child("none"), _cache_child(explicit)
 
-    def child(value: str) -> subprocess.Popen:
-        return subprocess.Popen([sys.executable, "-c", CACHE_CHILD, value],
-                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                                env={**os.environ, "PYTHONPATH": os.getcwd()})
+
+def run_build_cache(started: tuple[str, subprocess.Popen, subprocess.Popen]) -> None:
+    """The build cache cold and warm, each a fresh process that runs a plan
+    entry's build part for `gae.cu`, `vtrace.cu` and the native engine:
+    `--compile-cache-dir none` (a fresh temporary directory: three misses,
+    with nvcc's and g++'s seconds) and an explicit new directory, side by
+    side (`start_build_cache`, early in the script, beside other phases, so
+    their seconds include that contention); then a second process on that
+    directory: three hits."""
+    import os
+
+    explicit, cold_none, cold_dir = started
 
     def result(proc: subprocess.Popen) -> dict:
         out, err = proc.communicate(timeout=300)
         assert proc.returncode == 0, err[-2000:]
         return json.loads(out.strip().splitlines()[-1])
 
-    cold_none, cold_dir = child("none"), child(explicit)
     runs = {"none (cold)": result(cold_none), "explicit (cold)": result(cold_dir)}
-    runs["explicit (warm)"] = result(child(explicit))
+    runs["explicit (warm)"] = result(_cache_child(explicit))
     for label, r in runs.items():
         builds = [f"{k} {s:.2f} s{' (hit)' if hit else ''}" for k, (s, hit) in r["builds"].items()]
         print(f"build cache {label}: {r['cache']}, {r['seconds']:.2f} s, {r['stats']}; "
@@ -3932,7 +3958,7 @@ BF16_ASYNC_BLOCKS = 5
 BF16_SAC_WARMUP = 256        # env steps: the SAC learner's gate opens at iteration 5
 BF16_SAC_ITERATIONS = 6
 BF16_SERVE_PRESETS = ("ppo_cartpole", "ppo_halfcheetah")
-PROFILE_REPLAYS = 10         # graph replays a turn, float32 against bf16
+PROFILE_REPLAYS = 6         # graph replays a turn, float32 against bf16
 PROFILE_PRESETS = (("a2c_cartpole", 3, ""), ("impala_pong", 3, ""))
 
 
@@ -5096,8 +5122,8 @@ def run_padsan_on_card() -> dict[str, dict[int, int]]:
     return by_e
 
 
-FLEETSAN_SCHEDULES = 40     # the quick profile: 20 fleet, 20 gateway schedules
-FLEETSAN_REPLICA_SEEDS = 8  # the replica-kill-mid-swap sweep
+FLEETSAN_SCHEDULES = 20     # the quick profile: 10 fleet, 10 gateway schedules
+FLEETSAN_REPLICA_SEEDS = 4  # the replica-kill-mid-swap sweep
 # The chaos workers' pool: the card's machine has no gymnasium for the
 # sleep-padded CartPole, so the C++ engine's.
 FLEETSAN_ENV = "native:CartPole-v1"
@@ -5208,6 +5234,196 @@ def run_perfsan_on_card() -> dict[str, dict[str, int]]:
             if count:
                 by[kernel][f"perfsan {name} ({what})"] = count
     return by
+
+
+LINT_FIXTURES = "tests/torch_lint_fixtures"
+LINT_CHILD = ("import sys, time, json; t0 = time.perf_counter(); "
+              "from actor_critic_tpu_torch.analysis import core, torchlint; "
+              "rc = torchlint.main(['--json']); "
+              "print(json.dumps({'rc': rc, 'seconds': time.perf_counter() - t0, "
+              "'checks': [c.name for c in core.registered_checks()]})); sys.exit(rc)")
+
+
+def start_static_analyzer() -> tuple[subprocess.Popen, str]:
+    """The port's static analyzer over its own tree
+    (`python -m actor_critic_tpu_torch.analysis.torchlint --json`, the
+    default scan), started in the background at the script's start: it
+    reads source only, on the host's cores, and `run_static_analyzer`
+    collects it. Its output goes to a file under SCRATCH."""
+    import os
+
+    os.makedirs(SCRATCH, exist_ok=True)
+    path = os.path.join(SCRATCH, "torchlint.json")
+    with open(path, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-c", LINT_CHILD], stdout=f,
+                                stderr=subprocess.STDOUT, text=True)
+    return proc, path
+
+
+def _fixture(stem: str):
+    """A twin of `tests/torch_lint_fixtures/`, imported from its file."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), LINT_FIXTURES, f"{stem}.py")
+    spec = importlib.util.spec_from_file_location(f"torchlint_{stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def lint_grounding_child(which: str) -> None:
+    """The static analyzer's capture checks grounded on the card (run in a
+    child process: a failed capture may leave its CUDA context unusable).
+    `which` "main": each ok twin of tracer-leak, prng-reuse and
+    donation-aliasing captured with `torch.cuda.graph` and held against its
+    eager run (0.0 expected), then donation-aliasing's flag twin (the
+    rebound restore: graph != eager) and tracer-leak's (the sync inside the
+    capture raises, or the graph replays the branch read then); "prng":
+    prng-reuse's flag twin (a draw from an unregistered generator inside
+    the capture raises, or every replay repeats its draws). Prints one JSON
+    line."""
+    import types
+
+    import torch
+
+    dev = "cuda"
+    out: dict = {}
+
+    def diff(a, b) -> float:
+        return float((a.double() - b.double()).abs().max())
+
+    if which == "prng":
+        flag = _fixture("prng_reuse_flag")
+        gen = torch.Generator(device=dev).manual_seed(7)
+        x = torch.zeros(4096, device=dev)
+        try:
+            graph, y = flag.noisy_capture(gen, x)
+        except RuntimeError as e:
+            out["prng_flag"] = {"raised": str(e).splitlines()[0][:160]}
+        else:
+            graph.replay()
+            a = y.clone()
+            graph.replay()
+            torch.cuda.synchronize()
+            out["prng_flag"] = {"repeats": bool(torch.equal(a, y))}
+        print(json.dumps(out), flush=True)
+        return
+
+    # tracer-leak, ok twin: torch.where keeps the choice on the card.
+    ok = _fixture("tracer_leak_ok")
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(256, generator=g, device=dev)
+    graph, y = ok.captured_relu(x)
+    worst = 0.0
+    base = torch.rand(256, generator=g, device=dev) + 0.1
+    for inp in (base, -base):  # both branches of the choice
+        x.copy_(inp)
+        graph.replay()
+        worst = max(worst, diff(y, ok.relu_branch(inp)))
+    out["tracer_ok"] = worst
+    # prng-reuse, ok twin: the registered generator advances every replay.
+    ok = _fixture("prng_reuse_ok")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = torch.zeros(4096, device=dev)
+    graph, y = ok.noisy_capture(gen, x)
+    state = gen.get_state()
+    graph.replay()
+    first = y.clone()
+    gen.set_state(state)
+    eager = x + torch.randn(x.shape, generator=gen, device=dev)
+    graph.replay()
+    out["prng_ok"] = diff(first, eager)
+    out["prng_ok_advances"] = not bool(torch.equal(first, y))
+
+    # donation-aliasing: a graph captured over state.params.
+    def captured_state():
+        s = types.SimpleNamespace(params=torch.randn(512, generator=g, device=dev),
+                                  out=torch.zeros(512, device=dev))
+        gr = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(gr):
+            s.out.copy_(s.params * 2.0)
+        return s, gr
+
+    class Ckpt:
+        def __init__(self):
+            self.params = torch.randn(512, generator=g, device=dev)
+
+        def restore(self, _state):
+            return {"params": self.params.clone()}
+
+    for twin in ("ok", "flag"):
+        s, gr = captured_state()
+        ckpt = Ckpt()
+        _fixture(f"donation_aliasing_{twin}").resume_and_step(ckpt, gr, s)
+        torch.cuda.synchronize()
+        out[f"donation_{twin}"] = diff(s.out, ckpt.params * 2.0)
+    # tracer-leak, flag twin, last: a sync inside the capture.
+    flag = _fixture("tracer_leak_flag")
+    x = torch.randn(256, generator=g, device=dev).abs()
+    try:
+        graph, y = flag.captured_relu(x)
+    except RuntimeError as e:
+        out["tracer_flag"] = {"raised": str(e).splitlines()[0][:160]}
+    else:
+        inp = -(torch.rand(256, generator=g, device=dev) + 0.1)
+        x.copy_(inp)
+        graph.replay()
+        out["tracer_flag"] = {"baked": diff(y, flag.relu_branch(inp))}
+    print(json.dumps(out), flush=True)
+
+
+def run_static_analyzer(lint: tuple[subprocess.Popen, str]) -> None:
+    """The port's static analyzer: its run over the port's tree (started at
+    the script's start) exits 0 with no finding the baseline does not
+    cover, its checks and seconds printed; then three capture checks
+    grounded on the card, each twin captured with `torch.cuda.graph` in a
+    child process (two children, at once): tracer-leak's and prng-reuse's
+    flag twins raise (or bake a branch / repeat their draws), the rebound
+    restore of donation-aliasing's flag twin makes graph != eager, and
+    each ok twin gives graph = eager at 0.0. A failure of a child fails the
+    phase."""
+    import os
+
+    proc, path = lint
+    rc = proc.wait(timeout=600)
+    text = open(path).read()
+    lines = text.strip().splitlines()
+    meta = json.loads(lines[-1])
+    report = json.loads("\n".join(lines[:-1]))
+    assert rc == 0 and meta["rc"] == 0 and report["counts"]["new"] == 0, text[-4000:]
+    assert report["counts"]["stale"] == 0, report["stale_baseline_entries"]
+    print(f"static analyzer: python -m actor_critic_tpu_torch.analysis.torchlint over "
+          f"actor_critic_tpu_torch/ and chip_smoke.py, {len(meta['checks'])} checks "
+          f"({', '.join(meta['checks'])}): exit 0, {report['counts']['new']} new, "
+          f"{report['counts']['baselined']} baselined findings; {meta['seconds']:.2f} s of its "
+          f"own (host clock, in the background beside the earlier phases)", flush=True)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    children = {w: subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.lint_grounding_child({w!r})"],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for w in ("main", "prng")}
+    got: dict = {}
+    for w, child in children.items():
+        o, e = child.communicate(timeout=300)
+        assert child.returncode == 0, f"grounding child {w!r} failed (exit {child.returncode}):" \
+                                      f"\n{o[-2000:]}\n{e[-4000:]}"
+        got.update(json.loads(o.strip().splitlines()[-1]))
+    assert got["tracer_ok"] == 0.0 and got["prng_ok"] == 0.0 and got["donation_ok"] == 0.0, got
+    assert got["prng_ok_advances"], got
+    assert got["donation_flag"] > 0.0, got
+    tracer, prng = got["tracer_flag"], got["prng_flag"]
+    assert "raised" in tracer or tracer["baked"] > 0.0, tracer
+    assert "raised" in prng or prng["repeats"], prng
+    print(f"static analyzer on the card: tracer-leak flag twin "
+          f"{'raised: ' + tracer['raised'] if 'raised' in tracer else 'baked the branch read at the capture (max diff %.3g)' % tracer['baked']}; "
+          f"prng-reuse flag twin "
+          f"{'raised: ' + prng['raised'] if 'raised' in prng else 'repeated its draws on every replay'}; "
+          f"donation-aliasing flag twin graph != eager (max diff {got['donation_flag']:.3g}); "
+          f"the ok twins graph = eager at {got['tracer_ok']}, {got['prng_ok']}, "
+          f"{got['donation_ok']} (the registered generator advancing between replays)",
+          flush=True)
 
 
 def adopt_orphans() -> None:
@@ -5366,7 +5582,9 @@ def main() -> int:
     for name, (secs, text) in _build.build_log.items():
         print(f"nvcc {name}.cu ({secs:.2f} s):\n{text.strip()}", flush=True)
 
+    lint = start_static_analyzer()
     host_envs = probe_host_envs()
+    cache_runs = start_build_cache()
     floor_ms = launch_floor_ms()
     print(f"launch floor: {floor_ms * 1e3:.3f} us on the device (torch.profiler, "
           f"a one-element zero_())", flush=True)
@@ -5416,7 +5634,7 @@ def main() -> int:
         phase(f"host {preset_name}", run_host_offpolicy, preset_name, host_envs[preset_name])
     phase("host resume", run_host_resume, "td3_walker2d", host_envs["td3_walker2d"])
     phase("warm-up host ppo_halfcheetah", run_warmup_host_ppo, host_envs["ppo_halfcheetah"])
-    phase("build cache", run_build_cache)
+    phase("build cache", run_build_cache, cache_runs)
     print(f"host envs the presets ran on: {host_envs}; GAE launches on the host PPO path "
           f"{host_gae}", flush=True)
     phase("host ppo_halfcheetah bf16 contract", check_host_ppo_contract,
@@ -5451,6 +5669,7 @@ def main() -> int:
     padsan_by_e = phase("padsan on the card", run_padsan_on_card)
     fleetsan_vtrace = phase("fleetsan on the card", run_fleetsan_on_card)
     perfsan_by = phase("perfsan on the card", run_perfsan_on_card)
+    phase("static analyzer", run_static_analyzer, lint)
     with harness_heap_frozen("telemetry a2c_cartpole") as heap:
         report = phase("telemetry a2c_cartpole", run_telemetry_a2c, heap)
     phase("telemetry host and async", run_telemetry_host_async, host_envs["ppo_halfcheetah"])
